@@ -1,0 +1,19 @@
+"""Geometry: homogeneous helpers, epipolar core, rotations, correction,
+E decomposition."""
+
+from .basic import dehomo, homo, rt_inverse, rt_pad, safe_norm, skew
+from .correct import correct_matches, get_virtual_points, virtual_grid
+from .epipolar import (
+    E_F_from_Rt,
+    E_to_F,
+    F_to_E,
+    compute_epi_residual,
+    epi_distance,
+    epipolar_constraint_matrix,
+    hartley_normalize,
+    norm_hw_matrix,
+    normalize_hw,
+)
+from .rotations import R_to_q, rotation_angle_error, vector_angle
+
+__all__ = [k for k in dir() if not k.startswith("_")]

@@ -1,0 +1,93 @@
+"""The PointNet-style per-correspondence weight network.
+
+Counterpart of the base `ErrorEstimator` and `InstanceNorm1d` of
+`deepfepe_tpu/models/error_estimator.py`. Layout is [B, N, C]: a 1x1
+Conv1d over points is a Linear over the channel axis.
+
+Submodules follow the reference layout `fw.<i>` (Linear, InstanceNorm,
+LeakyReLU per hidden layer, then the final Linear at `fw.15`), so a
+reference-layout state_dict (Conv1d weights [out, in, 1]) loads with
+`strict=True`; the trailing kernel axis is dropped on load.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+from torch import nn
+
+FEATURES = (64, 128, 1024, 512, 256)
+
+
+class InstanceNorm1d(nn.Module):
+    """torch.nn.InstanceNorm1d(C, affine=True) on [B, N, C]: normalizes over
+    N per (batch, channel), biased variance, eps 1e-5."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = x.mean(dim=-2, keepdim=True)
+        var = ((x - mean) ** 2).mean(dim=-2, keepdim=True)
+        return (x - mean) / torch.sqrt(var + self.eps) * self.weight + self.bias
+
+
+def _drop_conv_kernel_axis(state_dict, prefix, *args):
+    for k in list(state_dict):
+        if k.startswith(prefix) and k.endswith(".weight") and state_dict[k].dim() == 3:
+            state_dict[k] = state_dict[k][..., 0]
+
+
+class ErrorEstimator(nn.Module):
+    """[B, N, C_in] -> [B, N, output_size] logits (float32 or wider).
+
+    `dtype` is the matmul type (bfloat16 by default in the config).
+    Parameters stay float32; InstanceNorm statistics are computed in at
+    least float32. Hidden Linear biases are kept.
+    """
+
+    def __init__(self, in_features: int, output_size: int = 1,
+                 features: Sequence[int] = FEATURES, negative_slope: float = 0.01,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.negative_slope = negative_slope
+        layers, c = [], in_features
+        for f in features:
+            layers += [nn.Linear(c, f), InstanceNorm1d(f), nn.LeakyReLU(negative_slope)]
+            c = f
+        layers.append(nn.Linear(c, output_size))
+        self.fw = nn.Sequential(*layers)
+        self._register_load_state_dict_pre_hook(_drop_conv_kernel_axis)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """The JAX package's initializers: LeCun-normal (truncated at two
+        standard deviations) kernels, zero biases, unit norm scales."""
+        for m in self.fw:
+            if isinstance(m, nn.Linear):
+                std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
+                m.bias.zero_()
+            elif isinstance(m, InstanceNorm1d):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        acc = torch.promote_types(dt, torch.float32)
+        x = x.to(dt)
+        for i in range(0, len(self.fw) - 1, 3):
+            lin, norm = self.fw[i], self.fw[i + 1]
+            x = x @ lin.weight.to(dt).T + lin.bias.to(dt)
+            x = norm(x.to(acc)).to(dt)
+            x = nn.functional.leaky_relu(x, self.negative_slope)
+        lin = self.fw[-1]
+        x = x @ lin.weight.to(dt).T + lin.bias.to(dt)
+        return x.to(acc)

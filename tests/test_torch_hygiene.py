@@ -1,0 +1,89 @@
+"""The port's boundaries: no JAX, no silent CPU fallback, a chip smoke
+that fails where it cannot run."""
+
+import ast
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import deepfepe_tpu_torch
+from deepfepe_tpu_torch import cli
+from deepfepe_tpu_torch.train.config import config_from_dict
+from deepfepe_tpu_torch.utils.device import resolve_device
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "deepfepe_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "deepfepe_tpu")
+
+
+def _imports(path):
+    tree = ast.parse(Path(path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def _env_without_cuda():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return env
+
+
+def test_importing_the_port_loads_no_jax():
+    mods = [m.name for m in pkgutil.walk_packages([str(PKG)], "deepfepe_tpu_torch.")]
+    assert "deepfepe_tpu_torch.cli" in mods and "deepfepe_tpu_torch.ops.eigh9" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env_without_cuda(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO))
+                                        for p in [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]))
+def test_no_source_imports_jax(path):
+    bad = [m for m in _imports(REPO / path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_entry_points_default_to_the_card_and_never_fall_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    cfg = config_from_dict({"data": {"batch_size": 1, "good_num": 20}})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.eval_good(cfg, 1, device=None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["eval_good", str(REPO / "configs" / "synthetic_baseline.yaml"), "x"])
+    assert deepfepe_tpu_torch.resolve_device is resolve_device
+
+
+def test_chip_smoke_fails_without_a_card():
+    out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=REPO,
+                         env=_env_without_cuda(), capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and "no CUDA device" in out.stderr
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         env=_env_without_cuda(), capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and "deepfepe_tpu_torch" in out.stderr
