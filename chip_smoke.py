@@ -8,35 +8,60 @@ non-zero without them. Phases, each printed as one JSON line with its
 seconds:
 
   device   the card's name and power limit (nvidia-smi);
-  build    nvcc build of every kernel source of the slice's path;
-  kernels  each kernel against its plain PyTorch version on the card at
-           the main path's shapes, with its bars, and timed beside the
-           plain version, one PyTorch library call and its bound;
+  build    nvcc build of every kernel source (one nvcc per source, all
+           started together), with its seconds and ptxas's register and
+           spill lines;
+  kernels  each kernel (eigh9 K1, the fused MLP forward K2 and backward
+           K2b) against its plain PyTorch version on the card at the main
+           paths' shapes, with its bars (K2 and K2b also against the exact
+           float64 stack), and timed beside the plain version, a PyTorch
+           yardstick and its bound;
   eval_good  the port's `eval_good` entry point at the full width of
            configs/synthetic_baseline.yaml (B=8, N=1000, depth 5, bf16
            MLP, 512 RANSAC hypotheses), 5 batches, seeded weights, with
            every kernel's launch count read around that run alone;
   breakdown  the same path again, each eigh solve timed by solver and
            shape, with its share of a batch;
-  check    the card's results against the CPU path on a small input.
+  train_good  the port's `train_good` entry point at the same width with
+           model.use_pallas_mlp: 6 F-loss steps with 2 validations and
+           checkpoints, 2 of them under torch.profiler (top device
+           kernels and the device's busy share), then 3 qt-loss steps
+           (configs/synthetic_qt.yaml's values) from the F checkpoint;
+           kernel launch counts read around each run alone;
+  check    the card's results against the CPU path on a small input: one
+           eval batch, and one train step in float32 and in bf16 with the
+           fused MLP, whose every K2 and K2b call is held on its own
+           inputs.
 
 The line before the card's name line is the kernels' JSON summary; the
 last line is {"ok": true, "device": {...}}. Any failed check exits 1.
+
+    python3 chip_smoke.py --plant FAULT
+
+builds, plants FAULT (one of FAULTS: a wiring fault in the autograd
+Function, or K2b built with one line changed) and runs only the MLP
+checks, printing their readings; it exits 1 when a check caught the
+fault. `--plant none` gives the sound readings the bars are set against.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, dense
+# bf16 on the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+SOURCES = ("eigh9.cu", "mlp.cu")
 
 # The synthetic_baseline.yaml values, built in code (no YAML reader needed).
 BASELINE = {
@@ -56,6 +81,50 @@ EVAL_BATCHES = 5
 # batched RANSAC hypothesis fan-out and one RANSAC refit.
 EIGH9_PER_BATCH = 5 + 1 + 1
 BREAKDOWN_BATCHES = 2
+
+# Training at the same width with the fused MLP kernels (model.use_pallas_mlp).
+TRAIN_F_STEPS, TRAIN_QT_STEPS = 6, 3
+VAL_INTERVAL, VAL_BATCHES = 3, 1
+PROFILE_START, PROFILE_STEPS = 3, 2
+TRAIN_F = {
+    **BASELINE,
+    "model": {**BASELINE["model"], "use_pallas_mlp": True, "balance_q": 1, "balance_t": 0.1},
+    "training": {"seed": 0, "learning_rate": 1e-4, "lr_decay_step": 10, "lr_decay_rate": 1,
+                 "clamp_iter1": 3000, "clamp_iter2": 6000,
+                 "clamp_q_params": [0.1, 0.01, 0.001], "clamp_t_params": [0.5, 0.3, 0.1],
+                 "train_iter": TRAIN_F_STEPS, "val_interval": VAL_INTERVAL,
+                 "val_batches": VAL_BATCHES, "save_interval": VAL_INTERVAL,
+                 "profile_start": PROFILE_START, "profile_steps": PROFILE_STEPS},
+}
+# The synthetic_qt.yaml values (it sets no resize), from the F checkpoint.
+TRAIN_QT = {
+    "name": "synthetic_qt",
+    "data": {"dataset": "synthetic", "batch_size": 8, "good_num": 1000, "noise_px": 0.5,
+             "outlier_frac": 0.15, "image": {"size": [376, 1241, 3]}},
+    "model": {"depth": 5, "clamp_at": 0.02, "if_quality": True, "quality_size": 1,
+              "if_qt_loss": True, "balance_q": 1, "balance_t": 1.0, "use_pallas_mlp": True},
+    "training": {"seed": 0, "learning_rate": 1e-4, "clamp_iter1": 3000, "clamp_iter2": 6000,
+                 "clamp_q_params": [0.1, 0.01, 0.001], "clamp_t_params": [0.5, 0.3, 0.1],
+                 "train_iter": TRAIN_F_STEPS + TRAIN_QT_STEPS, "val_interval": 0,
+                 "save_interval": 0},
+}
+MLP_FEATURES = (64, 128, 1024, 512, 256)
+# Each output of K2/K2b is held two ways. Against the plain version on the
+# same inputs, at the JAX package's bars (tests/test_mlp_pallas.py):
+# forward 2e-2, each gradient 1.5e-1 (bf16 backward transients and the
+# InstanceNorm backward's cancellation), relative to the largest entry in
+# the kernels phase and to the Frobenius norm in the train step, whose
+# gradients are sums over calls with cotangents under which a few entries
+# cancel (a sound kernel reached 0.166 of the largest entry there; 0.057
+# in the Frobenius norm; planted faults 0.50 and more). And against the
+# exact stack (float64, nothing rounded after the bf16 inputs), in the
+# Frobenius norm: at most F64_FACTOR times the plain version's own
+# distance from it plus F64_FLOOR, so the kernel rounds about as well as
+# the formula it ports. Sound readings reach 1.05 times the plain
+# version's distance, planted faults 1.94 and more (`--plant`; PERF.md).
+MLP_BARS = {"forward": 2e-2, "gradient": 1.5e-1}
+F64_FACTOR, F64_FLOOR = 1.3, 1e-3
+FAULTS = ("none", "dx_zero", "dgamma_dbeta_swapped", "c1_next_item", "c2_next_item")
 
 
 class CheckFailed(Exception):
@@ -196,17 +265,18 @@ def phase_eval_good(ph: Phases, cfg) -> dict:
     import torch
 
     from deepfepe_tpu_torch import cli
-    from deepfepe_tpu_torch.ops.eigh9 import eigh9
 
-    eigh9.launches = 0
+    reset_counts()
     summary = cli.eval_good(cfg, EVAL_BATCHES, device="cuda")
     torch.cuda.synchronize()
-    launches = {"eigh9": eigh9.launches}
+    launches = read_counts()
     expected = EIGH9_PER_BATCH * EVAL_BATCHES
-    ph.emit("eval_good", summary=summary, eigh9_launches=launches["eigh9"],
-            eigh9_expected=expected, pairs_per_s=summary["pairs"] / summary["seconds"])
+    ph.emit("eval_good", summary=summary, launches=launches, eigh9_expected=expected,
+            pairs_per_s=summary["pairs"] / summary["seconds"])
     check(launches["eigh9"] == expected,
           f"eigh9 launched {launches['eigh9']} times on the path, expected {expected}")
+    check(launches["mlp_forward"] == launches["mlp_backward"] == 0,
+          "the MLP kernels ran on a path configured without them")
     check(summary["pairs"] == EVAL_BATCHES * cfg.data.batch_size, "wrong number of pairs")
     check(all(np.isfinite(v) for v in summary.values() if isinstance(v, float)),
           f"non-finite summary: {summary}")
@@ -263,7 +333,8 @@ def phase_check(ph: Phases, cfg) -> None:
     import numpy as np
     import torch
 
-    from deepfepe_tpu_torch.cli import batch_to_device, evaluate
+    from deepfepe_tpu_torch.cli import evaluate
+    from deepfepe_tpu_torch.utils.device import batch_to_device
     from deepfepe_tpu_torch.data import SyntheticPairs
     from deepfepe_tpu_torch.eval import draw_hypotheses
     from deepfepe_tpu_torch.loader import model_loader
@@ -297,12 +368,612 @@ def phase_check(ph: Phases, cfg) -> None:
     check(d_inl <= bars["inliers"], f"RANSAC inlier counts differ by {d_inl}")
 
 
-def main() -> int:
+def build_all(ph: Phases) -> None:
+    """One nvcc per source, all started together."""
+    from deepfepe_tpu_torch.utils import build
+
+    def one(src):
+        t = time.perf_counter()
+        path, log = build.build(src)
+        return src, path, log, time.perf_counter() - t
+
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        results = list(pool.map(one, SOURCES))
+    for src, path, log, secs in results:
+        ptxas = [ln.split("ptxas info    : ")[-1].strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        spills = sum(1 for ln in ptxas if "spill" in ln and not ln.startswith("0 bytes stack")
+                     and " 0 bytes spill stores, 0 bytes spill loads" not in ln)
+        ph.emit("build", source=src, nvcc_seconds=secs, library=os.path.relpath(path, REPO),
+                functions_with_spills=spills, ptxas=ptxas)
+
+
+def mlp_dims(c_in: int) -> list:
+    return [c_in, *MLP_FEATURES, 1]
+
+
+def mlp_bound_ms(c_in: int, rows: int, backward: bool) -> tuple[float, str]:
+    """Least time for the stack over `rows` points: its bf16 products
+    (2 flops a multiply-add; the backward recomputes the forward and adds
+    the weight- and input-gradient products, 3x) over the bf16 tensor-core
+    rate, against x, the float32 parameters and the logits (and, for the
+    backward, g, dx and the parameter gradients) moved once over HBM. The
+    elementwise work (statistics, normalization) is not counted."""
+    d = mlp_dims(c_in)
+    macs = sum(a * b for a, b in zip(d[:-1], d[1:]))
+    n_params = macs + 2 * sum(d[1:-1]) + d[-1]  # hidden biases are never read
+    flops = 2 * rows * macs * (3 if backward else 1)
+    floats = rows * d[0] + n_params + rows * d[-1]
+    if backward:
+        floats += n_params + rows * d[0]
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = 4 * floats / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def exact_pointnet_mlp(x, g, Ws, gammas, betas, Wf, bf, slope: float = 0.01):
+    """The stack in float64 with nothing rounded after its bf16 inputs (x
+    and the hidden and final weights, which the kernels read as bf16): the
+    logits and, by autograd, the gradients for the cotangent g, in the
+    order `reference_pointnet_mlp_bwd` returns them."""
     import torch
 
+    def leaf(t, bf16):
+        return (t.to(torch.bfloat16) if bf16 else t).double().detach().requires_grad_(True)
+
+    xb, Wsb, Wfb = leaf(x, True), [leaf(W, True) for W in Ws], leaf(Wf, True)
+    gs, bs = [leaf(t, False) for t in gammas], [leaf(t, False) for t in betas]
+    bf64 = leaf(bf, False)
+    h = xb
+    for W, gamma, beta in zip(Wsb, gs, bs):
+        z = h @ W.T
+        mean = z.mean(-2, keepdim=True)
+        var = ((z - mean) ** 2).mean(-2, keepdim=True)
+        z = (z - mean) * torch.rsqrt(var + 1e-5) * gamma + beta
+        h = torch.where(z >= 0, z, slope * z)
+    out = h @ Wfb.T + bf64
+    grads = torch.autograd.grad(out, [xb, *Wsb, *gs, *bs, Wfb, bf64], g.double())
+    L = len(Ws)
+    return (out.detach(), grads[0], list(grads[1:1 + L]), list(grads[1 + L:1 + 2 * L]),
+            list(grads[1 + 2 * L:1 + 3 * L]), grads[-2], grads[-1])
+
+
+def errors3(got, plain, exact) -> dict:
+    """The kernel's distance from the plain version (`kp`) and the kernel's
+    and the plain version's distances from the exact float64 value (`k64`,
+    `p64`), each relative to the second value's largest entry; and the same
+    three relative to its Frobenius norm (`kpF`, `k64F`, `p64F`)."""
+    got, plain, exact = got.double(), plain.double(), exact.double()
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()  # noqa: E731
+    frob = lambda a, b: ((a - b).norm() / b.norm().clamp_min(1e-30)).item()  # noqa: E731
+    return {"kp": rel(got, plain), "k64": rel(got, exact), "p64": rel(plain, exact),
+            "kpF": frob(got, plain), "k64F": frob(got, exact), "p64F": frob(plain, exact)}
+
+
+def within(kind: str, e: dict, norm: str = "max") -> bool:
+    """`e` within MLP_BARS[kind] of the plain version in `norm` ("max" or
+    "frobenius") and within F64_FACTOR of the plain version's distance from
+    float64."""
+    kp = e["kp"] if norm == "max" else e["kpF"]
+    return kp <= MLP_BARS[kind] and e["k64F"] <= F64_FACTOR * e["p64F"] + F64_FLOOR
+
+
+def grad_names(L: int) -> list:
+    """Names of the backward's outputs in their flattened order."""
+    return ["dx", *[f"dW{i}" for i in range(L)], *[f"dgamma{i}" for i in range(L)],
+            *[f"dbeta{i}" for i in range(L)], "dWf", "dbf"]
+
+
+def flat_grads(r) -> list:
+    """(dx, dWs, dgammas, dbetas, dWf, dbf) -> one list in `grad_names` order."""
+    return [r[0], *r[1], *r[2], *r[3], r[4], r[5]]
+
+
+def worst(errs: dict) -> dict:
+    """The largest reading of each kind over named errors, with the largest
+    ratio of the kernel's to the plain version's distance from float64 in
+    each norm and where it is."""
+    out = {k: max(e[k] for e in errs.values()) for k in ("kp", "k64", "kpF", "k64F")}
+    for suffix in ("", "F"):
+        ratio = {k: e["k64" + suffix] / max(e["p64" + suffix], 1e-30) for k, e in errs.items()}
+        out["ratio" + suffix] = max(ratio.values())
+        out["ratio" + suffix + "_at"] = max(ratio, key=ratio.get)
+    return out
+
+
+def mlp_inputs(c_in: int, B: int = 8, N: int = 1000):
+    """A full-width ErrorEstimator on the card with non-trivial affines and
+    final bias, its parameters as the wrappers take them, x and g."""
+    import torch
+
+    from deepfepe_tpu_torch.models import ErrorEstimator
+
+    gen = torch.Generator().manual_seed(c_in)
+    est = ErrorEstimator(c_in, 1, dtype=torch.bfloat16)
+    est.reset_parameters(gen)
+    with torch.no_grad():
+        for m in est.fw[1:-1:3]:
+            m.weight.uniform_(0.5, 1.5, generator=gen)
+            m.bias.uniform_(-0.2, 0.2, generator=gen)
+        est.fw[-1].bias.fill_(0.1)
+    est = est.cuda()
+    params = ([est.fw[i].weight.detach() for i in range(0, 15, 3)],
+              [est.fw[i + 1].weight.detach() for i in range(0, 15, 3)],
+              [est.fw[i + 1].bias.detach() for i in range(0, 15, 3)],
+              est.fw[-1].weight.detach(), est.fw[-1].bias.detach())
+    x = torch.rand(B, N, c_in, generator=gen).cuda()
+    g = (torch.randn(B, N, 1, generator=gen) / (B * N)).cuda()
+    return est, params, x, g
+
+
+def mlp_kernel_errors(ph: Phases, c_in: int, B: int = 8, N: int = 1000) -> dict:
+    """K2 and K2b at full width against their plain versions and the exact
+    stack; emits every output's readings and raises outside the bars."""
+    import torch
+
+    from deepfepe_tpu_torch.ops import mlp
+
+    _, (Ws, gammas, betas, Wf, bf), x, g = mlp_inputs(c_in, B, N)
+    out = mlp.mlp_forward(x, Ws, gammas, betas, Wf, bf)
+    ref = mlp.reference_pointnet_mlp(x, Ws, gammas, betas, Wf, bf)
+    got = mlp.mlp_backward(x, g, Ws, gammas, betas, Wf)
+    want = mlp.reference_pointnet_mlp_bwd(x, g, Ws, gammas, betas, Wf)
+    exact = exact_pointnet_mlp(x, g, Ws, gammas, betas, Wf, bf)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), f"K2 gave non-finite logits at C_in={c_in}")
+    fwd = errors3(out, ref, exact[0])
+    bwd = {}
+    for name, a, b, e in zip(grad_names(len(Ws)), flat_grads(got), flat_grads(want),
+                             flat_grads(exact[1:])):
+        check(bool(torch.isfinite(a).all()), f"K2b gave non-finite {name} at C_in={c_in}")
+        bwd[name] = errors3(a, b, e)
+    ok = within("forward", fwd) and all(within("gradient", e) for e in bwd.values())
+    ph.emit("kernels", kernel="mlp", c_in=c_in, B=B, N=N, forward=fwd, gradient=bwd,
+            gradient_worst=worst(bwd), bars={**MLP_BARS, "f64_factor": F64_FACTOR,
+                                              "f64_floor": F64_FLOOR}, within_bars=ok)
+    check(ok, f"K2/K2b at C_in={c_in} are outside their bars: {fwd}, {bwd}")
+    max_abs = max((a - b).abs().max().item() for a, b in zip(flat_grads(got), flat_grads(want)))
+    return {"fwd_abs": (out - ref).abs().max().item(), "bwd_abs": max_abs}
+
+
+def phase_mlp_kernels(ph: Phases) -> list:
+    """K2 and K2b against their plain versions at B=8, N=1000, C_in 5 and 8
+    (the input and update weight MLPs), timed beside the plain versions and
+    the port's unfused route (cuBLAS bf16 matmuls and torch InstanceNorm,
+    the default use_pallas_mlp: false): no single PyTorch call computes the
+    whole stack, so that route is the yardstick users have."""
+    import torch
+
+    from deepfepe_tpu_torch.models import ErrorEstimator
+    from deepfepe_tpu_torch.ops import mlp
+
+    B, N = 8, 1000
+    rows_out = {}
+    for c_in in (5, 8):
+        errs = mlp_kernel_errors(ph, c_in, B, N)
+        est, (Ws, gammas, betas, Wf, bf), x, g = mlp_inputs(c_in, B, N)
+        unfused = ErrorEstimator(c_in, 1, dtype=torch.bfloat16).cuda()
+        unfused.load_state_dict(est.state_dict())
+        xg = x.clone().requires_grad_(True)
+
+        def unfused_fwd():
+            with torch.no_grad():
+                unfused(x)
+
+        def unfused_fwd_bwd():
+            unfused(xg).backward(g)
+
+        est.use_fused = True
+
+        def fused_fwd_bwd():
+            est(xg).backward(g)
+
+        t = {
+            "K2_ms": cuda_time_ms(lambda: mlp.mlp_forward(x, Ws, gammas, betas, Wf, bf), 50),
+            "K2b_ms": cuda_time_ms(lambda: mlp.mlp_backward(x, g, Ws, gammas, betas, Wf), 20),
+            "fused_fwd_bwd_ms": cuda_time_ms(fused_fwd_bwd, 20),
+            "plain_fwd_ms": cuda_time_ms(
+                lambda: mlp.reference_pointnet_mlp(x, Ws, gammas, betas, Wf, bf), 10),
+            "plain_bwd_ms": cuda_time_ms(
+                lambda: mlp.reference_pointnet_mlp_bwd(x, g, Ws, gammas, betas, Wf), 10),
+            "unfused_fwd_ms": cuda_time_ms(unfused_fwd, 50),
+            "unfused_fwd_bwd_ms": cuda_time_ms(unfused_fwd_bwd, 20),
+        }
+        fb, fb_by = mlp_bound_ms(c_in, B * N, backward=False)
+        bb, bb_by = mlp_bound_ms(c_in, B * N, backward=True)
+        ph.emit("kernels", kernel="mlp", c_in=c_in, timing=t, K2_bound_ms=fb, K2_bound_by=fb_by,
+                K2b_bound_ms=bb, K2b_bound_by=bb_by)
+        rows_out[c_in] = dict(t=t, fb=(fb, fb_by), bb=(bb, bb_by), **errs)
+
+    r8, r5 = rows_out[8], rows_out[5]
+    k2 = {"name": "mlp_forward", "route": "cuda", "source": "deepfepe_tpu_torch/csrc/mlp.cu",
+          "replaces": "deepfepe_tpu/ops/pallas/mlp_pallas.py:97", "launches": None,
+          "max_abs_err": max(r8["fwd_abs"], r5["fwd_abs"]), "ms": r8["t"]["K2_ms"],
+          "plain_ms": r8["t"]["plain_fwd_ms"], "bound_ms": r8["fb"][0], "bound_by": r8["fb"][1],
+          "library_ms": r8["t"]["unfused_fwd_ms"],
+          "library": "the port's unfused ErrorEstimator forward (cuBLAS bf16 + torch ops)",
+          "shape": "x [8, 1000, 8] f32, 64-128-1024-512-256-1", "ms_cin5": r5["t"]["K2_ms"],
+          "plain_ms_cin5": r5["t"]["plain_fwd_ms"], "bound_ms_cin5": r5["fb"][0],
+          "library_ms_cin5": r5["t"]["unfused_fwd_ms"]}
+    k2b = {"name": "mlp_backward", "route": "cuda", "source": "deepfepe_tpu_torch/csrc/mlp.cu",
+           "replaces": "deepfepe_tpu/ops/pallas/mlp_pallas.py:126", "launches": None,
+           "max_abs_err": max(r8["bwd_abs"], r5["bwd_abs"]), "ms": r8["t"]["K2b_ms"],
+           "plain_ms": r8["t"]["plain_bwd_ms"], "bound_ms": r8["bb"][0],
+           "bound_by": r8["bb"][1], "library_ms": r8["t"]["unfused_fwd_bwd_ms"],
+           "library": "the port's unfused ErrorEstimator forward+backward (autograd)",
+           "fused_fwd_bwd_ms": r8["t"]["fused_fwd_bwd_ms"],
+           "shape": "g [8, 1000, 1] f32, as K2", "ms_cin5": r5["t"]["K2b_ms"],
+           "plain_ms_cin5": r5["t"]["plain_bwd_ms"], "bound_ms_cin5": r5["bb"][0],
+           "library_ms_cin5": r5["t"]["unfused_fwd_bwd_ms"]}
+    return [k2, k2b]
+
+
+def kernel_counters():
+    from deepfepe_tpu_torch.ops.eigh9 import eigh9
+    from deepfepe_tpu_torch.ops.mlp import mlp_backward, mlp_forward
+
+    return {"eigh9": eigh9, "mlp_forward": mlp_forward, "mlp_backward": mlp_backward}
+
+
+def reset_counts() -> None:
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def read_trace(path: str) -> dict:
+    """Device busy share and top device kernels from a Chrome trace of
+    torch.profiler: device events are the 'kernel', 'gpu_memcpy' and
+    'gpu_memset' categories; the window spans every timed event."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted((e["ts"], e["ts"] + e["dur"]) for e in dev):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    by_name = {}
+    for e in dev:
+        calls, us = by_name.get(e["name"], (0, 0.0))
+        by_name[e["name"]] = (calls + 1, us + e["dur"])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    return {"window_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / (t1 - t0) if dev else None,
+            "device_events": len(dev), "kernel_names": len(by_name),
+            "top_device_ops": [{"name": n[:120], "calls": c, "ms": us / 1e3}
+                               for n, (c, us) in top]}
+
+
+def phase_train_good(ph: Phases) -> dict:
+    """The port's train_good at full width with the fused MLP kernels: an
+    F-loss run, then a qt-loss run from its checkpoint. Counts are read
+    around each run alone."""
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch import cli
+    from deepfepe_tpu_torch.train.config import config_from_dict
+
+    for exp in ("smoke_train_f", "smoke_train_qt"):
+        shutil.rmtree(os.path.join(REPO, "logs", exp), ignore_errors=True)
+    prof_dir = os.path.join("logs", "smoke_train_f", "profile")
+    total = dict.fromkeys(kernel_counters(), 0)
+    runs = {}
+    for name, raw, steps, vals, pretrained in (
+            ("f_loss", TRAIN_F, TRAIN_F_STEPS, TRAIN_F_STEPS // VAL_INTERVAL, ""),
+            ("qt_loss", TRAIN_QT, TRAIN_QT_STEPS, 0,
+             f"logs/smoke_train_f/checkpoints/deepFNet_{TRAIN_F_STEPS}_checkpoint.pth.tar")):
+        cfg = config_from_dict(raw)
+        reset_counts()
+        last = cli.train_good(cfg, f"smoke_train_{name[:-5]}", pretrained=pretrained,
+                              profile_dir=prof_dir if name == "f_loss" else "", device="cuda")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        depth = cfg.model.depth
+        expected = {"mlp_forward": depth * (steps + vals * VAL_BATCHES),
+                    "mlp_backward": depth * steps,
+                    "eigh9": depth * (steps + vals * VAL_BATCHES)}
+        ms = last["wall_s"] * 1e3 / steps
+        ph.emit("train_good", run=name, steps=steps, validations=vals, last=last, launches=counts,
+                expected_launches=expected, ms_per_step=ms,
+                pairs_per_s=cfg.data.batch_size * 1e3 / ms,
+                timed="host clock over fit (ending in a synchronize), incl. its validations, "
+                      "checkpoints and profiled steps")
+        check(counts == expected, f"{name}: kernel launches {counts}, expected {expected}")
+        check(last["n_iter"] == TRAIN_F_STEPS + (steps if name == "qt_loss" else 0),
+              f"{name}: ended at iteration {last['n_iter']}")
+        check(all(np.isfinite(v) for v in last.values()), f"{name}: non-finite metrics {last}")
+        check(last["nonfinite"] == 0.0, f"{name}: a step had a non-finite loss or gradient")
+        ckpt = os.path.join("logs", f"smoke_train_{name[:-5]}", "checkpoints",
+                            f"deepFNet_{last['n_iter']}_checkpoint.pth.tar")
+        check(os.path.exists(ckpt), f"{name}: no checkpoint {ckpt}")
+        runs[name] = {"ms_per_step": ms, "launches": counts}
+        for k, v in counts.items():
+            total[k] += v
+    trace = read_trace(os.path.join(prof_dir, "trace.json"))
+    ph.emit("train_good", profile_steps=PROFILE_STEPS, trace=trace)
+    phase_step_times(ph)
+    return total
+
+
+def phase_step_times(ph: Phases, steps: int = 6) -> None:
+    """Host-clock time of single F-loss train steps at full width with the
+    fused MLP, each between synchronizes, batches made up front; after the
+    counted runs, so it changes no count."""
+    import statistics
+
+    import torch
+
+    from deepfepe_tpu_torch.utils.device import batch_to_device
+    from deepfepe_tpu_torch.loader import data_loader, model_loader
+    from deepfepe_tpu_torch.train import make_optimizer, train_step
+    from deepfepe_tpu_torch.train.config import config_from_dict
+
+    cfg = config_from_dict(TRAIN_F)
+    dev = torch.device("cuda")
+    net = model_loader(cfg, dev, torch.Generator().manual_seed(0), train=True)
+    opt = make_optimizer(net, cfg)
+    batches = [batch_to_device(b, dev) for b in
+               data_loader(cfg, "train").batches(cfg.data.batch_size, steps)]
+    ms = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        train_step(net, opt, b, cfg, 0.1, 0.5)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    med = statistics.median(ms[1:])
+    ph.emit("train_good", step_ms=ms, median_step_ms_after_first=med,
+            pairs_per_s=cfg.data.batch_size * 1e3 / med)
+
+
+def train_step_grads(cfg, dev: str, state: dict, batch: dict, float64: bool = False):
+    """Loss and per-parameter gradients of one train step from `state`;
+    `float64` runs the same port code with float64 parameters and batch."""
+    import torch
+
+    from deepfepe_tpu_torch.utils.device import batch_to_device
+    from deepfepe_tpu_torch.loader import model_loader
+    from deepfepe_tpu_torch.train import make_optimizer, train_step
+
+    net = model_loader(cfg, torch.device(dev), train=True)
+    tb = batch_to_device(batch, torch.device(dev))
+    if float64:
+        net = net.double()
+        net.input_weights.dtype = net.update_weights.dtype = torch.float64
+        tb = {k: v.double() if v.is_floating_point() else v for k, v in tb.items()}
+    net.load_state_dict(state)
+    opt = make_optimizer(net, cfg)
+    m = train_step(net, opt, tb, cfg, 0.1, 0.5)
+    return float(m["loss"]), {k: p.grad.detach().double().cpu()
+                              for k, p in net.named_parameters()}
+
+
+def mlp_param_keys(L: int) -> list:
+    """An ErrorEstimator's parameter names in the order the backward returns
+    their gradients (hidden biases, never read, left out)."""
+    return [*[f"fw.{3 * i}.weight" for i in range(L)],
+            *[f"fw.{3 * i + 1}.weight" for i in range(L)],
+            *[f"fw.{3 * i + 1}.bias" for i in range(L)], f"fw.{3 * L}.weight", f"fw.{3 * L}.bias"]
+
+
+def call_owner(call: dict, state: dict) -> str:
+    """Which weight MLP of DeepFNet made a recorded fused call."""
+    return next(n for n in ("input_weights", "update_weights")
+                if call["Ws"][0].shape == state[f"{n}.fw.0.weight"].shape
+                and bool((call["Ws"][0].cpu() == state[f"{n}.fw.0.weight"]).all()))
+
+
+def fused_step_report(calls: list, state: dict, grads: dict) -> dict:
+    """Hold the fused MLP calls of one train step (recorded by
+    `ops.mlp.record_calls`) against the plain versions and the exact stack
+    on each call's own inputs: every call's logits and, where the step
+    needs it, the x-gradient that reached its input; and each weight MLP's
+    step gradients against the sums over its calls, which also shows that
+    each parameter got its own gradient. Bars as MLP_BARS and F64_FACTOR,
+    in the Frobenius norm; hidden biases, which the fused route never
+    reads, get exactly zero. Runs on the calls' device."""
+    from deepfepe_tpu_torch.ops import mlp
+
+    L = len(calls[0]["Ws"])
+    keys = mlp_param_keys(L)
+    per_call, sums, g_abs = {}, {}, {}
+    for j, c in enumerate(calls):
+        net = call_owner(c, state)
+        p = (c["Ws"], c["gammas"], c["betas"], c["Wf"])
+        ref = mlp.reference_pointnet_mlp(c["x"], *p, c["bf"], c["slope"])
+        plain = flat_grads(mlp.reference_pointnet_mlp_bwd(c["x"], c["g"], *p, c["slope"]))
+        exact = exact_pointnet_mlp(c["x"], c["g"], *p, c["bf"], c["slope"])
+        errs = {"out": errors3(c["out"], ref, exact[0])}
+        if "dx" in c:
+            errs["dx"] = errors3(c["dx"], plain[0], exact[1])
+        per_call[f"{j}:{net}"] = errs
+        s_plain, s_exact = sums.setdefault(net, ([0.0] * len(keys), [0.0] * len(keys)))
+        for i, (a, e) in enumerate(zip(plain[1:], flat_grads(exact[1:])[1:])):
+            s_plain[i] = s_plain[i] + a.double()
+            s_exact[i] = s_exact[i] + e
+        g_abs[net] = g_abs.get(net, 0.0) + c["g"].double().abs().sum().item()
+    params, vanishing = {}, {}
+    for net, (sp, se) in sums.items():
+        for i, k in enumerate(keys):
+            got = grads[f"{net}.{k}"].to(sp[i].device)
+            # The final bias's exact gradient is the sum of the cotangent,
+            # zero where the loss sees the logits through a softmax over the
+            # points; then only its rounding is left, at most 2^-9 of each
+            # |g| from g's bf16 cast, and it is held to twice that.
+            if k == keys[-1] and se[i].abs().max().item() <= 2**-9 * g_abs[net]:
+                vanishing[f"{net}.{k}"] = {"abs": got.abs().max().item(),
+                                           "bound": 2**-8 * g_abs[net]}
+            else:
+                params[f"{net}.{k}"] = errors3(got, sp[i], se[i])
+    hidden_bias = max(grads[f"{net}.fw.{3 * i}.bias"].abs().max().item()
+                      for net in sums for i in range(L))
+    ok = (all(within("forward", e["out"], "frobenius") for e in per_call.values())
+          and all(within("gradient", e["dx"], "frobenius") for e in per_call.values() if "dx" in e)
+          and all(within("gradient", e, "frobenius") for e in params.values())
+          and all(v["abs"] <= v["bound"] for v in vanishing.values()) and hidden_bias == 0.0)
+    dx_errs = {k: e["dx"] for k, e in per_call.items() if "dx" in e}
+    return {"calls": len(calls), "calls_with_dx": len(dx_errs),
+            "out_worst": worst({k: e["out"] for k, e in per_call.items()}),
+            "dx_worst": worst(dx_errs) if dx_errs else None, "param_worst": worst(params),
+            "per_call": per_call, "params": params, "vanishing": vanishing,
+            "hidden_bias_max": hidden_bias, "within_bars": ok}
+
+
+def phase_check_train(ph: Phases) -> None:
+    """One train step on the card against the CPU path (plain versions) from
+    the same weights and batch (B=2, N=200, depth 5).
+
+    float32, unfused MLP: the safe_eigh backward and the eigh9 kernel. The
+    loss to 1e-4 relative; the gradients, each relative in the Frobenius
+    norm to the same step in float64 on the CPU, the worst over all
+    parameters at most twice the CPU's worst plus 1e-3 (two float32 paths,
+    each with its own rounding fed through 5 layers; the CPU's worst is
+    about 0.3%). Gradients that are zero in exact arithmetic (hidden
+    biases, the final bias) stay below 1e-6.
+
+    bfloat16, fused MLP: the loss to 2e-2 relative (the MLP forward bar).
+    The whole step's bf16 gradient is mostly rounding at this size (up to
+    several times the float64 gradient's norm away, on the CPU as on the
+    card), so the fused route is held call by call: `fused_step_report`
+    holds every K2 and K2b call of the card's step on its own inputs, and
+    each parameter's step gradient against the sum over its calls. The
+    model code around the MLP is the float32 route's."""
+    import torch
+
+    from deepfepe_tpu_torch.data import SyntheticPairs
+    from deepfepe_tpu_torch.loader import model_loader
+    from deepfepe_tpu_torch.ops import mlp
+    from deepfepe_tpu_torch.train.config import config_from_dict
+
+    batch = SyntheticPairs(image_size=(376, 1241), good_num=200, seed=7).batch(2)
+    frob = lambda a, b: float((a - b).norm() / b.norm().clamp_min(1e-30))  # noqa: E731
+    cfgs = {route: config_from_dict({**TRAIN_F, "model": {**TRAIN_F["model"], **model}})
+            for route, model in (("f32", {"mlp_dtype": "float32", "use_pallas_mlp": False}),
+                                 ("bf16_fused", {"mlp_dtype": "bfloat16"}))}
+    state = model_loader(cfgs["f32"], torch.device("cpu"),
+                         torch.Generator().manual_seed(3)).state_dict()
+
+    cfg = cfgs["f32"]
+    l64, g64 = train_step_grads(cfg, "cpu", state, batch, float64=True)
+    live = [k for k, g in g64.items() if g.abs().max().item() > 1e-6]
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = (train_step_grads(cfg, d, state, batch)
+                                      for d in ("cpu", "cuda"))
+    dist = {k: (frob(g_gpu[k], g64[k]), frob(g_cpu[k], g64[k])) for k in live}
+    card_worst = max(a for a, _ in dist.values())
+    cpu_worst = max(b for _, b in dist.values())
+    zero_max = max(max(g_gpu[k].abs().max().item(), g_cpu[k].abs().max().item())
+                   for k in g64 if k not in live)
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    f32_ok = loss_rel <= 1e-4 and zero_max <= 1e-6 and card_worst <= 2.0 * cpu_worst + 1e-3
+    f32 = {"loss_rel_card_vs_cpu": loss_rel, "loss_rel_cpu_vs_f64": abs(l_cpu - l64) / abs(l64),
+           "worst_param": max(dist, key=lambda k: dist[k][0]), "max_card_vs_f64": card_worst,
+           "max_cpu_vs_f64": cpu_worst, "zero_grads_max": zero_max, "within_bars": f32_ok,
+           "bars": {"loss_rel": 1e-4, "grad": "card worst <= 2.0 x cpu worst + 0.001"}}
+
+    cfg = cfgs["bf16_fused"]
+    l_cpu, _ = train_step_grads(cfg, "cpu", state, batch)
+    with mlp.record_calls() as calls:
+        l_gpu, g_gpu = train_step_grads(cfg, "cuda", state, batch)
+    fused = fused_step_report(calls, state, g_gpu)
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    fused.update(loss_rel_card_vs_cpu=loss_rel, loss_bar=2e-2)
+    fused["within_bars"] = fused["within_bars"] and loss_rel <= 2e-2
+    brief = {k: v for k, v in fused.items() if k not in ("per_call", "params")}
+    ph.emit("check", train_step={"f32": f32, "bf16_fused": brief})
+    ph.emit("check", train_step_fused_per_call=fused["per_call"],
+            train_step_fused_params=fused["params"])
+    check(f32_ok, f"float32 train step on the card disagrees with the CPU: {f32}")
+    check(fused["within_bars"], f"fused train step on the card is outside its bars: {brief}")
+
+
+def plant(fault: str) -> None:
+    """Install a deliberate fault for `--plant`. Wiring faults wrap the
+    autograd Function's backward; kernel faults build a copy of csrc/mlp.cu
+    with one line changed, in a temporary directory, and load it in place
+    of the library."""
+    import ctypes
+    import tempfile
+
+    import torch
+
+    from deepfepe_tpu_torch.ops import mlp
+    from deepfepe_tpu_torch.utils import build
+
+    if fault == "none":
+        return
+    if fault in ("dx_zero", "dgamma_dbeta_swapped"):
+        backward = mlp.FusedPointNetMLP.backward
+
+        def faulty(ctx, g):
+            grads = list(backward(ctx, g))
+            L = ctx.L
+            if fault == "dx_zero":
+                grads[0] = torch.zeros_like(grads[0])
+            else:
+                dg, db = grads[5 + L:5 + 2 * L], grads[5 + 2 * L:]
+                grads[5 + L:] = db + dg
+            return tuple(grads)
+
+        mlp.FusedPointNetMLP.backward = staticmethod(faulty)
+        return
+    line, changed = {
+        "c1_next_item": ("dh[i] = __float2bfloat16(t3 - c1b[p]);",
+                         "dh[i] = __float2bfloat16(t3 - c1b[(p + C) % (total / Nn)]);"),
+        "c2_next_item": ("const float t2 = round_bf16(xh * c2b[p]);",
+                         "const float t2 = round_bf16(xh * c2b[(p + C) % (total / Nn)]);"),
+    }[fault]
+    src = (build.CSRC / mlp.SOURCE).read_text()
+    check(src.count(line) == 1, f"--plant {fault}: the line to change is not in {mlp.SOURCE}")
+    tmp = tempfile.mkdtemp(prefix="mlp_fault_")
+    cu, so = os.path.join(tmp, "mlp.cu"), os.path.join(tmp, "mlp.so")
+    with open(cu, "w") as f:
+        f.write(src.replace(line, changed))
+    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", so, cu], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(so)
+    for name, args in mlp._SIGNATURES.items():
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = ctypes.c_int
+    mlp._lib = lib
+
+
+def run_planted(ph: Phases, fault: str) -> int:
+    """The MLP checks with `fault` planted: every check runs and reports;
+    exits 1 when any of them caught the fault, 0 when none did."""
+    plant(fault)
+    caught = []
+    for name, fn in (("kernels_c_in_5", lambda: mlp_kernel_errors(ph, 5)),
+                     ("kernels_c_in_8", lambda: mlp_kernel_errors(ph, 8)),
+                     ("check_train", lambda: phase_check_train(ph))):
+        try:
+            fn()
+        except CheckFailed as e:
+            caught.append(name)
+            print(f"chip_smoke: --plant {fault}: {name} failed: {str(e)[:300]}",
+                  file=sys.stderr, flush=True)
+    ph.emit("plant", fault=fault, caught_by=caught)
+    return 1 if caught else 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--plant", choices=FAULTS, help="plant this fault and run only the MLP "
+                    "checks, to show that they catch it (exit 1 when caught); 'none' gives "
+                    "the sound readings")
+    args = ap.parse_args(argv)
     sys.path.insert(0, REPO)
     from deepfepe_tpu_torch.train.config import config_from_dict
-    from deepfepe_tpu_torch.utils import build
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -319,22 +990,32 @@ def main() -> int:
     ph.emit("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
             name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
-    path, log = build.build("eigh9.cu")
-    ph.emit("build", source="eigh9.cu", library=os.path.relpath(path, REPO),
-            nvcc=log.strip().splitlines()[-4:])
-
+    os.chdir(REPO)  # train_good writes under logs/ (gitignored)
+    if args.plant:
+        build_all(ph)
+        return run_planted(ph, args.plant)
     try:
+        build_all(ph)
         row = phase_kernels(ph)
+        mlp_rows = phase_mlp_kernels(ph)
         cfg = config_from_dict(BASELINE)
-        launches = phase_eval_good(ph, cfg)
-        row["launches"] = launches["eigh9"]
-        check(row["launches"] > 0, "eigh9 never launched on the main path")
+        eval_counts = phase_eval_good(ph, cfg)
         phase_breakdown(ph, cfg)
+        train_counts = phase_train_good(ph)
         phase_check(ph, cfg)
+        phase_check_train(ph)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
-    print(json.dumps({"kernels": [row]}), flush=True)
+    rows = [row, *mlp_rows]
+    for r in rows:
+        r["launches"] = train_counts[r["name"]]
+        r["launches_eval_good"] = eval_counts[r["name"]]
+        if r["launches"] <= 0:
+            print(f"chip_smoke: FAILED: {r['name']} never launched on train_good",
+                  file=sys.stderr, flush=True)
+            return 1
+    print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

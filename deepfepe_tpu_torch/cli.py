@@ -1,36 +1,43 @@
 """Command-line entry point of the port.
 
+    python -m deepfepe_tpu_torch.cli train_good <config.yaml> <exper_name>
+        [--train_iter k] [--pretrained ckpt.pth.tar] [--profile_dir dir]
+        [--device cpu|cuda]
     python -m deepfepe_tpu_torch.cli eval_good <config.yaml> <exper_name>
-        [--max_batches k] [--device cpu|cuda]
+        [--max_batches k] [--pretrained ckpt.pth.tar] [--device cpu|cuda]
 
-`eval_good` runs the solver on the config's test stream, scores each pair
-against the ground truth and the 8-point RANSAC baseline, and prints the
-JAX package's summary keys as one JSON line. The device defaults to the
-card; without one it raises unless `--device cpu` is given.
+`train_good` trains the solver (F-loss, or the qt pose loss with
+`model.if_qt_loss`) on the config's train stream, validates on its val
+stream, and writes logs/<exper_name>/{config.yml, metrics.jsonl, runs/,
+checkpoints/deepFNet_<n>_checkpoint.pth.tar}; it prints the last step's
+scalar metrics as one JSON line. `eval_good` runs the solver on the
+config's test stream, scores each pair against the ground truth and the
+8-point RANSAC baseline, and prints the JAX package's summary keys as one
+JSON line. Both default to the card; without one they raise unless
+`--device cpu` is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import time
 from typing import Dict, Iterable, Sequence
 
 import numpy as np
 import torch
 
+from .data.prefetch import prefetch_batches
 from .eval import val_rt_batch
 from .loader import data_loader, model_loader
-from .train import eval_step, load_config
+from .train import Trainer, eval_step, load_checkpoint, load_config
 from .train.config import Config
-from .utils.device import resolve_device
+from .utils.device import batch_to_device, resolve_device
 
 PER_PAIR = ("err_q_est", "err_t_est", "err_q_base", "err_t_base", "err_q_gt",
             "err_t_gt", "base_inliers")
-
-
-def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
 def evaluate(cfg: Config, net, batch_iter: Iterable[Dict[str, np.ndarray]],
@@ -70,12 +77,57 @@ def summarize(res: Dict[str, np.ndarray]) -> Dict[str, float]:
     }
 
 
-def eval_good(cfg: Config, max_batches: int, device=None) -> Dict[str, float]:
-    """Weights seeded from `cfg.training.seed`, the config's test stream,
-    `max_batches` batches."""
+def train_good(cfg: Config, exper_name: str, train_iter: int | None = None,
+               pretrained: str = "", profile_dir: str = "", device=None) -> Dict[str, float]:
+    """Train from weights seeded by `cfg.training.seed`, or from a
+    checkpoint (`pretrained`, else the config's unless `retrain`), for
+    `train_iter` (else the config's) steps; returns the last step's scalar
+    metrics with `wall_s` and `n_iter`."""
+    device = resolve_device(device)
+    if cfg.model.if_SP:
+        raise NotImplementedError("joint SuperPoint training (model.if_SP) is not ported yet")
+    t = cfg.training
+    if train_iter is not None:
+        t.train_iter = train_iter
+    if profile_dir:
+        t.profile_dir = profile_dir
+    save_dir = os.path.join("logs", exper_name)
+    os.makedirs(save_dir, exist_ok=True)
+    # The config snapshot (train_good.py:114); JSON is valid YAML.
+    with open(os.path.join(save_dir, "config.yml"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=1)
+    net = model_loader(cfg, device, torch.Generator().manual_seed(t.seed), train=True)
+    trainer = Trainer(net, cfg, save_dir=save_dir)
+    pre = pretrained or ("" if t.retrain else t.pretrained)
+    if pre:
+        trainer.restore(pre)
+        if t.reset_iter:
+            trainer.n_iter = 0
+        print(f"restored from {pre} @ iter {trainer.n_iter}", flush=True)
+    train_ds, val_ds = data_loader(cfg, "train"), data_loader(cfg, "val")
+    bs = cfg.data.batch_size
+    try:
+        last = trainer.fit(
+            # A producer thread stays ahead of the device (the DataLoader
+            # workers' role); workers_train bounds its depth.
+            prefetch_batches(train_ds.batches(bs), depth=max(2, min(t.workers_train, 8))),
+            val_stream_fn=lambda: val_ds.batches(bs), max_iters=t.train_iter)
+        trainer.save(trainer.n_iter)
+    finally:
+        trainer.logger.close()
+    last["n_iter"] = trainer.n_iter
+    return last
+
+
+def eval_good(cfg: Config, max_batches: int, device=None, pretrained: str = ""
+              ) -> Dict[str, float]:
+    """Weights seeded from `cfg.training.seed`, or read from a checkpoint
+    (`pretrained`), the config's test stream, `max_batches` batches."""
     device = resolve_device(device)
     seed = cfg.training.seed
     net = model_loader(cfg, device, torch.Generator().manual_seed(seed))
+    if pretrained:
+        load_checkpoint(pretrained, net)
     ds = data_loader(cfg, "test")
     bs = cfg.data.batch_size
     # The JAX CLI draws one batch to initialize its parameters before it
@@ -83,7 +135,7 @@ def eval_good(cfg: Config, max_batches: int, device=None) -> Dict[str, float]:
     ds.batch(bs)
     # Data is made up front (host set-up), so `seconds` times the solver
     # and its evaluation alone.
-    data = list(ds.epoch(bs, max_batches))
+    data = list(ds.batches(bs, max_batches))
     t0 = time.perf_counter()
     res = evaluate(cfg, net, data, device, generator=torch.Generator().manual_seed(seed))
     if device.type == "cuda":
@@ -94,9 +146,17 @@ def eval_good(cfg: Config, max_batches: int, device=None) -> Dict[str, float]:
     return summary
 
 
+def cmd_train(args) -> Dict[str, float]:
+    cfg = load_config(args.config)
+    last = train_good(cfg, args.exper_name, args.train_iter, args.pretrained,
+                      args.profile_dir, args.device)
+    print(json.dumps(last))
+    return last
+
+
 def cmd_eval(args) -> Dict[str, float]:
     cfg = load_config(args.config)
-    summary = eval_good(cfg, args.max_batches, args.device)
+    summary = eval_good(cfg, args.max_batches, args.device, args.pretrained)
     summary["exper_name"] = args.exper_name
     print(json.dumps(summary))
     return summary
@@ -105,10 +165,19 @@ def cmd_eval(args) -> Dict[str, float]:
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="deepfepe_tpu_torch.cli")
     sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("train_good", help="train the solver (F-loss or qt-loss)")
+    p.add_argument("config")
+    p.add_argument("exper_name")
+    p.add_argument("--train_iter", type=int, default=None)
+    p.add_argument("--pretrained", default="")
+    p.add_argument("--profile_dir", default="")
+    p.add_argument("--device", choices=("cpu", "cuda"), default=None)
+    p.set_defaults(fn=cmd_train)
     p = sub.add_parser("eval_good", help="solver eval against gt and RANSAC")
     p.add_argument("config")
     p.add_argument("exper_name")
     p.add_argument("--max_batches", type=int, default=5)
+    p.add_argument("--pretrained", default="")
     p.add_argument("--device", choices=("cpu", "cuda"), default=None)
     p.set_defaults(fn=cmd_eval)
     args = ap.parse_args(argv)

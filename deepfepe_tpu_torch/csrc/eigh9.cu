@@ -30,7 +30,12 @@
 // rotations over register arrays takes long to compile and spills.
 // The numerics are the TPU kernel's: small = |apq| <= 1e-12 sqrt(|app aqq|
 // + 1e-12); t = sign(tau) / (|tau| + sqrt(1 + tau^2)), t = 1 at tau == 0;
-// c = rsqrt(1 + t^2).
+// c = 1 / sqrt(1 + t^2), with IEEE sqrtf and division as the plain version
+// computes it. The approximate rsqrtf (2 ulp) left V about 3e-6 from
+// orthogonal, and the safe_eigh backward amplified that: a float32 train
+// step's gradients landed 1.6% (Frobenius) from float64, against 0.40%
+// with the exact form and 0.33% for the plain version on the CPU
+// (NVIDIA H100 80GB HBM3, 700 W; ROADMAP.md Queue 3).
 
 #include <cuda_runtime.h>
 
@@ -80,7 +85,7 @@ eigh9_kernel(const float* __restrict__ A, float* __restrict__ w,
         const float tau = (aqq - app) / (2.0f * (small ? 1.0f : apq));
         float t = copysignf(1.0f, tau) / (fabsf(tau) + sqrtf(1.0f + tau * tau));
         if (tau == 0.0f) t = 1.0f;
-        float c = rsqrtf(1.0f + t * t);
+        float c = 1.0f / sqrtf(1.0f + t * t);
         float s = t * c;
         if (small) {
           c = 1.0f;

@@ -10,6 +10,7 @@ package; the virtual points come from this package's
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, Tuple
 
 import numpy as np
@@ -178,6 +179,8 @@ class SyntheticPairs:
         out["pts2_virt"] = p2v.numpy().astype(np.float32)
         return out
 
-    def epoch(self, batch_size: int, steps: int):
-        for _ in range(steps):
+    def batches(self, batch_size: int, steps: int | None = None):
+        """`steps` batches, or an endless stream when `steps` is None."""
+        it = itertools.count() if steps is None else range(steps)
+        for _ in it:
             yield self.batch(batch_size)

@@ -3,6 +3,7 @@ E decomposition."""
 
 from .basic import dehomo, homo, rt_inverse, rt_pad, safe_norm, skew
 from .correct import correct_matches, get_virtual_points, virtual_grid
+from .decompose import decompose_E, decompose_E_closed_form, recover_pose
 from .epipolar import (
     E_F_from_Rt,
     E_to_F,

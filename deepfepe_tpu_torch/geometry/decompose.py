@@ -3,6 +3,8 @@
 Counterpart of `deepfepe_tpu/geometry/decompose.py`: the batched,
 closed-form replacement of cv2.recoverPose. V comes from eigh(EᵀE), U's
 first two columns are E vᵢ / ‖E vᵢ‖ and u₃ = u₁ × u₂.
+`decompose_E_closed_form` is the pose loss's decomposition, whose
+gradients stay defined at the (s, s, 0) degeneracy of a valid E.
 """
 
 from __future__ import annotations
@@ -11,8 +13,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.eigh import DEFAULT_GAP_EPS, safe_eigh
-from .basic import homo, safe_norm
+from ..ops.eigh import DEFAULT_GAP_EPS, safe_eigh, smallest_eigvec
+from .basic import homo, safe_norm, skew
 
 
 class EDecomposition(NamedTuple):
@@ -46,6 +48,33 @@ def decompose_E(E: torch.Tensor, gap_eps: float = DEFAULT_GAP_EPS, eps: float = 
     R2 = U @ Wc.transpose(-1, -2) @ Vt
     t = u3 / (safe_norm(u3, dim=-1, keepdim=True) + eps)
     return EDecomposition(R1=R1, R2=R2, t=t)
+
+
+def _cofactor_3x3(M: torch.Tensor) -> torch.Tensor:
+    """Cofactor matrix of [..., 3, 3]: rows are cross products of M's rows."""
+    m1, m2, m3 = M[..., 0, :], M[..., 1, :], M[..., 2, :]
+    return torch.stack([torch.linalg.cross(m2, m3), torch.linalg.cross(m3, m1),
+                        torch.linalg.cross(m1, m2)], dim=-2)
+
+
+def decompose_E_closed_form(E: torch.Tensor, gap_eps: float = DEFAULT_GAP_EPS,
+                            eps: float = 1e-12) -> EDecomposition:
+    """Horn-style closed-form decomposition of [..., 3, 3] essential
+    matrices. Only the well-separated null direction is solved spectrally:
+
+      Ê  = √2 · E/‖E‖_F
+      t  = unit left null vector of Ê (smallest eigvec of ÊÊᵀ)
+      R₁ = cof(Ê) − [t]×Ê,   R₂ = cof(Ê) + [t]×Ê
+
+    `gap_eps` broadens the eigengap in the backward (see `ops.safe_eigh`).
+    """
+    fro = torch.sqrt(torch.sum(E * E, dim=(-1, -2), keepdim=True) + eps)
+    En = E * (2.0 ** 0.5 / fro)
+    G = En @ En.transpose(-1, -2)
+    _, t = smallest_eigvec(G, gap_eps)
+    C = _cofactor_3x3(En)
+    tE = skew(t) @ En
+    return EDecomposition(R1=C - tE, R2=C + tE, t=t)
 
 
 def two_view_depths(R, t, x1, x2, eps: float = 1e-12):

@@ -15,7 +15,8 @@ TASK_SEEDS = {"train": 0, "val": 1, "test": 2}
 
 
 def data_loader(cfg: Config, task: str = "train") -> SyntheticPairs:
-    """The synthetic pair stream for `task`, seeded as in the JAX package."""
+    """The synthetic pair stream for `task`, seeded as in the JAX package;
+    `.batches(batch_size)` is endless."""
     d = cfg.data
     if d.dataset != "synthetic":
         raise NotImplementedError(f"dataset {d.dataset!r} is not ported yet")
@@ -25,18 +26,17 @@ def data_loader(cfg: Config, task: str = "train") -> SyntheticPairs:
 
 
 def model_loader(cfg: Config, device: torch.device,
-                 generator: torch.Generator | None = None) -> DeepFNet:
-    """Build the solver net from the config with seeded parameters."""
+                 generator: torch.Generator | None = None, train: bool = False) -> DeepFNet:
+    """Build the solver net from the config with seeded parameters, in
+    train or eval mode."""
     m = cfg.model
-    if m.use_pallas_mlp:
-        raise NotImplementedError("the fused MLP kernel (use_pallas_mlp) is not ported yet")
     net = DeepFNet(
         depth=m.depth, image_size=tuple(cfg.data.resize or cfg.data.image_size),
         if_quality=m.if_quality, quality_size=m.quality_size,
         mlp_dtype=torch.bfloat16 if m.mlp_dtype == "bfloat16" else torch.float32,
         if_learn_offsets=m.if_learn_offsets, if_img_w=m.if_img_w, if_des=m.if_des,
         if_tri_depth=m.if_tri_depth, if_sample_loss=m.if_sample_loss,
-        if_goodCorresArch=m.if_goodCorresArch,
+        if_goodCorresArch=m.if_goodCorresArch, use_pallas_mlp=m.use_pallas_mlp,
     )
     net.reset_parameters(generator)
-    return net.to(device).eval()
+    return net.to(device).train(train)

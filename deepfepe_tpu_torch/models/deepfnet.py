@@ -12,7 +12,9 @@ Counterpart of the base recurrence of `deepfepe_tpu/models/deepfnet.py`:
   final fit
 
 Each fit is one 9x9 eigh, so a forward of depth d launches the eigh9
-kernel d times on the card. The variant flags (learned offsets, image
+kernel d times on the card. With `use_pallas_mlp` (and bfloat16 MLPs)
+both weight MLPs take the fused route, so a forward also calls the K2
+kernel d times, and a backward K2b d times. The variant flags (learned offsets, image
 weights, descriptors, triangulated depth, sample loss, GoodCorresNet)
 raise NotImplementedError.
 """
@@ -40,7 +42,7 @@ class DeepFNet(nn.Module):
     def __init__(self, depth: int = 5, image_size=(376, 1241), if_quality: bool = False,
                  quality_size: int = 1, feature_clamp_at: float = 0.5,
                  normalize_svd: bool = True, mlp_dtype: torch.dtype = torch.float32,
-                 sign_canonical: bool = False, **flags):
+                 sign_canonical: bool = False, use_pallas_mlp: bool = False, **flags):
         super().__init__()
         for name, value in flags.items():
             if name not in _UNPORTED:
@@ -55,8 +57,10 @@ class DeepFNet(nn.Module):
         self.normalize_svd = normalize_svd
         self.sign_canonical = sign_canonical
         in_ch = 4 + (quality_size if if_quality else 0)
-        self.input_weights = ErrorEstimator(in_ch, 1, dtype=mlp_dtype)
-        self.update_weights = ErrorEstimator(in_ch + 3, 1, dtype=mlp_dtype)
+        self.input_weights = ErrorEstimator(in_ch, 1, dtype=mlp_dtype,
+                                            use_fused=use_pallas_mlp)
+        self.update_weights = ErrorEstimator(in_ch + 3, 1, dtype=mlp_dtype,
+                                             use_fused=use_pallas_mlp)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         self.input_weights.reset_parameters(generator)

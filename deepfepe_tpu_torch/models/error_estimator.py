@@ -8,6 +8,12 @@ Submodules follow the reference layout `fw.<i>` (Linear, InstanceNorm,
 LeakyReLU per hidden layer, then the final Linear at `fw.15`), so a
 reference-layout state_dict (Conv1d weights [out, in, 1]) loads with
 `strict=True`; the trailing kernel axis is dropped on load.
+
+`use_fused` routes the stack through `ops.mlp.fused_pointnet_mlp` (the
+K2/K2b kernels on the card) under the JAX package's conditions: bfloat16
+matmuls, C_in <= 128 and output_size <= 128; otherwise the layers run one
+by one. The parameters are the same either way; the fused route never
+reads the hidden Linear biases, so they get no gradient there.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ from typing import Sequence
 
 import torch
 from torch import nn
+
+from ..ops.mlp import MAX_IN, fused_pointnet_mlp
 
 FEATURES = (64, 128, 1024, 512, 256)
 
@@ -53,9 +61,11 @@ class ErrorEstimator(nn.Module):
 
     def __init__(self, in_features: int, output_size: int = 1,
                  features: Sequence[int] = FEATURES, negative_slope: float = 0.01,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_fused: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.use_fused = use_fused
+        self.output_size = output_size
         self.negative_slope = negative_slope
         layers, c = [], in_features
         for f in features:
@@ -80,6 +90,14 @@ class ErrorEstimator(nn.Module):
                 m.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if (self.use_fused and self.dtype == torch.bfloat16 and x.shape[-1] <= MAX_IN
+                and self.output_size <= MAX_IN):
+            hidden = [self.fw[i] for i in range(0, len(self.fw) - 1, 3)]
+            norms = [self.fw[i + 1] for i in range(0, len(self.fw) - 1, 3)]
+            return fused_pointnet_mlp(
+                x, [m.weight for m in hidden], [m.weight for m in norms],
+                [m.bias for m in norms], self.fw[-1].weight, self.fw[-1].bias,
+                self.negative_slope)
         dt = self.dtype
         acc = torch.promote_types(dt, torch.float32)
         x = x.to(dt)

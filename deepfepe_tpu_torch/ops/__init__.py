@@ -1,5 +1,14 @@
 """Core numeric ops: eigensolvers (the eigh9 kernel in `ops.eigh9` and its
-plain Jacobi version) and the weighted 8-point solve."""
+plain Jacobi version), the weighted 8-point solve and the NaN scrub."""
+
+import torch as _torch
+
+
+def set_nan2zero(x, name: str = "network"):
+    """NaN/Inf scrub (parity: models/model_utils.set_nan2zero :5), for input
+    sanitization of external data; the solver path needs none."""
+    return _torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
+
 
 from .eigh import DEFAULT_GAP_EPS, safe_eigh, smallest_eigvec, smallest_singular_vec_gram
 from .fmatrix import FitResult, weighted_eight_point

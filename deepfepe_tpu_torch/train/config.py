@@ -273,3 +273,14 @@ def load_config(path: str) -> Config:
     with open(path) as f:
         return config_from_dict(yaml.safe_load(f))
 
+
+
+def qt_clamps(cfg: TrainingConfig, n_iter: int) -> Tuple[float, float]:
+    """The qt-loss clamp curriculum (Train_model_pipeline.py:475-489)."""
+    if n_iter < cfg.clamp_iter1:
+        i = 0
+    elif n_iter < cfg.clamp_iter2:
+        i = 1
+    else:
+        i = 2
+    return float(cfg.clamp_q_params[i]), float(cfg.clamp_t_params[i])

@@ -2,6 +2,9 @@
 
 from __future__ import annotations
 
+from typing import Dict
+
+import numpy as np
 import torch
 
 
@@ -15,3 +18,7 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "PyTorch path on the CPU"
         )
     return dev
+
+
+def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}

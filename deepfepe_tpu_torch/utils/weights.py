@@ -4,7 +4,8 @@
 nested dicts of numpy arrays, to this package's `DeepFNet.state_dict()`
 keys. The port's submodules use the reference layout, so the output of the
 JAX package's `export_deepf_state` (Conv1d weights [out, in, 1]) loads as
-well, with `load_state_dict(strict=True)`.
+well, with `load_state_dict(strict=True)`. `to_reference_layout` goes the
+other way, for the checkpoints the port writes.
 """
 
 from __future__ import annotations
@@ -43,3 +44,11 @@ def deepfnet_state_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     for name in ("input_weights", "update_weights"):
         sd.update(error_estimator_state_from_flax(params[name], name))
     return sd
+
+
+def to_reference_layout(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """This package's DeepFNet state_dict -> the reference layout, whose
+    Conv1d weights are [out, in, 1] (the inverse of the load hook), on the
+    CPU."""
+    return {k: (v[..., None] if v.dim() == 2 else v).detach().cpu().contiguous()
+            for k, v in state_dict.items()}

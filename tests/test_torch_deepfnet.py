@@ -135,9 +135,14 @@ def test_unported_variants_raise(flag):
 
 
 def test_model_loader_rejects_the_unported_mlp_kernel():
+    # The MLP kernel is ported now: use_pallas_mlp routes both weight MLPs
+    # to it, and the variants still unported are rejected.
     cfg = config_from_dict({"model": {"use_pallas_mlp": True}})
-    with pytest.raises(NotImplementedError, match="use_pallas_mlp"):
-        model_loader(cfg, torch.device("cpu"))
+    net = model_loader(cfg, torch.device("cpu"))
+    assert net.input_weights.use_fused and net.update_weights.use_fused
+    assert not model_loader(config_from_dict({}), torch.device("cpu")).input_weights.use_fused
+    with pytest.raises(NotImplementedError, match="if_des"):
+        model_loader(config_from_dict({"model": {"if_des": True}}), torch.device("cpu"))
 
 
 def test_seeded_parameters_are_reproducible():

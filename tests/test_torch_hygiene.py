@@ -74,6 +74,21 @@ def test_entry_points_default_to_the_card_and_never_fall_back(monkeypatch):
     assert deepfepe_tpu_torch.resolve_device is resolve_device
 
 
+def test_train_good_needs_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    cfg = config_from_dict({"data": {"batch_size": 1, "good_num": 20}})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.train_good(cfg, "x", train_iter=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["train_good", str(REPO / "configs" / "synthetic_baseline.yaml"), "x",
+                  "--train_iter", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["eval_good", str(REPO / "configs" / "synthetic_baseline.yaml"), "x",
+                  "--pretrained", "missing.pth.tar"])
+    assert not (tmp_path / "logs").exists()
+
+
 def test_chip_smoke_fails_without_a_card():
     out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=REPO,
                          env=_env_without_cuda(), capture_output=True, text=True, timeout=120)
