@@ -31,9 +31,24 @@ seconds:
   check    the card's results against the CPU path on a small input: one
            eval batch, and one train step in float32 and in bf16 with the
            fused MLP, whose every K2 and K2b call is held on its own
-           inputs.
+           inputs;
+and for the frontend slice:
+  kernels  K5 (the fused 3x3 conv + affine + ReLU) at the SuperPoint
+           path's layer shapes and K4 (the mutual-NN matcher) at K = 1000
+           and 2048, each against its plain version and float64, timed
+           beside the plain version, a PyTorch yardstick and its bound;
+  val_feature  the port's `val_feature` entry point with the conv switch on
+           K5 and K = 1000: (a) SuperPointNet at 120x160, 2 pairs a batch,
+           5 batches; (b) SuperPointNetGauss2 at 376x1240, 4 pairs a batch
+           (one [8, 376, 1240] encoder pass), 2 batches, from a seeded
+           `.pth.tar` through --pretrained's loader; exact launch counts
+           around each run;
+  frontend_breakdown  each stage of a batch of (a) and (b) timed, and one
+           batch of each under torch.profiler;
+  check    (a)'s first batch on the card against the CPU's plain routes.
 
-The line before the card's name line is the kernels' JSON summary; the
+The line before the card's name line is the kernels' JSON summary (eigh9,
+K2, K2b, K5, K4, each with its launches on the path that carries it); the
 last line is {"ok": true, "device": {...}}. Any failed check exits 1.
 
     python3 chip_smoke.py --plant FAULT
@@ -61,7 +76,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
-SOURCES = ("eigh9.cu", "mlp.cu")
+SOURCES = ("eigh9.cu", "mlp.cu", "conv3x3.cu", "matcher.cu")
 
 # The synthetic_baseline.yaml values, built in code (no YAML reader needed).
 BASELINE = {
@@ -277,6 +292,8 @@ def phase_eval_good(ph: Phases, cfg) -> dict:
           f"eigh9 launched {launches['eigh9']} times on the path, expected {expected}")
     check(launches["mlp_forward"] == launches["mlp_backward"] == 0,
           "the MLP kernels ran on a path configured without them")
+    check(launches["conv3x3_affine_relu"] == launches["mutual_nn_kernel"] == 0,
+          "the frontend kernels ran on the solver's path")
     check(summary["pairs"] == EVAL_BATCHES * cfg.data.batch_size, "wrong number of pairs")
     check(all(np.isfinite(v) for v in summary.values() if isinstance(v, float)),
           f"non-finite summary: {summary}")
@@ -609,10 +626,13 @@ def phase_mlp_kernels(ph: Phases) -> list:
 
 
 def kernel_counters():
+    from deepfepe_tpu_torch.ops.conv import conv3x3_affine_relu
     from deepfepe_tpu_torch.ops.eigh9 import eigh9
+    from deepfepe_tpu_torch.ops.matcher import mutual_nn_kernel
     from deepfepe_tpu_torch.ops.mlp import mlp_backward, mlp_forward
 
-    return {"eigh9": eigh9, "mlp_forward": mlp_forward, "mlp_backward": mlp_backward}
+    return {"eigh9": eigh9, "mlp_forward": mlp_forward, "mlp_backward": mlp_backward,
+            "conv3x3_affine_relu": conv3x3_affine_relu, "mutual_nn_kernel": mutual_nn_kernel}
 
 
 def reset_counts() -> None:
@@ -678,7 +698,8 @@ def phase_train_good(ph: Phases) -> dict:
         depth = cfg.model.depth
         expected = {"mlp_forward": depth * (steps + vals * VAL_BATCHES),
                     "mlp_backward": depth * steps,
-                    "eigh9": depth * (steps + vals * VAL_BATCHES)}
+                    "eigh9": depth * (steps + vals * VAL_BATCHES),
+                    "conv3x3_affine_relu": 0, "mutual_nn_kernel": 0}
         ms = last["wall_s"] * 1e3 / steps
         ph.emit("train_good", run=name, steps=steps, validations=vals, last=last, launches=counts,
                 expected_launches=expected, ms_per_step=ms,
@@ -893,6 +914,470 @@ def phase_check_train(ph: Phases) -> None:
     check(fused["within_bars"], f"fused train step on the card is outside its bars: {brief}")
 
 
+# ---------------------------------------------------------------- frontend
+
+# val_feature at the SuperPoint variants' full widths, K = 1000 keypoints
+# (the FrontendParams default; the CLI's 300 sits below K4's K >= 768) and
+# the conv switch on the kernel: (a) SuperPointNet at the CLI's 120x160,
+# batch 2, 5 batches; (b) SuperPointNetGauss2 at the KITTI frame size,
+# batch 4 (one [8, 376, 1240] encoder pass), 2 batches.
+VF_K = 1000
+VF_RUNS = {
+    "a": {"net": "SuperPointNet", "image_size": (120, 160), "batch_size": 2, "batches": 5},
+    "b": {"net": "SuperPointNetGauss2", "image_size": (376, 1240), "batch_size": 4,
+          "batches": 2},
+}
+# Launches per batch. K5 runs on the layers with H * W >= 16,384: (a)
+# conv1a, conv1b at 120x160; (b) inc x2 at 376x1240, down1 x2 at 188x620,
+# down2 x2 at 94x310 (down3's 47x155 = 7,285 px takes the plain route).
+# K4 runs once a batch, on both frames' [B, 1000, 256] descriptors.
+VF_PER_BATCH = {"a": {"conv3x3_affine_relu": 2, "mutual_nn_kernel": 1},
+                "b": {"conv3x3_affine_relu": 6, "mutual_nn_kernel": 1}}
+# K5 at the path's shapes (B, H, W, Cin, C): run (b)'s six kernel layers
+# (down1's two share one shape) and run (a)'s conv1b.
+CONV_SHAPES = (("inc.conv0", 8, 376, 1240, 1, 64), ("inc.conv1", 8, 376, 1240, 64, 64),
+               ("down1.conv1", 8, 188, 620, 64, 64), ("down2.conv0", 8, 94, 310, 64, 128),
+               ("down2.conv1", 8, 94, 310, 128, 128), ("a.conv1b", 4, 120, 160, 64, 64))
+# K5 is held to tests/test_conv_pallas.py's atol of 5e-5, set there for
+# outputs of magnitude about 1-10, here scaled by max(1, max|y|) of each
+# output, against the plain version and against float64 (on the first
+# CONV_F64_ROWS rows of the first image, whose last input row is real).
+CONV_ATOL = 5e-5
+CONV_F64_ROWS = 32
+# K4 at run (a)'s and run (b)'s B with K = 1000, and at K = 2048 (the JAX
+# tests' largest); D = 256. Indices must equal the plain version's and the
+# float64 argmax except where a row's (or column's) two best masked
+# similarities lie within MATCH_TIE in float64; dist12 within MATCH_ATOL.
+MATCH_CASES = ((2, 1000), (4, 1000), (2, 2048), (4, 2048))
+MATCH_TIE, MATCH_ATOL = 1e-5, 1e-5
+# Card against CPU on the small val_feature batch: descriptors and
+# subpixel offsets (the two convs that run K5 sum in another order than
+# the CPU's, ~1e-7 relative, through three more layers and a
+# normalization) within 1e-4; keypoints and validity equal; match sets
+# equal except at near-ties; ratios within 1 / num_matches.
+FRONT_BARS = {"desc": 1e-4, "offsets_px": 1e-4}
+
+
+def conv_bound_ms(B: int, H: int, W: int, Cin: int, C: int) -> tuple[float, str]:
+    """Least time for K5: 2 flops a multiply-add over B H W x 9 Cin x C,
+    plus the affine and ReLU (3 a output), over the FP32 rate; against x,
+    w, scale, bias read once and y written once over HBM."""
+    px = B * H * W
+    flops = 2 * px * 9 * Cin * C + 3 * px * C
+    nbytes = 4 * (px * Cin + 9 * Cin * C + 2 * C + px * C)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def match_bound_ms(B: int, K: int, D: int = 256) -> tuple[float, str]:
+    """Least time for K4: the similarity's 2 B K^2 D flops once over the
+    FP32 rate (both argmaxes derive from it); against both descriptor sets
+    and masks read and nn12, nn21, dist12 written over HBM."""
+    flops = 2 * B * K * K * D
+    nbytes = 4 * 2 * B * K * D + 2 * B * K + 3 * 4 * B * K
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def conv_inputs(B, H, W, Cin, C, seed: int):
+    """Inputs at the path's magnitudes: a grey image in [0, 1] for Cin = 1,
+    else ReLU outputs; lecun-scaled weights, folded-BN-like affines."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = {"device": "cuda", "generator": g}
+    x = torch.rand(B, H, W, Cin, **kw) if Cin == 1 else torch.relu(torch.randn(B, H, W, Cin, **kw))
+    w = torch.randn(3, 3, Cin, C, **kw) / (9 * Cin) ** 0.5
+    return x, w, torch.rand(C, **kw) + 0.5, 0.1 * torch.randn(C, **kw)
+
+
+def conv_f64(x, w, s, t, rows: int = CONV_F64_ROWS):
+    """K5's function in float64 on the first `rows` output rows of image 0."""
+    import torch
+    import torch.nn.functional as F
+
+    xc = x[:1, :rows + 1].double().permute(0, 3, 1, 2)
+    z = F.conv2d(xc, w.double().permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
+    return torch.relu(z * s.double() + t.double())[:, :rows]
+
+
+def phase_conv_kernel(ph: Phases) -> dict:
+    """K5 at the path's shapes against its plain version and float64,
+    timed beside the plain version, cuDNN's conv + affine + ReLU and its
+    bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepfepe_tpu_torch.ops import conv as conv_mod
+
+    shapes, max_err = {}, 0.0
+    for i, (name, B, H, W, Cin, C) in enumerate(CONV_SHAPES):
+        x, w, s, t = conv_inputs(B, H, W, Cin, C, seed=i)
+        with torch.no_grad():
+            y = conv_mod.conv3x3_affine_relu(x, w, s, t)
+            ref = conv_mod.conv3x3_affine_relu_ref(x, w, s, t)
+            y64 = conv_f64(x, w, s, t)
+        torch.cuda.synchronize()
+        bar = CONV_ATOL * max(1.0, ref.abs().max().item())
+        errs = {"kernel_vs_plain": (y - ref).abs().max().item(),
+                "kernel_vs_f64": (y[:1, :CONV_F64_ROWS].double() - y64).abs().max().item(),
+                "plain_vs_f64": (ref[:1, :CONV_F64_ROWS].double() - y64).abs().max().item(),
+                "max_abs_y": ref.abs().max().item(), "relu_zero_share": (ref == 0).float().mean().item()}
+        ok = bool(torch.isfinite(y).all()) and errs["kernel_vs_plain"] <= bar \
+            and errs["kernel_vs_f64"] <= bar
+        x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
+        s4, t4 = s[:, None, None], t[:, None, None]
+
+        def library():
+            with torch.no_grad():
+                torch.relu_(F.conv2d(x_nchw, w_oihw, padding=1).mul_(s4).add_(t4))
+
+        iters = 10 if B * H * W > 1e6 else 50
+        bound, bound_by = conv_bound_ms(B, H, W, Cin, C)
+        with torch.no_grad():
+            timing = {"ms": cuda_time_ms(lambda: conv_mod.conv3x3_affine_relu(x, w, s, t), iters),
+                      "plain_ms": cuda_time_ms(
+                          lambda: conv_mod.conv3x3_affine_relu_ref(x, w, s, t), iters),
+                      "library_ms": cuda_time_ms(library, iters),
+                      "bound_ms": bound, "bound_by": bound_by}
+        ph.emit("kernels", kernel="conv3x3_affine_relu", layer=name, shape=[B, H, W, Cin, C],
+                errors=errs, bar=bar, within_bars=ok, **timing)
+        check(ok, f"K5 at {name} {[B, H, W, Cin, C]} is outside its bar {bar}: {errs}")
+        shapes[name] = {"shape": [B, H, W, Cin, C], **timing}
+        max_err = max(max_err, errs["kernel_vs_plain"])
+        del x, w, s, t, y, ref, y64, x_nchw, w_oihw
+        torch.cuda.empty_cache()
+    lead = shapes["inc.conv1"]
+    return {"name": "conv3x3_affine_relu", "route": "cuda",
+            "source": "deepfepe_tpu_torch/csrc/conv3x3.cu",
+            "replaces": "deepfepe_tpu/ops/pallas/conv_pallas.py:111", "launches": None,
+            "max_abs_err": max_err, "ms": lead["ms"], "plain_ms": lead["plain_ms"],
+            "bound_ms": lead["bound_ms"], "bound_by": lead["bound_by"],
+            "library_ms": lead["library_ms"],
+            "library": "cuDNN F.conv2d (float32, TF32 off) + affine + ReLU in place",
+            "shape": "inc.conv1: x [8, 376, 1240, 64] -> 64, f32", "per_layer": shapes}
+
+
+def match_inputs(B: int, K: int, seed: int, D: int = 256):
+    """Unit descriptors, the second set a noisy copy of the first in a
+    shuffled order, and validity masks with about a fifth padded."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = {"device": "cuda", "generator": g}
+    base = torch.randn(B, K, D, **kw)
+    perm = torch.randperm(K, **kw)
+    d1 = F.normalize(base, dim=-1)
+    d2 = F.normalize(base + 0.3 * torch.randn(B, K, D, **kw), dim=-1)[:, perm].contiguous()
+    return d1, d2, torch.rand(B, K, **kw) < 0.8, torch.rand(B, K, **kw) < 0.8
+
+
+def near_ties(d1, d2, v1, v2, tie: float = MATCH_TIE):
+    """Float64 masked similarities: (nn12, nn21, best12, rows whose two
+    best columns lie within `tie`, columns whose two best rows do)."""
+    import torch
+
+    dot = d1.double() @ d2.double().transpose(-1, -2)
+    s12 = dot + torch.where(v2, 0.0, -1e9).double()[:, None, :]
+    s21 = dot + torch.where(v1, 0.0, -1e9).double()[:, :, None]
+    top12 = s12.topk(2, dim=-1).values
+    top21 = s21.topk(2, dim=-2).values
+    return (s12.argmax(-1), s21.argmax(-2), top12[..., 0],
+            top12[..., 0] - top12[..., 1] < tie, top21[:, 0] - top21[:, 1] < tie)
+
+
+def phase_matcher_kernel(ph: Phases) -> dict:
+    """K4 against its plain version and float64, timed beside the plain
+    version, torch.matmul + max/argmax and its bound."""
+    import torch
+
+    from deepfepe_tpu_torch.ops import matcher
+
+    cases, max_err = {}, 0.0
+    for i, (B, K) in enumerate(MATCH_CASES):
+        d1, d2, v1, v2 = match_inputs(B, K, seed=100 + i)
+        nn12, nn21, dist12, mutual = matcher.mutual_nn_kernel(d1, d2, v1, v2)
+        p12, p21, pdist, pmut = matcher.mutual_nn_plain(d1, d2, v1, v2)
+        e12, e21, best, tie12, tie21 = near_ties(d1, d2, v1, v2)
+        dist64 = torch.sqrt(torch.clamp(2 - 2 * best, min=0))
+        torch.cuda.synchronize()
+        # mutual[i] reads nn12[i] and nn21 at nn12[i]: excuse ties there.
+        tie_mut = tie12 | torch.gather(tie21, 1, nn12.long()) | torch.gather(tie21, 1, p12.long())
+        errs = {"nn12_vs_plain": int(((nn12 != p12) & ~tie12).sum()),
+                "nn21_vs_plain": int(((nn21 != p21) & ~tie21).sum()),
+                "nn12_vs_f64": int(((nn12.long() != e12) & ~tie12).sum()),
+                "nn21_vs_f64": int(((nn21.long() != e21) & ~tie21).sum()),
+                "mutual_vs_plain": int(((mutual != pmut) & ~tie_mut).sum()),
+                "near_tie_rows": int(tie12.sum()), "near_tie_cols": int(tie21.sum()),
+                "nn12_differs_at_near_ties": int(((nn12 != p12) & tie12).sum()),
+                "dist12_vs_plain": (dist12 - pdist).abs().max().item(),
+                "dist12_vs_f64": (dist12.double() - dist64).abs().max().item(),
+                "valid_share": v1.float().mean().item(), "mutual_share": mutual.float().mean().item()}
+        ok = all(errs[k] == 0 for k in ("nn12_vs_plain", "nn21_vs_plain", "nn12_vs_f64",
+                                        "nn21_vs_f64", "mutual_vs_plain")) \
+            and errs["dist12_vs_plain"] <= MATCH_ATOL and errs["dist12_vs_f64"] <= MATCH_ATOL
+        m1 = torch.where(v1, 0.0, -1e9)[:, :, None]
+        m2 = torch.where(v2, 0.0, -1e9)[:, None, :]
+
+        def library():
+            dot = torch.matmul(d1, d2.transpose(-1, -2))
+            (dot + m2).max(dim=-1)
+            (dot + m1).argmax(dim=-2)
+
+        bound, bound_by = match_bound_ms(B, K)
+        timing = {"ms": cuda_time_ms(lambda: matcher.launch(d1, d2, v1, v2), 50),
+                  "wrapper_ms": cuda_time_ms(lambda: matcher.mutual_nn_kernel(d1, d2, v1, v2), 50),
+                  "plain_ms": cuda_time_ms(lambda: matcher.mutual_nn_plain(d1, d2, v1, v2), 50),
+                  "library_ms": cuda_time_ms(library, 50), "bound_ms": bound, "bound_by": bound_by}
+        ph.emit("kernels", kernel="mutual_nn_kernel", B=B, K=K, errors=errs,
+                bars={"near_tie": MATCH_TIE, "dist12_atol": MATCH_ATOL}, within_bars=ok, **timing)
+        check(ok, f"K4 at B={B}, K={K} is outside its bars: {errs}")
+        cases[f"B{B}_K{K}"] = timing
+        max_err = max(max_err, errs["dist12_vs_plain"])
+    lead = cases["B4_K1000"]
+    return {"name": "mutual_nn_kernel", "route": "cuda", "source": "deepfepe_tpu_torch/csrc/matcher.cu",
+            "replaces": "deepfepe_tpu/ops/pallas/matcher_pallas.py:20", "launches": None,
+            "max_abs_err": max_err, "ms": lead["ms"], "plain_ms": lead["plain_ms"],
+            "bound_ms": lead["bound_ms"], "bound_by": lead["bound_by"],
+            "library_ms": lead["library_ms"],
+            "library": "torch.matmul (float32, TF32 off) + max/argmax both ways",
+            "shape": "desc [4, 1000, 256] f32 (run b)", "per_case": cases}
+
+
+def gauss2_checkpoint(path: str, seed: int = 0) -> None:
+    """Seeded SuperPointNetGauss2 weights in the reference `.pth.tar`
+    layout, with randomized running statistics: variance |1 + 0.3 N| +
+    0.05 as tests/test_conv_pallas.py makes it, mean 0.1 N. That test's
+    mean, |0.3 N| + 0.05, is positive everywhere and zeroes every
+    activation of the untrained net after its ReLUs (constant descriptors,
+    one match a pair), which would leave K4 nothing to match."""
+    import torch
+
+    from deepfepe_tpu_torch.frontend import SuperPointNetGauss2
+    from deepfepe_tpu_torch.frontend.superpoint import reset_superpoint
+
+    g = torch.Generator().manual_seed(seed)
+    net = reset_superpoint(SuperPointNetGauss2(), g)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.copy_(0.1 * torch.randn(m.num_features, generator=g))
+                m.running_var.copy_((1 + 0.3 * torch.randn(m.num_features, generator=g)).abs()
+                                    + 0.05)
+    torch.save({"n_iter": 0, "model_state_dict": net.state_dict()}, path)
+
+
+def vf_pretrained(run: str) -> str:
+    """The checkpoint run `run` loads ('' for seeded SuperPointNet weights)."""
+    if VF_RUNS[run]["net"] == "SuperPointNet":
+        return ""
+    path = os.path.join("logs", "smoke_vf_weights", "sp_gauss2.pth.tar")
+    if not os.path.exists(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        gauss2_checkpoint(path)
+    return path
+
+
+def vf_params():
+    from deepfepe_tpu_torch.frontend import FrontendParams
+
+    return FrontendParams(out_num_points=VF_K, conf_thresh=1e-3, conv_impl="pallas")
+
+
+def phase_val_feature(ph: Phases) -> dict:
+    """The port's `val_feature` entry point, runs (a) and (b); every
+    kernel's launches read around each run alone. Returns the sums."""
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch import cli
+
+    shutil.rmtree(os.path.join(REPO, "logs", "smoke_vf_weights"), ignore_errors=True)
+    total = dict.fromkeys(kernel_counters(), 0)
+    for run, spec in VF_RUNS.items():
+        pretrained = vf_pretrained(run)
+        reset_counts()
+        summary = cli.val_feature(f"smoke_vf_{run}", max_batches=spec["batches"],
+                                  pretrained=pretrained, fp=vf_params(),
+                                  image_size=spec["image_size"], batch_size=spec["batch_size"],
+                                  device="cuda")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expected = {k: spec["batches"] * VF_PER_BATCH[run].get(k, 0) for k in counts}
+        ratios = [summary[f"ratio@{t}"] for t in (0.1, 0.5, 1.0, 2.0)]
+        ph.emit("val_feature", run=run, net=spec["net"], image_size=spec["image_size"],
+                batch_size=spec["batch_size"], K=VF_K, summary=summary, launches=counts,
+                expected_launches=expected, pairs_per_s=summary["pairs"] / summary["seconds"],
+                timed="host clock over the frontend and its scoring, ending in a synchronize")
+        check(counts == expected, f"val_feature ({run}): launches {counts}, expected {expected}")
+        check(summary["pairs"] == spec["batches"] * spec["batch_size"],
+              f"val_feature ({run}): {summary['pairs']} pairs")
+        check(all(np.isfinite(v) for v in [*ratios, summary["num_matches"]]),
+              f"val_feature ({run}): non-finite summary {summary}")
+        check(0 < summary["num_matches"] <= VF_K, f"val_feature ({run}): "
+              f"{summary['num_matches']} matches a pair")
+        check(all(0 <= a <= b <= 1 for a, b in zip(ratios, ratios[1:])),
+              f"val_feature ({run}): ratios not in [0, 1] and rising: {ratios}")
+        for k, v in counts.items():
+            total[k] += v
+    return total
+
+
+def vf_net(run: str, device):
+    from deepfepe_tpu_torch.frontend import SuperPointNet
+    from deepfepe_tpu_torch.frontend.superpoint import reset_superpoint
+    from deepfepe_tpu_torch.utils.weights import load_superpoint
+
+    import torch
+
+    pretrained = vf_pretrained(run)
+    if pretrained:
+        return load_superpoint(pretrained, device)
+    return reset_superpoint(SuperPointNet(), torch.Generator().manual_seed(0)).eval().to(device)
+
+
+def phase_frontend_breakdown(ph: Phases, repeats: int = 3) -> None:
+    """Where a val_feature batch spends its time, for runs (a) and (b):
+    each stage of the path between synchronizes on the host clock, the
+    median over `repeats` passes after a warm-up one; then one whole batch
+    under torch.profiler (the device's busy share and top kernels). Runs
+    after the counted runs."""
+    import statistics
+
+    import torch
+
+    from deepfepe_tpu_torch.data import SyntheticImagePairs
+    from deepfepe_tpu_torch.eval import frontend_epidist_eval
+    from deepfepe_tpu_torch.frontend import (flatten_detection, gather_matches,
+                                             mutual_nn_match, nms_heatmap, sample_descriptors,
+                                             soft_argmax_refine, topk_keypoints)
+    from deepfepe_tpu_torch.frontend.sp_fused import superpoint_forward_fused
+    from deepfepe_tpu_torch.geometry.epipolar import epi_distance
+
+    dev = torch.device("cuda")
+    fp = vf_params()
+    for run, spec in VF_RUNS.items():
+        net = vf_net(run, dev)
+        batch = SyntheticImagePairs(image_size=spec["image_size"], seed=0).batch(spec["batch_size"])
+        imgs = torch.as_tensor(batch["imgs_grey"], device=dev)
+        F_gt = torch.as_tensor(batch["F_gts"], device=dev)
+        B = imgs.shape[0]
+        spent = {}
+
+        def stage(name, fn, *args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            spent.setdefault(name, []).append((time.perf_counter() - t) * 1e3)
+            return out
+
+        for _ in range(repeats + 1):
+            with torch.no_grad():
+                both = torch.cat([imgs[:, 0], imgs[:, 1]])[..., None].contiguous()
+                outs = stage("superpoint_cnn", superpoint_forward_fused, net, both, "pallas")
+                heat = stage("flatten_detection", flatten_detection, outs["semi"])
+                nms = stage("nms", nms_heatmap, heat, fp.nms_dist)
+                k = stage("topk", topk_keypoints, nms, fp.out_num_points, fp.conf_thresh)
+                k = stage("soft_argmax", soft_argmax_refine, heat, k, fp.patch_size)
+                desc = stage("sample_descriptors", sample_descriptors, outs["desc"],
+                             k.xy + k.offsets)
+                k = k._replace(desc=desc)
+                k1, k2 = k.split(B)
+                m = stage("match", mutual_nn_match, k1.desc, k2.desc, k1.valid, k2.valid,
+                          fp.nn_thresh, fp.out_num_points)
+                xy = stage("gather", gather_matches, k1.xy + k1.offsets, k2.xy + k2.offsets, m)
+                stage("epi_distance", epi_distance, F_gt, xy[..., :2], xy[..., 2:4])
+        ms = {k: statistics.median(v[1:]) for k, v in spent.items()}
+        total = sum(ms.values())
+        # One whole batch as val_feature runs it, under the profiler.
+        trace = os.path.join("logs", f"smoke_vf_{run}_profile", "trace.json")
+        os.makedirs(os.path.dirname(trace), exist_ok=True)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            frontend_epidist_eval(net, (imgs[:, 0], imgs[:, 1]), F_gt, fp)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(trace)
+        ph.emit("frontend_breakdown", run=run, net=spec["net"], image_size=spec["image_size"],
+                batch_size=spec["batch_size"], stage_ms=ms, batch_ms=total,
+                share={k: v / total for k, v in ms.items()},
+                timed="host clock between synchronizes, median of passes 2..",
+                profiled_batch=read_trace(trace))
+        del net, outs, nms, heat, k, desc
+        torch.cuda.empty_cache()
+
+
+def match_set(m) -> set:
+    import numpy as np
+
+    val, i1, i2 = (np.asarray(t.cpu()) for t in (m.valid, m.idx1, m.idx2))
+    return {(b, int(i1[b, k]), int(i2[b, k])) for b in range(val.shape[0])
+            for k in range(val.shape[1]) if val[b, k]}
+
+
+def phase_check_frontend(ph: Phases) -> None:
+    """Run (a)'s first batch (2 pairs at 120x160, seeded SuperPointNet,
+    K = 1000) on the card (K5 on conv1a/conv1b, K4) and on the CPU (the
+    plain routes), compared at FRONT_BARS. Padding and K4's masks are
+    exercised: fewer than K keypoints survive NMS on each frame."""
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch.data import SyntheticImagePairs
+    from deepfepe_tpu_torch.eval import frontend_epidist_eval
+    from deepfepe_tpu_torch.frontend import get_matches_from_sp
+
+    spec = VF_RUNS["a"]
+    batch = SyntheticImagePairs(image_size=spec["image_size"], seed=0).batch(spec["batch_size"])
+    fp = vf_params()
+    res, ev = {}, {}
+    for dev in ("cpu", "cuda"):
+        net = vf_net("a", torch.device(dev))
+        imgs = torch.as_tensor(batch["imgs_grey"], device=dev)
+        frames = (imgs[:, 0], imgs[:, 1])
+        F_gt = torch.as_tensor(batch["F_gts"], device=dev)
+        reset_counts()
+        with torch.no_grad():
+            res[dev] = get_matches_from_sp(net, frames, fp)
+        res[dev]["launches"] = read_counts()
+        ev[dev] = frontend_epidist_eval(net, frames, F_gt, fp)
+    cpu, gpu = res["cpu"], res["cuda"]
+    kp = {}
+    for name in ("kpts1", "kpts2"):
+        a, b = cpu[name], gpu[name]
+        kp[name] = {"xy_equal": bool(torch.equal(a.xy, b.xy.cpu())),
+                    "valid_equal": bool(torch.equal(a.valid, b.valid.cpu())),
+                    "valid_per_frame": a.valid.sum(-1).tolist(),
+                    "desc": (a.desc - b.desc.cpu()).abs().max().item(),
+                    "offsets_px": (a.offsets - b.offsets.cpu()).abs().max().item()}
+    _, _, _, tie12, tie21 = near_ties(cpu["kpts1"].desc, cpu["kpts2"].desc,
+                                      cpu["kpts1"].valid, cpu["kpts2"].valid)
+    differ = match_set(cpu["matches"]) ^ match_set(gpu["matches"])
+    unexplained = [(b, i, j) for b, i, j in differ if not (tie12[b, i] or tie21[b, j])]
+    nm = ev["cpu"]["num_matches"]
+    ratio_diff = max(float(np.max(np.abs(ev["cpu"][k] - ev["cuda"][k]) * np.maximum(nm, 1)))
+                     for k in ev["cpu"] if k.startswith("ratio"))
+    report = {"keypoints": kp, "matches_cpu": len(match_set(cpu["matches"])),
+              "matches_card": len(match_set(gpu["matches"])), "matches_differing": len(differ),
+              "differing_not_near_tie": len(unexplained),
+              "near_tie_rows": int(tie12.sum()), "near_tie_cols": int(tie21.sum()),
+              "num_matches_cpu": nm.tolist(), "num_matches_card": ev["cuda"]["num_matches"].tolist(),
+              "ratio_diff_in_matches": ratio_diff, "launches_card": gpu["launches"],
+              "launches_cpu": cpu["launches"]}
+    ok = (all(v["xy_equal"] and v["valid_equal"] and v["desc"] <= FRONT_BARS["desc"]
+              and v["offsets_px"] <= FRONT_BARS["offsets_px"] for v in kp.values())
+          and not unexplained and ratio_diff <= 1.0
+          and gpu["launches"]["conv3x3_affine_relu"] == 2
+          and gpu["launches"]["mutual_nn_kernel"] == 1
+          and sum(cpu["launches"].values()) == 0)
+    ph.emit("check", frontend=report, bars={**FRONT_BARS, "ratio": "1 / num_matches",
+                                            "near_tie": MATCH_TIE}, within_bars=ok)
+    check(ok, f"the card's frontend disagrees with the CPU's: {report}")
+    check(all(n < VF_K for v in kp.values() for n in v["valid_per_frame"]),
+          "every keypoint slot was valid: K4's masks and the padding went untested")
+
+
 def plant(fault: str) -> None:
     """Install a deliberate fault for `--plant`. Wiring faults wrap the
     autograd Function's backward; kernel faults build a copy of csrc/mlp.cu
@@ -998,21 +1483,30 @@ def main(argv=None) -> int:
         build_all(ph)
         row = phase_kernels(ph)
         mlp_rows = phase_mlp_kernels(ph)
+        front_rows = [phase_conv_kernel(ph), phase_matcher_kernel(ph)]
         cfg = config_from_dict(BASELINE)
         eval_counts = phase_eval_good(ph, cfg)
         phase_breakdown(ph, cfg)
         train_counts = phase_train_good(ph)
+        vf_counts = phase_val_feature(ph)
+        phase_frontend_breakdown(ph)
         phase_check(ph, cfg)
         phase_check_train(ph)
+        phase_check_frontend(ph)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
-    rows = [row, *mlp_rows]
+    rows = [row, *mlp_rows, *front_rows]
+    # Each kernel's launches on the path that carries it: train_good for
+    # eigh9 and the MLP pair, val_feature (a) + (b) for K5 and K4.
     for r in rows:
-        r["launches"] = train_counts[r["name"]]
+        path, counts = (("val_feature", vf_counts) if r in front_rows
+                        else ("train_good", train_counts))
+        r["launches"] = counts[r["name"]]
+        r["launches_path"] = path
         r["launches_eval_good"] = eval_counts[r["name"]]
         if r["launches"] <= 0:
-            print(f"chip_smoke: FAILED: {r['name']} never launched on train_good",
+            print(f"chip_smoke: FAILED: {r['name']} never launched on {path}",
                   file=sys.stderr, flush=True)
             return 1
     print(json.dumps({"kernels": rows}), flush=True)

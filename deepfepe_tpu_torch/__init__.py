@@ -1,7 +1,7 @@
 """PyTorch port of `deepfepe_tpu` for one NVIDIA H100.
 
 Mirrors the JAX package's module layout (geometry, ops, models, losses,
-eval, data, train, utils, cli). The port imports torch and numpy only;
+frontend, eval, data, train, utils, cli). The port imports torch and numpy only;
 it never imports jax, flax or `deepfepe_tpu`.
 
 Kernels written by hand for Hopper live under `csrc/` and are built with

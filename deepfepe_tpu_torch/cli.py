@@ -5,6 +5,9 @@
         [--device cpu|cuda]
     python -m deepfepe_tpu_torch.cli eval_good <config.yaml> <exper_name>
         [--max_batches k] [--pretrained ckpt.pth.tar] [--device cpu|cuda]
+    python -m deepfepe_tpu_torch.cli val_feature <exper_name>
+        [--max_batches k] [--pretrained sp.pth.tar] [--rand_noise s]
+        [--device cpu|cuda]
 
 `train_good` trains the solver (F-loss, or the qt pose loss with
 `model.if_qt_loss`) on the config's train stream, validates on its val
@@ -13,8 +16,11 @@ checkpoints/deepFNet_<n>_checkpoint.pth.tar}; it prints the last step's
 scalar metrics as one JSON line. `eval_good` runs the solver on the
 config's test stream, scores each pair against the ground truth and the
 8-point RANSAC baseline, and prints the JAX package's summary keys as one
-JSON line. Both default to the card; without one they raise unless
-`--device cpu` is given.
+JSON line. `val_feature` runs the SuperPoint frontend on synthetic image
+pairs and prints the share of matches within 0.1, 0.5, 1 and 2 px of their
+ground-truth epipolar lines and the match count, also written to
+logs/<exper_name>/result_dict_all.npz. All default to the card; without
+one they raise unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -29,12 +35,16 @@ from typing import Dict, Iterable, Sequence
 import numpy as np
 import torch
 
+from .data import SyntheticImagePairs
 from .data.prefetch import prefetch_batches
-from .eval import val_rt_batch
+from .eval import frontend_epidist_eval, val_rt_batch
+from .frontend import FrontendParams, SuperPointNet
+from .frontend.superpoint import reset_superpoint
 from .loader import data_loader, model_loader
 from .train import Trainer, eval_step, load_checkpoint, load_config
 from .train.config import Config
 from .utils.device import batch_to_device, resolve_device
+from .utils.weights import load_superpoint
 
 PER_PAIR = ("err_q_est", "err_t_est", "err_q_base", "err_t_base", "err_q_gt",
             "err_t_gt", "base_inliers")
@@ -146,6 +156,60 @@ def eval_good(cfg: Config, max_batches: int, device=None, pretrained: str = ""
     return summary
 
 
+def val_feature(exper_name: str, max_batches: int = 0, pretrained: str = "",
+                rand_noise: float = 0.0, config: str = "", homography: int = 0,
+                fp: FrontendParams | None = None, image_size=(120, 160), batch_size: int = 2,
+                device=None) -> Dict[str, float]:
+    """Frontend-only correspondence quality on `SyntheticImagePairs(seed=0)`
+    (the JAX CLI's stream), `max_batches` batches (5 when 0) of
+    `batch_size` pairs: SuperPoint from `pretrained` (a reference `.pth` or
+    `.pth.tar`; gauss2 when it has BatchNorm keys) or seeded (seed 0),
+    keypoints and mutual-NN matches under `fp` (the JAX CLI's
+    FrontendParams(out_num_points=300, conf_thresh=1e-3) by default).
+    Returns the mean per batch of `ratio@{0.1,0.5,1.0,2.0}` and
+    `num_matches`, with `pairs`, `seconds` (host clock over the frontend
+    and its scoring, ending in a synchronize; data is made up front) and
+    `device`."""
+    device = resolve_device(device)
+    if config:
+        raise NotImplementedError("val_feature --config needs the KITTI dump loader, which is "
+                                  "not ported yet (ROADMAP Queue 1 item 8)")
+    if homography:
+        raise NotImplementedError("val_feature --homography needs a numpy perspective warp in "
+                                  "place of cv2, not ported yet (ROADMAP Queue 1 item 1)")
+    if pretrained and not pretrained.endswith((".pth", ".pth.tar")):
+        raise NotImplementedError("only reference .pth/.pth.tar SuperPoint checkpoints load; "
+                                  ".msgpack files need flax (ROADMAP Queue 1 item 1)")
+    fp = fp or FrontendParams(out_num_points=300, conf_thresh=1e-3)
+    if pretrained:
+        net = load_superpoint(pretrained, device)
+    else:
+        net = reset_superpoint(SuperPointNet(), torch.Generator().manual_seed(0))
+        net = net.eval().to(device)
+    gen = SyntheticImagePairs(image_size=tuple(image_size), seed=0)
+    data = [gen.batch(batch_size) for _ in range(max_batches or 5)]
+    accum: Dict[str, list] = {}
+    t0 = time.perf_counter()
+    for i, batch in enumerate(data):
+        imgs = torch.as_tensor(batch["imgs_grey"], device=device)
+        out = frontend_epidist_eval(
+            net, (imgs[:, 0], imgs[:, 1]), torch.as_tensor(batch["F_gts"], device=device), fp,
+            noise_std=rand_noise,
+            generator=torch.Generator().manual_seed(i) if rand_noise else None)
+        for k, v in out.items():
+            if k.startswith("ratio") or k == "num_matches":
+                accum.setdefault(k, []).append(float(np.mean(v)))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    summary = {k: float(np.mean(v)) for k, v in accum.items()}
+    save_dir = os.path.join("logs", exper_name)
+    os.makedirs(save_dir, exist_ok=True)
+    np.savez(os.path.join(save_dir, "result_dict_all.npz"), **summary)
+    summary.update(pairs=len(data) * batch_size, seconds=seconds, device=str(device))
+    return summary
+
+
 def cmd_train(args) -> Dict[str, float]:
     cfg = load_config(args.config)
     last = train_good(cfg, args.exper_name, args.train_iter, args.pretrained,
@@ -158,6 +222,13 @@ def cmd_eval(args) -> Dict[str, float]:
     cfg = load_config(args.config)
     summary = eval_good(cfg, args.max_batches, args.device, args.pretrained)
     summary["exper_name"] = args.exper_name
+    print(json.dumps(summary))
+    return summary
+
+
+def cmd_val_feature(args) -> Dict[str, float]:
+    summary = val_feature(args.exper_name, args.max_batches, args.pretrained, args.rand_noise,
+                          args.config, args.homography, device=args.device)
     print(json.dumps(summary))
     return summary
 
@@ -180,6 +251,15 @@ def main(argv=None):
     p.add_argument("--pretrained", default="")
     p.add_argument("--device", choices=("cpu", "cuda"), default=None)
     p.set_defaults(fn=cmd_eval)
+    p = sub.add_parser("val_feature", help="frontend matches against gt epipolar geometry")
+    p.add_argument("exper_name")
+    p.add_argument("--config", default="")
+    p.add_argument("--pretrained", default="")
+    p.add_argument("--max_batches", type=int, default=0)
+    p.add_argument("--rand_noise", type=float, default=0.0)
+    p.add_argument("--homography", type=int, default=0)
+    p.add_argument("--device", choices=("cpu", "cuda"), default=None)
+    p.set_defaults(fn=cmd_val_feature)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -1,5 +1,6 @@
-"""Data: the synthetic two-view generator."""
+"""Data: the synthetic two-view generators (correspondences, image pairs)."""
 
 from .synthetic import SyntheticPairs
+from .synthetic_images import SyntheticImagePairs
 
-__all__ = ["SyntheticPairs"]
+__all__ = ["SyntheticImagePairs", "SyntheticPairs"]

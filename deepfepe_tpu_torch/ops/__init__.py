@@ -1,5 +1,7 @@
 """Core numeric ops: eigensolvers (the eigh9 kernel in `ops.eigh9` and its
-plain Jacobi version), the weighted 8-point solve and the NaN scrub."""
+plain Jacobi version), the weighted 8-point solve and the NaN scrub. The
+other kernels' modules are imported by name: `ops.mlp` (K2, K2b),
+`ops.conv` (K5) and `ops.matcher` (K4)."""
 
 import torch as _torch
 

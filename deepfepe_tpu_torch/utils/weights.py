@@ -1,11 +1,13 @@
-"""Carry DeepFNet parameters across from the JAX package.
+"""Carry DeepFNet and SuperPoint parameters across from the JAX package.
 
-`deepfnet_state_from_flax` maps the JAX package's parameter tree, given as
-nested dicts of numpy arrays, to this package's `DeepFNet.state_dict()`
-keys. The port's submodules use the reference layout, so the output of the
-JAX package's `export_deepf_state` (Conv1d weights [out, in, 1]) loads as
-well, with `load_state_dict(strict=True)`. `to_reference_layout` goes the
-other way, for the checkpoints the port writes.
+`deepfnet_state_from_flax` and `superpoint_state_from_flax` map the JAX
+package's parameter trees, given as nested dicts of numpy arrays, to this
+package's `state_dict()` keys. The port's modules use the reference
+layout, so the output of the JAX package's `export_deepf_state` (Conv1d
+weights [out, in, 1]) and `export_superpoint_gauss2_state` load as well,
+with `load_state_dict(strict=True)`. `to_reference_layout` goes the other
+way, for the checkpoints the port writes. `load_superpoint` reads a
+reference SuperPoint `.pth`/`.pth.tar`.
 """
 
 from __future__ import annotations
@@ -52,3 +54,63 @@ def to_reference_layout(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, tor
     CPU."""
     return {k: (v[..., None] if v.dim() == 2 else v).detach().cpu().contiguous()
             for k, v in state_dict.items()}
+
+
+GAUSS2_SEQ = {"conv0": 0, "bn0": 1, "conv1": 3, "bn1": 4}
+
+
+def _conv_from_flax(sd: dict, key: str, p: Mapping) -> None:
+    """flax Conv {kernel [kh, kw, in, out], bias} -> torch weight [out, in, kh, kw]."""
+    sd[f"{key}.weight"] = np.asarray(p["kernel"]).transpose(3, 2, 0, 1)
+    sd[f"{key}.bias"] = np.asarray(p["bias"])
+
+
+def _bn_from_flax(sd: dict, key: str, p: Mapping, s: Mapping) -> None:
+    sd[f"{key}.weight"] = np.asarray(p["scale"])
+    sd[f"{key}.bias"] = np.asarray(p["bias"])
+    sd[f"{key}.running_mean"] = np.asarray(s["mean"])
+    sd[f"{key}.running_var"] = np.asarray(s["var"])
+    sd[f"{key}.num_batches_tracked"] = np.asarray(0, np.int64)
+
+
+def superpoint_state_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX SuperPointNet or SuperPointNetGauss2 variables ({'params'[,
+    'batch_stats']}) -> the state_dict of this package's net of the same
+    kind (gauss2 when there are batch statistics)."""
+    params = variables.get("params", variables)
+    stats = variables.get("batch_stats")
+    sd: dict = {}
+    if stats is None:
+        for name, p in params.items():
+            _conv_from_flax(sd, name, p)
+    else:
+        for block in ("inc", "down1", "down2", "down3"):
+            base = "inc.conv.conv" if block == "inc" else f"{block}.mpconv.1.conv"
+            for name, i in GAUSS2_SEQ.items():
+                if name.startswith("conv"):
+                    _conv_from_flax(sd, f"{base}.{i}", params[block][name])
+                else:
+                    _bn_from_flax(sd, f"{base}.{i}", params[block][name], stats[block][name])
+        for head in ("convPa", "convPb", "convDa", "convDb"):
+            _conv_from_flax(sd, head, params[head])
+        for head in ("bnPa", "bnPb", "bnDa", "bnDb"):
+            _bn_from_flax(sd, head, params[head], stats[head])
+    return {k: torch.tensor(np.ascontiguousarray(v)) if v.dtype == np.int64
+            else torch.tensor(np.ascontiguousarray(v), dtype=torch.float32)
+            for k, v in sd.items()}
+
+
+def load_superpoint(path: str, device=None) -> torch.nn.Module:
+    """A reference SuperPoint checkpoint (`.pth` state dict, or `.pth.tar`
+    with `model_state_dict`) -> the matching net, in eval mode:
+    `SuperPointNetGauss2` when the file has BatchNorm keys, else
+    `SuperPointNet`."""
+    from ..frontend.superpoint import SuperPointNet, SuperPointNetGauss2
+
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("model_state_dict", ckpt)
+    sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+    gauss2 = any(k.endswith("running_mean") for k in sd)
+    net = SuperPointNetGauss2() if gauss2 else SuperPointNet()
+    net.load_state_dict(sd, strict=True)
+    return net.eval().to(device)

@@ -40,6 +40,9 @@ def _env_without_cuda():
 def test_importing_the_port_loads_no_jax():
     mods = [m.name for m in pkgutil.walk_packages([str(PKG)], "deepfepe_tpu_torch.")]
     assert "deepfepe_tpu_torch.cli" in mods and "deepfepe_tpu_torch.ops.eigh9" in mods
+    for m in ("ops.conv", "ops.matcher", "frontend.pipeline", "frontend.sp_fused",
+              "data.synthetic_images", "eval.frontend_eval"):
+        assert f"deepfepe_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -87,6 +90,19 @@ def test_train_good_needs_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_pat
         cli.main(["eval_good", str(REPO / "configs" / "synthetic_baseline.yaml"), "x",
                   "--pretrained", "missing.pth.tar"])
     assert not (tmp_path / "logs").exists()
+
+
+def test_val_feature_needs_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.val_feature("x", max_batches=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["val_feature", "x", "--max_batches", "1"])
+    assert not (tmp_path / "logs").exists()
+    summary = cli.val_feature("x", max_batches=1, device="cpu")
+    assert summary["device"] == "cpu" and summary["pairs"] == 2
+    assert (tmp_path / "logs" / "x" / "result_dict_all.npz").exists()
 
 
 def test_chip_smoke_fails_without_a_card():
