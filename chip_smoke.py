@@ -45,11 +45,28 @@ and for the frontend slice:
            around each run;
   frontend_breakdown  each stage of a batch of (a) and (b) timed, and one
            batch of each under torch.profiler;
-  check    (a)'s first batch on the card against the CPU's plain routes.
+  check    (a)'s first batch on the card against the CPU's plain routes;
+and for the joint slice:
+  kernels  K5b (the fused conv's backward) at the joint path's six layer
+           shapes and SuperPointNet's conv1b, against its plain version and
+           float64, timed beside the plain version, cuDNN's backward and its
+           bound;
+  joint_train  the port's `train_good` entry point with model.if_SP at the
+           reference's production point (SuperPointNetGauss2, 376x1240, 4
+           pairs a batch, N = 1000, depth 5, float32, the gauss2 weights of
+           val_feature (b)): stage 1 (SuperPoint frozen, conv switch on K5)
+           and stage 2 (SuperPoint trained, train-mode BN), 3 steps each,
+           exact launch counts around each run (stage 1: K5 6, K5b 6, K4 1,
+           eigh9 5 a step; stage 2: K5 0, K5b 0), stage 1 leaving SuperPoint
+           untouched and stage 2 moving its parameters and every BN buffer;
+  joint_step  single steps of each stage between synchronizes, batches on
+           the card up front, and one step each under torch.profiler;
+  check    one joint step on the card against the CPU's plain routes, in
+           both BatchNorm modes (CHECK_JOINT).
 
 The line before the card's name line is the kernels' JSON summary (eigh9,
-K2, K2b, K5, K4, each with its launches on the path that carries it); the
-last line is {"ok": true, "device": {...}}. Any failed check exits 1.
+K2, K2b, K5, K4, K5b, each with its launches on the path that carries it);
+the last line is {"ok": true, "device": {...}}. Any failed check exits 1.
 
     python3 chip_smoke.py --plant FAULT
 
@@ -61,6 +78,7 @@ fault. `--plant none` gives the sound readings the bars are set against.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -292,7 +310,8 @@ def phase_eval_good(ph: Phases, cfg) -> dict:
           f"eigh9 launched {launches['eigh9']} times on the path, expected {expected}")
     check(launches["mlp_forward"] == launches["mlp_backward"] == 0,
           "the MLP kernels ran on a path configured without them")
-    check(launches["conv3x3_affine_relu"] == launches["mutual_nn_kernel"] == 0,
+    check(launches["conv3x3_affine_relu"] == launches["mutual_nn_kernel"]
+          == launches["conv3x3_affine_relu_bwd"] == 0,
           "the frontend kernels ran on the solver's path")
     check(summary["pairs"] == EVAL_BATCHES * cfg.data.batch_size, "wrong number of pairs")
     check(all(np.isfinite(v) for v in summary.values() if isinstance(v, float)),
@@ -626,13 +645,15 @@ def phase_mlp_kernels(ph: Phases) -> list:
 
 
 def kernel_counters():
-    from deepfepe_tpu_torch.ops.conv import conv3x3_affine_relu
+    from deepfepe_tpu_torch.ops.conv import conv3x3_affine_relu, conv3x3_affine_relu_bwd
     from deepfepe_tpu_torch.ops.eigh9 import eigh9
     from deepfepe_tpu_torch.ops.matcher import mutual_nn_kernel
     from deepfepe_tpu_torch.ops.mlp import mlp_backward, mlp_forward
 
     return {"eigh9": eigh9, "mlp_forward": mlp_forward, "mlp_backward": mlp_backward,
-            "conv3x3_affine_relu": conv3x3_affine_relu, "mutual_nn_kernel": mutual_nn_kernel}
+            "conv3x3_affine_relu": conv3x3_affine_relu,
+            "conv3x3_affine_relu_bwd": conv3x3_affine_relu_bwd,
+            "mutual_nn_kernel": mutual_nn_kernel}
 
 
 def reset_counts() -> None:
@@ -699,7 +720,8 @@ def phase_train_good(ph: Phases) -> dict:
         expected = {"mlp_forward": depth * (steps + vals * VAL_BATCHES),
                     "mlp_backward": depth * steps,
                     "eigh9": depth * (steps + vals * VAL_BATCHES),
-                    "conv3x3_affine_relu": 0, "mutual_nn_kernel": 0}
+                    "conv3x3_affine_relu": 0, "conv3x3_affine_relu_bwd": 0,
+                    "mutual_nn_kernel": 0}
         ms = last["wall_s"] * 1e3 / steps
         ph.emit("train_good", run=name, steps=steps, validations=vals, last=last, launches=counts,
                 expected_launches=expected, ms_per_step=ms,
@@ -1378,6 +1400,633 @@ def phase_check_frontend(ph: Phases) -> None:
           "every keypoint slot was valid: K4's masks and the padding went untested")
 
 
+# ------------------------------------------------------------ joint slice
+
+# K5b at the joint path's layer shapes (B, H, W, Cin, C, need_dx): the six
+# gauss2 layers that take K5 at 376x1240 (down1's two share one shape) and
+# SuperPointNet's conv1b. inc.conv0's input is the image: no dx.
+CONV_BWD_SHAPES = (("inc.conv0", 8, 376, 1240, 1, 64, False),
+                   ("inc.conv1", 8, 376, 1240, 64, 64, True),
+                   ("down1.conv0/1", 8, 188, 620, 64, 64, True),
+                   ("down2.conv0", 8, 94, 310, 64, 128, True),
+                   ("down2.conv1", 8, 94, 310, 128, 128, True),
+                   ("a.conv1b", 4, 120, 160, 64, 64, True))
+# Each output of K5b (dx, dw, dscale, dbias) within 1e-4 of float64
+# (relative to the plain version's largest entry: tests/test_conv_pallas.py's
+# gradient bar for float32 sums of up to 3.7 M products in another order; dw,
+# dscale and dbias over all pixels, dx on the first CONV_F64_ROWS rows of the
+# first image), and from the plain version by at most that bar plus the plain
+# version's own distance from float64: cuDNN's float32 weight gradient, which
+# the plain version calls, lands 2.1e-4 from float64 at inc.conv1 (PERF.md).
+CONV_BWD_REL = 1e-4
+
+# Joint SuperPoint + DeepF training through the CLI (`train_good` with
+# model.if_SP) at the reference's production point (the JAX package's
+# bench_joint_fullres: SuperPointNetGauss2, 376x1240, 4 pairs a batch = one
+# [8, 376, 1240] encoder pass, N = 1000, DeepFNet depth 5, SP_params with
+# conf_thresh 1e-4), float32, the gauss2 weights of val_feature's run (b).
+# Stage 1 freezes SuperPoint (BN on running statistics, the fused forward,
+# the conv switch on K5); stage 2 trains it (train-mode BN, module forward).
+JOINT_STEPS = {"stage1": 3, "stage2": 3}
+JOINT = {
+    "name": "smoke_joint",
+    "data": {"dataset": "synthetic_images", "batch_size": 4, "good_num": 1000,
+             "image": {"size": [376, 1240, 1]}, "preprocessing": {"resize": [376, 1240]}},
+    "model": {"depth": 5, "clamp_at": 0.02, "if_quality": True, "quality_size": 1,
+              "if_qt_loss": False, "if_SP": True, "mlp_dtype": "float32"},
+    "training": {"seed": 0, "learning_rate": 1e-4, "train": True, "retrain_SP": False,
+                 "save_interval": 0, "tensorboard": False, "workers_train": 4,
+                 "SP_params": {"out_num_points": 1000, "conf_thresh": 1e-4, "nn_thresh": 1.0,
+                               "nms_dist": 4, "patch_size": 5}},
+}
+# Launches a step: stage 1 runs K5 and K5b on the six layers with
+# H * W >= 16,384, K4 once (K = 1000), eigh9 once a DeepFNet layer.
+JOINT_PER_STEP = {"stage1": {"conv3x3_affine_relu": 6, "conv3x3_affine_relu_bwd": 6,
+                             "mutual_nn_kernel": 1, "eigh9": 5},
+                  "stage2": {"mutual_nn_kernel": 1, "eigh9": 5}}
+K5B_KERNELS = ("conv3x3_wgrad_kernel", "sum_groups_kernel", "conv3x3_kernel<true>",
+               "conv3x3_dgrad_cin1_kernel")
+K5_KERNELS = ("conv3x3_kernel<false>", "conv3x3_cin1_kernel")
+# check_joint: gauss2 at 128x128 (inc's two convs take K5 and K5b), 2 pairs,
+# K = N = 128, depth 3, sign-canonical null vectors (eigh9 and the CPU's
+# Jacobi may return opposite signs), running statistics from a calibration
+# batch (with the smoke's seeded statistics every descriptor is nearly the
+# same). For both bn_modes, one joint step on the card (float32, kernels)
+# and one on the CPU (float32, plain routes), each held against the CPU in
+# float64 on the same branches of the solver's kinks (`SolverBranches`):
+# float32 moves the algebraic residuals of the fit by up to a few percent
+# of their median here, so some F-loss point, feature or weight-MLP unit
+# lands on the other side of its |.|, clamp or leaky-ReLU kink than in
+# float64, and the gradient jumps there (on seed 5's train-mode step
+# float64 on the card's choices lands about 5% from float64 on its own in
+# g_deepf_norm: the check's `kinks` reading). Replaying a float32 run's
+# choices, float64 takes the gradient of the same piece. Each
+# bar is twice the CPU's own distance plus a floor, and at most
+# CHECK_JOINT_CAP, so that a fault of 10% always shows (the CPU's float32
+# train-mode SuperPoint backward is the less exact one: percents from
+# float64 on its worst weight leaves, varying with its thread count):
+# - the ordered match lists equal on the card, the CPU and float64;
+# - the loss (floor 1e-4) and the gradient norms (1e-3), relative;
+# - each SuperPoint gradient leaf (1e-3), relative to its largest float64
+#   entry, or to the net's where the leaf's is under 1e-4 of that (a leaf
+#   that is zero in exact arithmetic: biases ahead of train-mode BN);
+# - the same leaves for SuperPoint alone under fixed random cotangents on
+#   semi and desc, in the step's route (frozen: the fused forward, K5 and
+#   K5b on inc's two convs, val_feature's weights, whose zero-centred BN
+#   means keep the folded affine free of cancellation; train: the module
+#   forward, train-mode BN in two groups), apart from the solver;
+# - train-mode BN buffers within 1e-5 of the CPU's (relative: batch
+#   statistics over 16,384 pixels summed in another order), frozen ones
+#   unchanged.
+CHECK_JOINT = {"size": (128, 128), "pairs": 2, "K": 128, "depth": 3, "seed": 5}
+CHECK_JOINT_CAP = 0.1
+
+
+def conv_bwd_bound_ms(B, H, W, Cin, C, need_dx) -> tuple[float, str]:
+    """Least time for K5b: dw's 2 B H W 9 Cin C flops, dx's as many when
+    needed, and the affine gradients' ~6 a pixel-channel, over the FP32
+    rate; against x, y, dy (and w, scale, bias) read once and dx, dw,
+    dscale, dbias written once over HBM."""
+    px = B * H * W
+    flops = (2 if need_dx else 1) * 2 * px * 9 * Cin * C + 6 * px * C
+    nbytes = 4 * (px * Cin + 2 * px * C + 2 * 9 * Cin * C + 4 * C + (px * Cin if need_dx else 0))
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def conv_bwd_f64(x, w, s, t, y, dy):
+    """K5b's function in float64: (dx on the first CONV_F64_ROWS rows of
+    image 0, dw, dscale, dbias over everything)."""
+    import torch
+
+    from deepfepe_tpu_torch.ops import conv as conv_mod
+
+    rows = CONV_F64_ROWS
+    d = lambda a: a.double()  # noqa: E731
+    _, dw, ds, dt = conv_mod.conv3x3_affine_relu_bwd_ref(d(x), d(w), d(s), d(t), d(y), d(dy),
+                                                        need_dx=False)
+    sub = [a[:1, :rows + 1] for a in (x, y, dy)]
+    dx, _, _, _ = conv_mod.conv3x3_affine_relu_bwd_ref(d(sub[0]), d(w), d(s), d(t), d(sub[1]),
+                                                       d(sub[2]))
+    del _
+    torch.cuda.empty_cache()
+    return dx[:, :rows], dw, ds, dt
+
+
+def phase_conv_bwd_kernel(ph: Phases) -> dict:
+    """K5b at the joint path's shapes against its plain version and float64,
+    timed beside the plain version, cuDNN's backward of conv + affine + ReLU
+    (autograd, TF32 off) and its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepfepe_tpu_torch.ops import conv as conv_mod
+
+    shapes, max_err, max_rel = {}, 0.0, 0.0
+    names = ("dx", "dw", "dscale", "dbias")
+    for i, (name, B, H, W, Cin, C, need_dx) in enumerate(CONV_BWD_SHAPES):
+        x, w, s, t = conv_inputs(B, H, W, Cin, C, seed=20 + i)
+        with torch.no_grad():
+            y = conv_mod.conv3x3_affine_relu(x, w, s, t)
+        dy = torch.randn(y.shape, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(40 + i))
+        got = conv_mod.conv3x3_affine_relu_bwd(x, w, s, t, y, dy, need_dx)
+        plain = conv_mod.conv3x3_affine_relu_bwd_ref(x, w, s, t, y, dy, need_dx)
+        f64 = conv_bwd_f64(x, w, s, t, y, dy)
+        torch.cuda.synchronize()
+        errs = {}
+        for n, a, b, e in zip(names, got, plain, f64):
+            if n == "dx" and not need_dx:
+                errs["dx_abs_max"] = a.abs().max().item()
+                continue
+            scale = b.abs().max().item() + 1e-30
+            a64 = a[:1, :CONV_F64_ROWS] if n == "dx" else a
+            p64 = b[:1, :CONV_F64_ROWS] if n == "dx" else b
+            errs[n] = {"kernel_vs_plain": (a - b).abs().max().item() / scale,
+                       "kernel_vs_f64": (a64.double() - e).abs().max().item() / scale,
+                       "plain_vs_f64": (p64.double() - e).abs().max().item() / scale}
+        ok = all(torch.isfinite(a).all() for a in got) and errs.get("dx_abs_max", 0.0) == 0.0 \
+            and all(v["kernel_vs_f64"] <= CONV_BWD_REL
+                    and v["kernel_vs_plain"] <= CONV_BWD_REL + v["plain_vs_f64"]
+                    for k, v in errs.items() if k != "dx_abs_max")
+        leaves = [a.detach().clone().requires_grad_(need_dx if j == 0 else True)
+                  for j, a in enumerate((x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), s, t))]
+        out = torch.relu(F.conv2d(leaves[0], leaves[1], padding=1) * leaves[2][:, None, None]
+                         + leaves[3][:, None, None])
+        dy_nchw = dy.permute(0, 3, 1, 2)
+        wanted = [v for v in leaves if v.requires_grad]
+
+        def library():
+            torch.autograd.grad(out, wanted, dy_nchw, retain_graph=True)
+
+        iters = 5 if B * H * W > 1e6 else 30
+        bound, bound_by = conv_bwd_bound_ms(B, H, W, Cin, C, need_dx)
+        timing = {"ms": cuda_time_ms(lambda: conv_mod.conv3x3_affine_relu_bwd(
+                      x, w, s, t, y, dy, need_dx), iters),
+                  "plain_ms": cuda_time_ms(lambda: conv_mod.conv3x3_affine_relu_bwd_ref(
+                      x, w, s, t, y, dy, need_dx), iters),
+                  "library_ms": cuda_time_ms(library, iters),
+                  "bound_ms": bound, "bound_by": bound_by}
+        ph.emit("kernels", kernel="conv3x3_affine_relu_bwd", layer=name,
+                shape=[B, H, W, Cin, C], need_dx=need_dx, errors=errs, bar_rel=CONV_BWD_REL,
+                within_bars=ok, **timing)
+        check(ok, f"K5b at {name} {[B, H, W, Cin, C]} is outside its bar: {errs}")
+        shapes[name] = {"shape": [B, H, W, Cin, C], "need_dx": need_dx, **timing}
+        max_err = max(max_err, *((a - b).abs().max().item() for a, b in zip(got, plain)))
+        max_rel = max(max_rel, *(v["kernel_vs_plain"] for k, v in errs.items()
+                                 if k != "dx_abs_max"))
+        del x, w, s, t, y, dy, got, plain, f64, leaves, out, dy_nchw, wanted
+        torch.cuda.empty_cache()
+    lead = shapes["inc.conv1"]
+    return {"name": "conv3x3_affine_relu_bwd", "route": "cuda",
+            "source": "deepfepe_tpu_torch/csrc/conv3x3.cu",
+            "replaces": "deepfepe_tpu/ops/pallas/conv_pallas.py:175", "launches": None,
+            "max_abs_err": max_err, "max_rel_err": max_rel,
+            "ms": lead["ms"], "plain_ms": lead["plain_ms"], "bound_ms": lead["bound_ms"],
+            "bound_by": lead["bound_by"], "library_ms": lead["library_ms"],
+            "library": "cuDNN backward of F.conv2d + affine + ReLU (autograd, float32, TF32 off)",
+            "shape": "inc.conv1: x, y, dy [8, 376, 1240, 64] -> dx, dw, dscale, dbias, f32",
+            "per_layer": shapes}
+
+
+def joint_cfg(stage: str, pretrained_sp: str):
+    from deepfepe_tpu_torch.train.config import config_from_dict
+
+    raw = {**JOINT, "training": {**JOINT["training"], "train_SP": stage == "stage2",
+                                 "pretrained_SP": pretrained_sp,
+                                 "train_iter": JOINT_STEPS[stage]}}
+    return config_from_dict(raw)
+
+
+class conv_switch:
+    """The SuperPoint conv switch (DEEPFEPE_SP_CONV_IMPL) set to `impl`
+    inside the block."""
+
+    def __init__(self, impl: str):
+        self.impl = impl
+
+    def __enter__(self):
+        from deepfepe_tpu_torch.frontend import sp_fused
+
+        self.saved, sp_fused.CONV_IMPL = sp_fused.CONV_IMPL, self.impl
+
+    def __exit__(self, *exc):
+        from deepfepe_tpu_torch.frontend import sp_fused
+
+        sp_fused.CONV_IMPL = self.saved
+
+
+def phase_joint_train(ph: Phases) -> dict:
+    """The port's train_good with model.if_SP, stage 1 then stage 2, each
+    from the same gauss2 `.pth.tar`; every kernel's launches read around
+    each run alone. Returns the sums."""
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch import cli
+
+    pretrained = vf_pretrained("b")
+    before = torch.load(pretrained, weights_only=True)["model_state_dict"]
+    total = dict.fromkeys(kernel_counters(), 0)
+    for stage in ("stage1", "stage2"):
+        exp = f"smoke_joint_{stage}"
+        shutil.rmtree(os.path.join(REPO, "logs", exp), ignore_errors=True)
+        steps = JOINT_STEPS[stage]
+        reset_counts()
+        with conv_switch("pallas"):
+            last = cli.train_good(joint_cfg(stage, pretrained), exp, device="cuda")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expected = {k: steps * JOINT_PER_STEP[stage].get(k, 0) for k in counts}
+        after = torch.load(os.path.join("logs", exp, "checkpoints",
+                                        f"superPointNet_{steps}_checkpoint.pth.tar"),
+                           weights_only=True)["model_state_dict"]
+        moved = {k for k, v in after.items() if not torch.equal(v, before[k])}
+        buffers = {k for k in after if "running_" in k}
+        ph.emit("joint_train", stage=stage, steps=steps, last=last, launches=counts,
+                expected_launches=expected, sp_tensors_moved=len(moved),
+                bn_buffers_moved=len(moved & buffers), bn_buffers=len(buffers),
+                ms_per_step_fit=last["wall_s"] * 1e3 / steps,
+                timed="host clock over the CLI's loop (ending in a synchronize); its batches "
+                      "are made on the host by a prefetch thread")
+        check(counts == expected, f"joint {stage}: launches {counts}, expected {expected}")
+        check(last["n_iter"] == steps, f"joint {stage}: ended at iteration {last['n_iter']}")
+        check(all(np.isfinite(v) for v in last.values()), f"joint {stage}: non-finite {last}")
+        check(last["skipped_update"] == 0.0, f"joint {stage}: the last update was skipped")
+        check(0 < last["num_matches"] <= 1000, f"joint {stage}: {last['num_matches']} matches")
+        check(os.path.exists(os.path.join("logs", exp, "checkpoints",
+                                          f"deepFNet_{steps}_checkpoint.pth.tar")),
+              f"joint {stage}: no solver checkpoint")
+        if stage == "stage1":
+            check(not moved, f"joint stage1: the frozen SuperPoint moved: {sorted(moved)[:5]}")
+        else:
+            check(buffers <= moved, "joint stage2: not every BN buffer moved")
+            check(any(k.endswith(".weight") and k not in buffers for k in moved),
+                  "joint stage2: no SuperPoint parameter changed")
+        for k, v in counts.items():
+            total[k] += v
+    return total
+
+
+def joint_batches(cfg, n: int, device):
+    """n batches of the config's train stream on the device, made up front."""
+    from deepfepe_tpu_torch.loader import data_loader
+    from deepfepe_tpu_torch.utils.device import batch_to_device
+
+    ds = data_loader(cfg, "train")
+    return [batch_to_device(b, device) for b in ds.batches(cfg.data.batch_size, n)]
+
+
+def device_ms(trace_path: str, names) -> float:
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(e["dur"] for e in events if e.get("cat") == "kernel" and "dur" in e
+               and any(n in e.get("name", "") for n in names)) / 1e3
+
+
+def phase_joint_step_times(ph: Phases, steps: int = 4) -> None:
+    """Host-clock time of single joint steps of each stage between
+    synchronizes, batches made up front, then one step under torch.profiler
+    (the device's busy share, top kernels, K5 and K5b device time). After
+    the counted runs, so it changes no count."""
+    import statistics
+
+    import torch
+
+    from deepfepe_tpu_torch.frontend import frontend_params_from_config
+    from deepfepe_tpu_torch.loader import model_loader
+    from deepfepe_tpu_torch.train.joint import joint_train_step, make_joint_state
+    from deepfepe_tpu_torch.utils.weights import load_superpoint
+
+    dev = torch.device("cuda")
+    pretrained = vf_pretrained("b")
+    for stage in ("stage1", "stage2"):
+        cfg = joint_cfg(stage, pretrained)
+        t = cfg.training
+        state = make_joint_state(model_loader(cfg, dev, torch.Generator().manual_seed(0),
+                                              train=True), load_superpoint(pretrained, dev), cfg)
+        fp = frontend_params_from_config(cfg)
+        batches = joint_batches(cfg, steps + 1, dev)
+        ms = []
+        with conv_switch("pallas"):
+            for b in batches[:steps]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                joint_train_step(state, b, fp, cfg, 0.1, 0.5, train_sp=t.train_SP)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            trace = os.path.join("logs", f"smoke_joint_{stage}_profile", "trace.json")
+            os.makedirs(os.path.dirname(trace), exist_ok=True)
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                joint_train_step(state, batches[steps], fp, cfg, 0.1, 0.5, train_sp=t.train_SP)
+                torch.cuda.synchronize()
+            prof.export_chrome_trace(trace)
+        med = statistics.median(ms[1:])
+        tr = read_trace(trace)
+        k5b, k5 = device_ms(trace, K5B_KERNELS), device_ms(trace, K5_KERNELS)
+        ph.emit("joint_step", stage=stage, step_ms=ms, median_step_ms_after_first=med,
+                pairs_per_s=cfg.data.batch_size * 1e3 / med, profiled_step=tr,
+                k5b_device_ms=k5b, k5_device_ms=k5, k5b_share_of_window=k5b / tr["window_ms"],
+                timed="host clock between synchronizes, batches on the card up front")
+        del state, batches
+        torch.cuda.empty_cache()
+
+
+def calibrated_gauss2(seed: int, frames):
+    """Seeded SuperPointNetGauss2 whose running statistics are those of
+    `frames` [n, H, W] (one train-mode forward at momentum 1), in eval mode."""
+    import torch
+
+    from deepfepe_tpu_torch.frontend import SuperPointNetGauss2
+    from deepfepe_tpu_torch.frontend.superpoint import reset_superpoint
+
+    net = reset_superpoint(SuperPointNetGauss2(), torch.Generator().manual_seed(seed))
+    bns = [m for m in net.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    for m in bns:
+        m.momentum = 1.0
+    with torch.no_grad():
+        net.train()(frames[..., None])
+    for m in bns:
+        m.momentum = 0.1
+        m.num_batches_tracked.zero_()
+    return net.eval()
+
+
+class SolverBranches:
+    """The solver's piecewise choices in one joint step, recorded and then
+    replayed in another: for each `compute_epi_residual` call (the weight
+    MLP's features and the F-loss) the sign of every algebraic residual s
+    and whether its distance was clamped, and for each leaky ReLU of the
+    weight MLPs the sign of its input. Recording leaves the port's results
+    as they are; replaying takes the |.|, the clamp and the leaky ReLU on
+    the recorded side (the same value wherever the sides agree)."""
+
+    def __init__(self):
+        self.choices: list = []
+        self._replay = None
+
+    def flips(self, other: "SolverBranches") -> int:
+        """How many choices differ from `other`'s."""
+        return sum(int((a != b).sum()) for a, b in zip(self.choices, other.choices))
+
+    def _epi(self, orig):
+        import torch
+
+        from deepfepe_tpu_torch.geometry import epipolar
+
+        def epi(pts1_h, pts2_h, F, clamp_at=0.5, eps=1e-6):
+            s, Fx1, Ftx2 = epipolar._prep(pts1_h, pts2_h, F, if_homo=True)
+            scale = (1.0 / (epipolar.safe_norm(Fx1[..., :2], dim=-1) + eps)
+                     + 1.0 / (epipolar.safe_norm(Ftx2[..., :2], dim=-1) + eps))
+            if self._replay is None:
+                d = orig(pts1_h, pts2_h, F, clamp_at=clamp_at, eps=eps)
+                self.choices.append(torch.stack([s >= 0, s.abs() * scale > clamp_at]).cpu())
+                return d
+            check(bool(self._replay), "a replayed step took more solver choices")
+            pos, clamped = self._replay.pop(0).to(s.device)
+            d = torch.where(pos, s, -s) * scale
+            return torch.where(clamped, torch.full_like(d, clamp_at), d)
+        return epi
+
+    def _leaky(self, orig):
+        import torch
+
+        def leaky(x, negative_slope=0.01, inplace=False):
+            if self._replay is None:
+                self.choices.append((x > 0).cpu())
+                return orig(x, negative_slope)
+            check(bool(self._replay), "a replayed step took more solver choices")
+            return torch.where(self._replay.pop(0).to(x.device), x, x * negative_slope)
+        return leaky
+
+    @contextlib.contextmanager
+    def patched(self, replay: "SolverBranches | None" = None):
+        """Record into this object, or replay `replay`'s choices, inside
+        the block."""
+        import importlib
+
+        import torch
+
+        mods = [importlib.import_module(m) for m in ("deepfepe_tpu_torch.models.deepfnet",
+                                                     "deepfepe_tpu_torch.losses.f_loss")]
+        saved = [m.compute_epi_residual for m in mods] + [torch.nn.functional.leaky_relu]
+        self._replay = None if replay is None else list(replay.choices)
+        for m in mods:
+            m.compute_epi_residual = self._epi(saved[0])
+        torch.nn.functional.leaky_relu = self._leaky(saved[-1])
+        try:
+            yield self
+        finally:
+            for m, f in zip(mods, saved):
+                m.compute_epi_residual = f
+            torch.nn.functional.leaky_relu = saved[-1]
+        check(self._replay in (None, []), "a replayed step took fewer solver choices")
+        if replay is not None:
+            self.choices = replay.choices
+
+
+def joint_step_report(dev: str, bn_mode: str, sp_state: dict, deepf_state: dict, batch: dict,
+                      float64: bool = False, replay: SolverBranches | None = None) -> dict:
+    """One joint step (train_sp on) on `dev` from the given weights: loss,
+    gradient norms, SuperPoint gradient leaves, new buffers, ordered match
+    lists, the kernels' launches and the solver's choices (replaying
+    `replay`'s)."""
+    import torch
+
+    from deepfepe_tpu_torch.frontend import FrontendParams, SuperPointNetGauss2
+    from deepfepe_tpu_torch.frontend import get_matches_from_sp
+    from deepfepe_tpu_torch.models import DeepFNet
+    from deepfepe_tpu_torch.train.config import config_from_dict
+    from deepfepe_tpu_torch.train.joint import joint_train_step, make_joint_state
+    from deepfepe_tpu_torch.utils.device import batch_to_device
+
+    c = CHECK_JOINT
+    cfg = config_from_dict({"data": {"batch_size": c["pairs"], "good_num": c["K"]},
+                            "model": {"depth": c["depth"], "if_quality": True,
+                                      "mlp_dtype": "float32"}})
+    device = torch.device("cuda" if dev == "card" else dev)
+    sp = SuperPointNetGauss2()
+    sp.load_state_dict(sp_state)
+    deepf = DeepFNet(depth=c["depth"], image_size=c["size"], if_quality=True,
+                     sign_canonical=True)
+    deepf.load_state_dict(deepf_state)
+    tb = batch_to_device(batch, device)
+    if float64:
+        sp, deepf = sp.double(), deepf.double()
+        deepf.input_weights.dtype = deepf.update_weights.dtype = torch.float64
+        tb = {k: v.double() if v.is_floating_point() else v for k, v in tb.items()}
+    sp, deepf = sp.to(device).eval(), deepf.to(device)
+    fp = FrontendParams(out_num_points=c["K"], conf_thresh=1e-4, conv_impl="pallas")
+    frames = (tb["imgs_grey"][:, 0], tb["imgs_grey"][:, 1])
+    probe = {k: v.clone() for k, v in sp.state_dict().items()}
+    with torch.no_grad():
+        m = get_matches_from_sp(sp, frames, fp, bn_train=bn_mode == "train")["matches"]
+    sp.load_state_dict(probe)  # the probe's train-mode forward moved the buffers
+    order = [[(int(a), int(b)) for a, b, v in zip(m.idx1[i].tolist(), m.idx2[i].tolist(),
+                                                  m.valid[i].tolist()) if v]
+             for i in range(m.valid.shape[0])]
+    reset_counts()
+    branches = SolverBranches()
+    with branches.patched(replay):
+        metrics = joint_train_step(make_joint_state(deepf, sp, cfg), tb, fp, cfg, 0.1, 0.5,
+                                   bn_mode=bn_mode)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return {"loss": float(metrics["loss"]), "g_deepf_norm": float(metrics["g_deepf_norm"]),
+            "g_sp_norm": float(metrics["g_sp_norm"]), "order": order,
+            "grads": {k: p.grad.detach().double().cpu() for k, p in sp.named_parameters()},
+            "buffers": {k: v.detach().double().cpu() for k, v in sp.named_buffers()
+                        if "running_" in k},
+            "launches": read_counts(), "branches": branches}
+
+
+def sp_output_grads(dev: str, bn_mode: str, sp_state: dict, imgs, cot,
+                    float64: bool = False) -> dict:
+    """SuperPoint parameter gradients of <semi, c1> + <desc, c2> for both
+    frames of `imgs` [B, 2, H, W] in the joint step's route for `bn_mode`:
+    'frozen' BatchNorm on the running statistics, on the card the fused
+    forward with the conv switch on K5 (the stage-1 route), on the CPU the
+    module forward; 'train' the module forward with train-mode BatchNorm
+    in two groups. `float64` on the CPU; with the kernels' launches."""
+    import torch
+
+    from deepfepe_tpu_torch.frontend import SuperPointNetGauss2
+    from deepfepe_tpu_torch.frontend.sp_fused import superpoint_forward_fused
+    from deepfepe_tpu_torch.ops.conv import exact_convs
+
+    device = torch.device("cuda" if dev == "card" else dev)
+    dt = torch.float64 if float64 else torch.float32
+    sp = SuperPointNetGauss2()
+    sp.load_state_dict(sp_state)
+    sp = sp.to(device, dt).train(bn_mode == "train")
+    x = torch.as_tensor(imgs, device=device, dtype=dt)
+    x = torch.cat([x[:, 0], x[:, 1]])[..., None].contiguous()
+    reset_counts()
+    with exact_convs():  # the plain convs as the joint step runs them
+        if bn_mode == "train":
+            outs = sp(x, bn_groups=2)
+        else:
+            outs = superpoint_forward_fused(sp, x, "pallas") if dev == "card" else sp(x)
+        c1, c2 = (torch.as_tensor(a, device=device, dtype=dt) for a in cot)
+        (torch.sum(outs["semi"] * c1) + torch.sum(outs["desc"] * c2)).backward()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return {"grads": {k: p.grad.detach().double().cpu() for k, p in sp.named_parameters()},
+            "launches": read_counts()}
+
+
+def leaf_errors(grads: dict, ref: dict) -> dict:
+    """Each leaf's largest error, relative to its largest `ref` entry, or
+    to the net's largest where the leaf's is under 1e-4 of that (a leaf
+    that is zero in exact arithmetic)."""
+    top = max(w.abs().max().item() for w in ref.values())
+    return {k: (grads[k] - w).abs().max().item()
+            / (w.abs().max().item() if w.abs().max().item() >= 1e-4 * top else top)
+            for k, w in ref.items()}
+
+
+def against_cpu(card: float, cpu: float, floor: float) -> dict:
+    """A card distance with its bar: 2 x the CPU's + floor, at most
+    CHECK_JOINT_CAP."""
+    limit = min(2.0 * cpu + floor, CHECK_JOINT_CAP)
+    return {"card": card, "cpu": cpu, "limit": limit, "ok": card <= limit}
+
+
+def leaves_against_cpu(card: dict, cpu: dict, ref_card: dict, ref_cpu: dict) -> dict:
+    """Every leaf through `against_cpu` (floor 1e-3); the worst ones."""
+    ec, eu = leaf_errors(card, ref_card), leaf_errors(cpu, ref_cpu)
+    per = {k: against_cpu(ec[k], eu[k], 1e-3) for k in ec}
+    worst = max(per, key=lambda k: per[k]["card"] / per[k]["limit"])
+    return {"n": len(per), "all_ok": all(v["ok"] for v in per.values()),
+            "worst_card_vs_f64": max(ec.values()), "worst_cpu_vs_f64": max(eu.values()),
+            "tightest_leaf": worst, "tightest": per[worst],
+            "failing": {k: v for k, v in per.items() if not v["ok"]}}
+
+
+def joint_compare(r: dict, f: dict, bn_mode: str, sp_state: dict) -> dict:
+    """check_joint's readings and verdict for one bn_mode: the joint-step
+    reports `r` (card and cpu in float32, f64_card and f64_cpu replaying
+    their solver choices in float64, f64 on its own) and the SuperPoint
+    output gradients `f` (f64, cpu, card)."""
+    card, cpu, ref_card, ref_cpu, f64 = (r[k] for k in ("card", "cpu", "f64_card", "f64_cpu",
+                                                         "f64"))
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    step = {q: against_cpu(rel(card[q], ref_card[q]), rel(cpu[q], ref_cpu[q]), floor)
+            for q, floor in (("loss", 1e-4), ("g_deepf_norm", 1e-3), ("g_sp_norm", 1e-3))}
+    leaves = leaves_against_cpu(card["grads"], cpu["grads"], ref_card["grads"], ref_cpu["grads"])
+    alone = leaves_against_cpu(f["card"]["grads"], f["cpu"]["grads"], f["f64"]["grads"],
+                               f["f64"]["grads"])
+    # What float64's own choices would give: the kinks the float32 runs crossed.
+    kinks = {"card_flips": card["branches"].flips(f64["branches"]),
+             "cpu_flips": cpu["branches"].flips(f64["branches"]),
+             **{f"{q}_f64_own_vs_card_branches": rel(f64[q], ref_card[q])
+                for q in ("g_deepf_norm", "g_sp_norm")}}
+    buf = max(((card["buffers"][k] - cpu["buffers"][k]).abs().max()
+               / cpu["buffers"][k].abs().max()).item() for k in cpu["buffers"])
+    unchanged = all(bool((card["buffers"][k] == sp_state[k].double()).all())
+                    for k in cpu["buffers"])
+    n = 2 if bn_mode == "frozen" else 0
+    want = {"conv3x3_affine_relu": n, "conv3x3_affine_relu_bwd": n}
+    orders = card["order"] == cpu["order"] == f64["order"]
+    ok = (orders and all(v["ok"] for v in step.values()) and leaves["all_ok"]
+          and alone["all_ok"]
+          and all(card["launches"][k] == v and f["card"]["launches"][k] == v
+                  for k, v in want.items())
+          and (unchanged if bn_mode == "frozen" else buf <= 1e-5 and not unchanged)
+          and sum(cpu["launches"].values()) + sum(f["cpu"]["launches"].values()) == 0)
+    return {"bn_mode": bn_mode, "matches": [len(o) for o in cpu["order"]],
+            "orders_equal": orders, "step": step, "step_sp_leaves": leaves,
+            "sp_alone_leaves": alone, "kinks": kinks, "buffers_rel_card_vs_cpu": buf,
+            "buffers_unchanged": unchanged, "launches_card_step": card["launches"],
+            "launches_card_sp_alone": f["card"]["launches"], "within_bars": ok}
+
+
+def phase_check_joint(ph: Phases, seed: int | None = None) -> None:
+    """One joint step on the card against the CPU's plain routes, each
+    against the CPU in float64 on its own solver branches, for both
+    bn_modes (CHECK_JOINT; `seed` for another batch); the 'frozen' step
+    trains SuperPoint through the fused forward with the conv switch on
+    K5, so K5b's gradients reach Adam."""
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch.data import SyntheticImagePairs
+    from deepfepe_tpu_torch.models import DeepFNet
+
+    c = dict(CHECK_JOINT, seed=CHECK_JOINT["seed"] if seed is None else seed)
+    batch = SyntheticImagePairs(image_size=c["size"], seed=c["seed"]).batch(c["pairs"])
+    calib = SyntheticImagePairs(image_size=c["size"], seed=11).batch(c["pairs"])["imgs_grey"]
+    sp_state = calibrated_gauss2(0, torch.from_numpy(calib).reshape(-1, *c["size"])).state_dict()
+    leaf_state = {"frozen": torch.load(vf_pretrained("b"), weights_only=True)["model_state_dict"],
+                  "train": sp_state}
+    deepf = DeepFNet(depth=c["depth"], image_size=c["size"], if_quality=True,
+                     sign_canonical=True)
+    deepf.reset_parameters(torch.Generator().manual_seed(1))
+    rng = np.random.RandomState(4)
+    hc, wc = c["size"][0] // 8, c["size"][1] // 8
+    cot = (rng.randn(2 * c["pairs"], hc, wc, 65).astype(np.float32),
+           rng.randn(2 * c["pairs"], hc, wc, 256).astype(np.float32))
+    for bn_mode in ("frozen", "train"):
+        step = lambda dev, f64=False, replay=None: joint_step_report(  # noqa: E731
+            dev, bn_mode, sp_state, deepf.state_dict(), batch, f64, replay)
+        r = {"card": step("card"), "cpu": step("cpu"), "f64": step("cpu", True)}
+        r["f64_card"] = step("cpu", True, r["card"]["branches"])
+        r["f64_cpu"] = step("cpu", True, r["cpu"]["branches"])
+        f = {name: sp_output_grads(dev, bn_mode, leaf_state[bn_mode], batch["imgs_grey"], cot,
+                                   f64)
+             for name, dev, f64 in (("f64", "cpu", True), ("cpu", "cpu", False),
+                                    ("card", "card", False))}
+        report = joint_compare(r, f, bn_mode, sp_state)
+        ph.emit("check", seed=c["seed"], joint_step=report, bars={
+            "each": "card vs float64 on the card's solver branches <= min(2 x (CPU vs "
+            f"float64 on the CPU's) + floor, {CHECK_JOINT_CAP})",
+            "floors": {"loss": 1e-4, "g_norms": 1e-3, "sp_leaves": 1e-3},
+            "buffers_rel": 1e-5})
+        check(report["within_bars"],
+              f"joint step ({bn_mode}) on the card disagrees with the CPU: {report}")
+
+
 def plant(fault: str) -> None:
     """Install a deliberate fault for `--plant`. Wiring faults wrap the
     autograd Function's backward; kernel faults build a copy of csrc/mlp.cu
@@ -1484,27 +2133,34 @@ def main(argv=None) -> int:
         row = phase_kernels(ph)
         mlp_rows = phase_mlp_kernels(ph)
         front_rows = [phase_conv_kernel(ph), phase_matcher_kernel(ph)]
+        bwd_row = phase_conv_bwd_kernel(ph)
         cfg = config_from_dict(BASELINE)
         eval_counts = phase_eval_good(ph, cfg)
         phase_breakdown(ph, cfg)
         train_counts = phase_train_good(ph)
         vf_counts = phase_val_feature(ph)
         phase_frontend_breakdown(ph)
+        joint_counts = phase_joint_train(ph)
+        phase_joint_step_times(ph)
         phase_check(ph, cfg)
         phase_check_train(ph)
         phase_check_frontend(ph)
+        phase_check_joint(ph)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
-    rows = [row, *mlp_rows, *front_rows]
+    rows = [row, *mlp_rows, *front_rows, bwd_row]
     # Each kernel's launches on the path that carries it: train_good for
-    # eigh9 and the MLP pair, val_feature (a) + (b) for K5 and K4.
+    # eigh9 and the MLP pair, val_feature (a) + (b) for K5 and K4,
+    # joint_train (stages 1 + 2) for K5b.
     for r in rows:
         path, counts = (("val_feature", vf_counts) if r in front_rows
+                        else ("joint_train", joint_counts) if r is bwd_row
                         else ("train_good", train_counts))
         r["launches"] = counts[r["name"]]
         r["launches_path"] = path
         r["launches_eval_good"] = eval_counts[r["name"]]
+        r["launches_joint_train"] = joint_counts[r["name"]]
         if r["launches"] <= 0:
             print(f"chip_smoke: FAILED: {r['name']} never launched on {path}",
                   file=sys.stderr, flush=True)

@@ -13,7 +13,9 @@
 `model.if_qt_loss`) on the config's train stream, validates on its val
 stream, and writes logs/<exper_name>/{config.yml, metrics.jsonl, runs/,
 checkpoints/deepFNet_<n>_checkpoint.pth.tar}; it prints the last step's
-scalar metrics as one JSON line. `eval_good` runs the solver on the
+scalar metrics as one JSON line. With `model.if_SP` it trains SuperPoint
+and the solver jointly on image pairs (`train_joint`) and also writes
+checkpoints/superPointNet_<n>_checkpoint.pth.tar. `eval_good` runs the solver on the
 config's test stream, scores each pair against the ground truth and the
 8-point RANSAC baseline, and prints the JAX package's summary keys as one
 JSON line. `val_feature` runs the SuperPoint frontend on synthetic image
@@ -38,13 +40,17 @@ import torch
 from .data import SyntheticImagePairs
 from .data.prefetch import prefetch_batches
 from .eval import frontend_epidist_eval, val_rt_batch
-from .frontend import FrontendParams, SuperPointNet
+from .frontend import (FrontendParams, SuperPointNet, SuperPointNetGauss2,
+                       frontend_params_from_config)
 from .frontend.superpoint import reset_superpoint
 from .loader import data_loader, model_loader
-from .train import Trainer, eval_step, load_checkpoint, load_config
+from .train import (MetricLogger, Trainer, eval_step, load_checkpoint, load_config,
+                    qt_clamps, save_checkpoint)
 from .train.config import Config
+from .train.joint import joint_train_step, make_joint_state
+from .train.loop import scalars, start_profile, stop_profile
 from .utils.device import batch_to_device, resolve_device
-from .utils.weights import load_superpoint
+from .utils.weights import load_superpoint, save_superpoint
 
 PER_PAIR = ("err_q_est", "err_t_est", "err_q_base", "err_t_base", "err_q_gt",
             "err_t_gt", "base_inliers")
@@ -87,6 +93,15 @@ def summarize(res: Dict[str, np.ndarray]) -> Dict[str, float]:
     }
 
 
+def _snapshot_config(cfg: Config, exper_name: str) -> str:
+    """logs/<exper_name>/config.yml (train_good.py:114; JSON is valid YAML)."""
+    save_dir = os.path.join("logs", exper_name)
+    os.makedirs(save_dir, exist_ok=True)
+    with open(os.path.join(save_dir, "config.yml"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=1)
+    return save_dir
+
+
 def train_good(cfg: Config, exper_name: str, train_iter: int | None = None,
                pretrained: str = "", profile_dir: str = "", device=None) -> Dict[str, float]:
     """Train from weights seeded by `cfg.training.seed`, or from a
@@ -95,17 +110,13 @@ def train_good(cfg: Config, exper_name: str, train_iter: int | None = None,
     metrics with `wall_s` and `n_iter`."""
     device = resolve_device(device)
     if cfg.model.if_SP:
-        raise NotImplementedError("joint SuperPoint training (model.if_SP) is not ported yet")
+        return train_joint(cfg, exper_name, train_iter, pretrained, profile_dir, device)
     t = cfg.training
     if train_iter is not None:
         t.train_iter = train_iter
     if profile_dir:
         t.profile_dir = profile_dir
-    save_dir = os.path.join("logs", exper_name)
-    os.makedirs(save_dir, exist_ok=True)
-    # The config snapshot (train_good.py:114); JSON is valid YAML.
-    with open(os.path.join(save_dir, "config.yml"), "w") as f:
-        json.dump(dataclasses.asdict(cfg), f, indent=1)
+    save_dir = _snapshot_config(cfg, exper_name)
     net = model_loader(cfg, device, torch.Generator().manual_seed(t.seed), train=True)
     trainer = Trainer(net, cfg, save_dir=save_dir)
     pre = pretrained or ("" if t.retrain else t.pretrained)
@@ -127,6 +138,97 @@ def train_good(cfg: Config, exper_name: str, train_iter: int | None = None,
         trainer.logger.close()
     last["n_iter"] = trainer.n_iter
     return last
+
+
+def train_joint(cfg: Config, exper_name: str, train_iter: int | None = None,
+                pretrained: str = "", profile_dir: str = "", device=None) -> Dict[str, float]:
+    """Joint SuperPoint + DeepF training (`model.if_SP`), the counterpart of
+    the JAX CLI's `_train_joint_from_config` (train_good.py:198-251): a
+    SuperPointNetGauss2 frontend seeded by `training.seed`, or read from
+    `pretrained_SP` unless `retrain_SP`; the solver seeded, or read from
+    `pretrained` (else the config's unless `retrain`); both Adams at
+    `learning_rate`; `train` and `train_SP` gate the two updates;
+    training.SP_params sets the frontend. Checkpoints every
+    `save_interval` steps and at the end, under both reference names.
+    Returns the last step's scalar metrics with `wall_s` and `n_iter`.
+    `profile_dir` traces steps [profile_start, profile_start +
+    profile_steps) as `train_good` does."""
+    device = resolve_device(device)
+    t = cfg.training
+    if cfg.model.mlp_dtype == "bfloat16":
+        raise NotImplementedError(
+            "the bf16 SuperPoint (the JAX CLI builds the joint frontend in bf16 when "
+            "model.mlp_dtype is bfloat16) and a bf16 K5/K5b are not ported (ROADMAP Queue 1); "
+            "set model.mlp_dtype: float32")
+    if not t.retrain_SP and t.pretrained_SP \
+            and not t.pretrained_SP.endswith((".pth", ".pth.tar")):
+        raise NotImplementedError("only reference .pth/.pth.tar SuperPoint checkpoints load; "
+                                  ".msgpack files need flax (ROADMAP Queue 1 item 2)")
+    if train_iter is not None:
+        t.train_iter = train_iter
+    if profile_dir:
+        t.profile_dir = profile_dir
+    cfg.data.with_imgs = True  # the SuperPoint path needs the grey frames
+    fp = frontend_params_from_config(cfg)
+    save_dir = _snapshot_config(cfg, exper_name)
+    train_ds = data_loader(cfg, "train")
+    bs = cfg.data.batch_size
+    # The JAX CLI draws one batch to initialize its parameters before it
+    # trains; drawing it here too keeps both CLIs on the same pairs.
+    if "imgs_grey" not in train_ds.batch(bs):
+        raise SystemExit("if_SP training needs image batches: dataset: synthetic_images")
+    if not t.retrain_SP and t.pretrained_SP:
+        sp_net = load_superpoint(t.pretrained_SP, device)
+    else:
+        sp_net = reset_superpoint(SuperPointNetGauss2(), torch.Generator().manual_seed(t.seed))
+        sp_net = sp_net.eval().to(device)
+    deepf_net = model_loader(cfg, device, torch.Generator().manual_seed(t.seed), train=True)
+    pre = pretrained or ("" if t.retrain else t.pretrained)
+    if pre:
+        load_checkpoint(pre, deepf_net)
+        print(f"restored the solver from {pre}", flush=True)
+    state = make_joint_state(deepf_net, sp_net, cfg)
+    logger = MetricLogger(os.path.join(save_dir, "metrics.jsonl"),
+                          tb_dir=os.path.join(save_dir, "runs") if t.tensorboard else None)
+
+    def save(n: int) -> None:
+        ckpt_dir = os.path.join(save_dir, "checkpoints")
+        save_checkpoint(os.path.join(ckpt_dir, f"deepFNet_{n}_checkpoint.pth.tar"), deepf_net,
+                        state.opt_deepf, n)
+        save_superpoint(os.path.join(ckpt_dir, f"superPointNet_{n}_checkpoint.pth.tar"),
+                        sp_net, n, state.opt_sp)
+
+    last: Dict = {}
+    prof = None
+    t0 = time.perf_counter()
+    try:
+        stream = prefetch_batches(train_ds.batches(bs), depth=max(2, min(t.workers_train, 8)))
+        for it, batch in enumerate(stream):
+            if it >= t.train_iter:
+                break
+            if t.profile_dir and it == t.profile_start:
+                prof = start_profile(device)
+            if prof is not None and it == t.profile_start + t.profile_steps:
+                stop_profile(prof, device, t.profile_dir)
+                prof = None
+            metrics = joint_train_step(state, batch_to_device(batch, device), fp, cfg,
+                                       *qt_clamps(t, it), train_deepf=t.train,
+                                       train_sp=t.train_SP)
+            logger.log(it, "train", metrics)
+            last = metrics
+            if t.save_interval > 0 and (it + 1) % t.save_interval == 0:
+                save(it + 1)
+        if prof is not None:  # the run ended inside the capture window
+            stop_profile(prof, device, t.profile_dir)
+        save(state.n_iter)
+    finally:
+        logger.close()
+    out = scalars(last)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    out["wall_s"] = time.perf_counter() - t0
+    out["n_iter"] = state.n_iter
+    return out
 
 
 def eval_good(cfg: Config, max_batches: int, device=None, pretrained: str = ""
@@ -176,10 +278,10 @@ def val_feature(exper_name: str, max_batches: int = 0, pretrained: str = "",
                                   "not ported yet (ROADMAP Queue 1 item 8)")
     if homography:
         raise NotImplementedError("val_feature --homography needs a numpy perspective warp in "
-                                  "place of cv2, not ported yet (ROADMAP Queue 1 item 1)")
+                                  "place of cv2, not ported yet (ROADMAP Queue 1 item 2)")
     if pretrained and not pretrained.endswith((".pth", ".pth.tar")):
         raise NotImplementedError("only reference .pth/.pth.tar SuperPoint checkpoints load; "
-                                  ".msgpack files need flax (ROADMAP Queue 1 item 1)")
+                                  ".msgpack files need flax (ROADMAP Queue 1 item 2)")
     fp = fp or FrontendParams(out_num_points=300, conf_thresh=1e-3)
     if pretrained:
         net = load_superpoint(pretrained, device)

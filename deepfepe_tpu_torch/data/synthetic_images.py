@@ -13,6 +13,7 @@ poses as the JAX package; the virtual points come from this package's
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, Tuple
 
 import numpy as np
@@ -162,3 +163,9 @@ class SyntheticImagePairs:
         out["pts1_virt"] = p1v.numpy().astype(np.float32)
         out["pts2_virt"] = p2v.numpy().astype(np.float32)
         return out
+
+    def batches(self, batch_size: int, steps: int | None = None):
+        """`steps` batches, or an endless stream when `steps` is None."""
+        it = itertools.count() if steps is None else range(steps)
+        for _ in it:
+            yield self.batch(batch_size)

@@ -1,5 +1,4 @@
-"""SuperPoint frontend, inference: CNNs, NMS, soft-argmax, matching,
-pipeline."""
+"""SuperPoint frontend: CNNs, NMS, soft-argmax, matching, pipeline."""
 
 from .matching import Matches, descriptor_distance, gather_matches, mutual_nn_match
 from .pipeline import (FrontendParams, ValModelHeatmap, frontend_params_from_config,

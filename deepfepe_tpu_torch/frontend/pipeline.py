@@ -1,11 +1,15 @@
 """End-to-end frontend: grey frames -> keypoints -> correspondences.
 
 Counterpart of `deepfepe_tpu/frontend/pipeline.py` (the reference's
-`get_matches_from_SP`, train_good_utils.py:649-756), inference only: both
-frames go through SuperPoint in one [2B] pass, are post-processed into
-keypoints with subpixel offsets and sparse descriptors, matched mutually,
-and assembled into [B, N, 4] correspondences padded by cyclic resampling
-of the real matches.
+`get_matches_from_SP`, train_good_utils.py:649-756): both frames go through
+SuperPoint in one [2B] pass, are post-processed into keypoints with
+subpixel offsets and sparse descriptors, matched mutually, and assembled
+into [B, N, 4] correspondences padded by cyclic resampling of the real
+matches. It is differentiable where the JAX package's is: the
+correspondences through the soft-argmax offsets, the descriptors through
+their two-hot sampling, and `quality` through the recomputed match
+distances, back to the SuperPoint weights; keypoint positions and match
+indices are discrete.
 """
 
 from __future__ import annotations
@@ -32,7 +36,9 @@ class FrontendParams:
     the JAX package, and the module forward elsewhere; 'fused' and 'flax'
     (the JAX name, kept: the nn.Module forward) force a side. `conv_impl`
     picks the fused forward's conv implementation ('xla' or 'pallas';
-    None reads DEEPFEPE_SP_CONV_IMPL); it is not an SP_params key."""
+    None reads DEEPFEPE_SP_CONV_IMPL); it is not an SP_params key. `remat`
+    other than 'none' (rerunning encoder blocks in the backward) is not
+    ported and raises."""
 
     def __init__(self, out_num_points: int = 1000, patch_size: int = 5, nms_dist: int = 4,
                  conf_thresh: float = 0.015, nn_thresh: float = 1.0,
@@ -40,6 +46,10 @@ class FrontendParams:
                  conv_impl: str | None = None):
         if conv_backend not in CONV_BACKENDS:
             raise ValueError(f"conv_backend {conv_backend!r} is not one of {CONV_BACKENDS}")
+        if remat != "none":
+            raise NotImplementedError("remat (jax.checkpoint of encoder blocks; "
+                                      "torch.utils.checkpoint here) is not ported "
+                                      "(ROADMAP Queue 1)")
         self.out_num_points = out_num_points
         self.patch_size = patch_size
         self.nms_dist = nms_dist
@@ -64,18 +74,26 @@ def _use_fused_convs(fp: FrontendParams, images: torch.Tensor) -> bool:
 
 
 def run_superpoint(net, images: torch.Tensor, fp: FrontendParams, bn_train: bool = False,
-                   bn_groups: int = 1) -> Keypoints:
-    """images [B, H, W] grey in [0, 1] -> Keypoints with descriptors."""
-    if bn_train or bn_groups != 1:
-        raise NotImplementedError("train-mode BatchNorm belongs to joint SuperPoint training, "
-                                  "which is not ported yet (ROADMAP Queue 1 item 2)")
+                   bn_groups: int = 1):
+    """images [B, H, W] grey in [0, 1] -> Keypoints with descriptors.
+
+    `bn_train=True` (BatchNorm nets only) runs the module forward with
+    BatchNorm on batch statistics, `bn_groups` groups of the batch, which
+    updates the running buffers in place. It never takes the fused
+    forward, whose BatchNorm is folded from the running statistics."""
     x = images[..., None].contiguous()
-    if _use_fused_convs(fp, images):
+    if bn_train:
+        if not any(True for _ in net.buffers()):
+            raise ValueError("train-mode BatchNorm needs a net with BatchNorm")
+        was_training = net.training
+        net.train()
+        try:
+            outs = net(x, bn_groups=bn_groups)
+        finally:
+            net.train(was_training)
+    elif _use_fused_convs(fp, images):
         outs = superpoint_forward_fused(net, x, fp.conv_impl, fp.remat)
     else:
-        if fp.remat != "none":
-            raise NotImplementedError("remat is a training option; joint training is not "
-                                      "ported")
         outs = net(x)
     return extract_keypoints(flatten_detection(outs["semi"]), outs["desc"],
                              out_num_points=fp.out_num_points, nms_dist=fp.nms_dist,
@@ -85,10 +103,13 @@ def run_superpoint(net, images: torch.Tensor, fp: FrontendParams, bn_train: bool
 def get_matches_from_sp(net, imgs_grey: Tuple[torch.Tensor, torch.Tensor], fp: FrontendParams,
                         bn_train: bool = False) -> Dict:
     """Two frames [B, H, W] each -> {'matches_xy_ori' [B, N, 4], 'quality'
-    [B, N, 1], 'valid' [B, N], 'kpts1', 'kpts2', 'matches'}."""
+    [B, N, 1], 'valid' [B, N], 'kpts1', 'kpts2', 'matches'}. `bn_train`
+    runs BatchNorm on batch statistics, each frame a group (the reference's
+    per-frame passes), and updates the net's running buffers in place."""
     B = imgs_grey[0].shape[0]
     both = torch.cat([imgs_grey[0], imgs_grey[1]], dim=0)
-    k1, k2 = run_superpoint(net, both, fp, bn_train=bn_train).split(B)
+    kk = run_superpoint(net, both, fp, bn_train=bn_train, bn_groups=2 if bn_train else 1)
+    k1, k2 = kk.split(B)
     m = mutual_nn_match(k1.desc, k2.desc, k1.valid, k2.valid, nn_thresh=fp.nn_thresh,
                         num_matches=fp.out_num_points)
     matches_xy = gather_matches(k1.xy + k1.offsets, k2.xy + k2.offsets, m)

@@ -69,13 +69,13 @@ def soft_argmax_refine(heatmap: torch.Tensor, kpts: Keypoints, patch_size: int =
         raise NotImplementedError(
             f"soft_argmax_refine(impl={impl!r}, temperature={temperature}) is not ported; "
             "the port has the centre-of-mass 'matmul' form")
-    hm = heatmap.float()
+    hm = heatmap.to(torch.promote_types(heatmap.dtype, torch.float32))
     B, H, W = hm.shape
     r = patch_size // 2
     ih = torch.arange(H, dtype=hm.dtype, device=hm.device)
     iw = torch.arange(W, dtype=hm.dtype, device=hm.device)
-    ys = kpts.xy[..., 1].float()[..., None]  # [B, K, 1]
-    xs = kpts.xy[..., 0].float()[..., None]
+    ys = kpts.xy[..., 1].to(hm.dtype)[..., None]  # [B, K, 1]
+    xs = kpts.xy[..., 0].to(hm.dtype)[..., None]
     wy = ((ih - ys).abs() <= r).to(hm.dtype)  # [B, K, H]
     wyd = (ih - ys) * wy
     wx = ((iw - xs).abs() <= r).to(hm.dtype)  # [B, K, W]
@@ -113,7 +113,8 @@ def sample_descriptors(desc_map: torch.Tensor, xy: torch.Tensor, cell: int = 8,
     fy = torch.clamp(gy - y0, 0.0, 1.0)
     ox = _two_hot(x0, fx, Wc)  # [B, K, Wc]
     oy = _two_hot(y0, fy, Hc)  # [B, K, Hc]
-    t = torch.einsum("bkw,bhwd->bkhd", ox, desc_map.float())
+    t = torch.einsum("bkw,bhwd->bkhd", ox,
+                     desc_map.to(torch.promote_types(desc_map.dtype, torch.float32)))
     d = torch.einsum("bkh,bkhd->bkd", oy, t).to(desc_map.dtype)
     return d / (safe_norm(d, dim=-1, keepdim=True) + eps)
 

@@ -14,9 +14,16 @@ parameters across):
 
 Public layout is the JAX package's NHWC: `forward` takes grey images
 [B, H, W, 1] and returns {'semi' [B, H/8, W/8, 65], 'desc' [B, H/8, W/8,
-256]} with unit descriptors. BatchNorm runs on its running statistics
-(`nn.BatchNorm2d` in eval mode, eps 1e-5); train-mode BN belongs to joint
-training, which is not ported. Convolutions run in full float32
+256]} with unit descriptors. In eval mode BatchNorm runs on its running
+statistics (`nn.BatchNorm2d`, eps 1e-5). In train mode (joint training)
+it runs on batch statistics, as the reference fine-tunes SuperPoint, and
+`forward(x, bn_groups=g)` splits the batch into g groups (both frames of a
+pair go through one [2B] pass, frame 1 then frame 2): each group is
+normalized by its own biased statistics and the running buffers take one
+momentum-0.1 update per group, in group order, with the unbiased variance,
+exactly the reference's two per-frame passes (the JAX package's
+`TorchBatchNorm`). The buffers are updated in place during the forward, as
+`nn.BatchNorm2d` does. Convolutions run in full float32
 (`ops.conv.full_f32`).
 """
 
@@ -94,6 +101,21 @@ class SuperPointNet(nn.Module):
                 "desc": normalize_desc(desc.permute(0, 2, 3, 1))}
 
 
+def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    """`bn` on NCHW x: on its running statistics in eval mode; in train
+    mode on the batch statistics of each of `groups` equal slices of the
+    batch, each slice updating the running buffers in turn."""
+    if not bn.training:
+        return bn(x)
+    if x.shape[0] % groups:
+        raise ValueError(f"a batch of {x.shape[0]} does not split into {groups} groups")
+    outs = [F.batch_norm(xg, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                         training=True, momentum=bn.momentum, eps=bn.eps)
+            for xg in x.chunk(groups)]
+    bn.num_batches_tracked.add_(groups)
+    return torch.cat(outs) if groups > 1 else outs[0]
+
+
 class DoubleConv(nn.Module):
     """(Conv3x3 -> BN -> ReLU) x 2, pytorch-superpoint's `double_conv`."""
 
@@ -103,8 +125,10 @@ class DoubleConv(nn.Module):
                                   nn.ReLU(inplace=True), conv3(cout, cout),
                                   nn.BatchNorm2d(cout, eps=BN_EPS), nn.ReLU(inplace=True))
 
-    def forward(self, x):
-        return self.conv(x)
+    def forward(self, x, bn_groups: int = 1):
+        seq = self.conv
+        x = F.relu(batch_norm(seq[1], seq[0](x), bn_groups))
+        return F.relu(batch_norm(seq[4], seq[3](x), bn_groups))
 
 
 class InConv(nn.Module):
@@ -112,8 +136,8 @@ class InConv(nn.Module):
         super().__init__()
         self.conv = DoubleConv(cin, cout)
 
-    def forward(self, x):
-        return self.conv(x)
+    def forward(self, x, bn_groups: int = 1):
+        return self.conv(x, bn_groups)
 
 
 class Down(nn.Module):
@@ -121,13 +145,13 @@ class Down(nn.Module):
         super().__init__()
         self.mpconv = nn.Sequential(nn.MaxPool2d(2), DoubleConv(cin, cout))
 
-    def forward(self, x):
-        return self.mpconv(x)
+    def forward(self, x, bn_groups: int = 1):
+        return self.mpconv[1](self.mpconv[0](x), bn_groups)
 
 
 class SuperPointNetGauss2(nn.Module):
     """pytorch-superpoint's `SuperPointNet_gauss2`, the net the reference
-    instantiates (train_good.py:224), in eval mode."""
+    instantiates (train_good.py:224); built in eval mode."""
 
     def __init__(self, det_h: int = 65, desc_dim: int = 256):
         super().__init__()
@@ -141,16 +165,18 @@ class SuperPointNetGauss2(nn.Module):
         self.convDb, self.bnDb = conv1(256, desc_dim), nn.BatchNorm2d(desc_dim, eps=BN_EPS)
         self.eval()
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """x [B, H, W, 1] grey in [0, 1] -> {'semi', 'desc'} (NHWC)."""
-        if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm belongs to joint SuperPoint training, which is not "
-                "ported yet (ROADMAP Queue 1 item 2)")
+    def forward(self, x: torch.Tensor, bn_groups: int = 1) -> Dict[str, torch.Tensor]:
+        """x [B, H, W, 1] grey in [0, 1] -> {'semi', 'desc'} (NHWC);
+        `bn_groups` splits the batch for train-mode BatchNorm."""
+        g = bn_groups
         with full_f32():
-            y = self.down3(self.down2(self.down1(self.inc(x.permute(0, 3, 1, 2)))))
-            semi = self.bnPb(self.convPb(F.relu(self.bnPa(self.convPa(y)))))
-            desc = self.bnDb(self.convDb(F.relu(self.bnDa(self.convDa(y)))))
+            y = x.permute(0, 3, 1, 2)
+            for block in (self.inc, self.down1, self.down2, self.down3):
+                y = block(y, g)
+            d = F.relu(batch_norm(self.bnPa, self.convPa(y), g))
+            semi = batch_norm(self.bnPb, self.convPb(d), g)
+            e = F.relu(batch_norm(self.bnDa, self.convDa(y), g))
+            desc = batch_norm(self.bnDb, self.convDb(e), g)
         return {"semi": semi.permute(0, 2, 3, 1),
                 "desc": normalize_desc(desc.permute(0, 2, 3, 1))}
 

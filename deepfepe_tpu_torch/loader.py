@@ -1,28 +1,32 @@
 """Dataset and model factories from a config.
 
-Counterpart of `deepfepe_tpu/loader.py` for the synthetic dataset.
+Counterpart of `deepfepe_tpu/loader.py` for the synthetic datasets:
+'synthetic' (correspondences) and 'synthetic_images' (image pairs, the
+joint SuperPoint path's data).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .data import SyntheticPairs
+from .data import SyntheticImagePairs, SyntheticPairs
 from .models import DeepFNet
 from .train.config import Config
 
 TASK_SEEDS = {"train": 0, "val": 1, "test": 2}
 
 
-def data_loader(cfg: Config, task: str = "train") -> SyntheticPairs:
-    """The synthetic pair stream for `task`, seeded as in the JAX package;
+def data_loader(cfg: Config, task: str = "train") -> SyntheticPairs | SyntheticImagePairs:
+    """The synthetic stream for `task`, seeded as in the JAX package;
     `.batches(batch_size)` is endless."""
     d = cfg.data
-    if d.dataset != "synthetic":
-        raise NotImplementedError(f"dataset {d.dataset!r} is not ported yet")
-    return SyntheticPairs(image_size=tuple(d.image_size), good_num=d.good_num,
-                          noise_px=d.noise_px, outlier_frac=d.outlier_frac,
-                          seed=cfg.training.seed * 10 + TASK_SEEDS.get(task, 3))
+    seed = cfg.training.seed * 10 + TASK_SEEDS.get(task, 3)
+    if d.dataset == "synthetic":
+        return SyntheticPairs(image_size=tuple(d.image_size), good_num=d.good_num,
+                              noise_px=d.noise_px, outlier_frac=d.outlier_frac, seed=seed)
+    if d.dataset == "synthetic_images":
+        return SyntheticImagePairs(image_size=tuple(d.resize or d.image_size), seed=seed)
+    raise NotImplementedError(f"dataset {d.dataset!r} is not ported yet")
 
 
 def model_loader(cfg: Config, device: torch.device,

@@ -1,19 +1,30 @@
-"""The fused 3x3 conv + per-channel affine + ReLU: kernel K5.
+"""The fused 3x3 conv + per-channel affine + ReLU: kernels K5 (forward) and
+K5b (backward).
 
 Replaces `deepfepe_tpu/ops/pallas/conv_pallas.py` (`conv3x3_affine_relu`,
-`_fwd_pallas`, `conv3x3_affine_relu_ref`). Layout is NHWC: x [B, H, W, Cin],
-w [3, 3, Cin, C], scale and bias [C] float32, y [B, H, W, C] =
-relu(conv3x3_same(x, w) * scale + bias).
+`_fwd_pallas`, `_bwd_pallas`, `conv3x3_affine_relu_ref`). Layout is NHWC:
+x [B, H, W, Cin], w [3, 3, Cin, C], scale and bias [C] float32, y [B, H, W,
+C] = relu(conv3x3_same(x, w) * scale + bias).
 
-`conv3x3_affine_relu` runs the plain version for a tensor on the CPU; for
-a CUDA tensor it launches `csrc/conv3x3.cu` or raises. Only the forward is
-ported: on a CUDA tensor that requires grad it raises, since the backward
-kernel (K5b) is not. `conv3x3_affine_relu.launches` counts launches.
+`conv3x3_affine_relu` is differentiable: a `torch.autograd.Function` that
+saves x, w, scale, bias and y, as the JAX custom VJP does. For tensors on
+the CPU its forward and backward are the plain versions,
+`conv3x3_affine_relu_ref` and `conv3x3_affine_relu_bwd_ref` (the TPU
+backward kernel's formula, not autograd of the plain forward: dscale
+recovers the pre-affine sum as (y - bias) / scale). For CUDA tensors they
+launch `csrc/conv3x3.cu` (K5, then K5b in the backward) or raise.
+`need_dx=False` declares the input's gradient unused: it is exactly zero
+and K5b launches no dx kernel. `conv3x3_affine_relu.launches` and
+`conv3x3_affine_relu_bwd.launches` count the wrapper calls that launched
+K5 and K5b.
 
 A float32 convolution on the card goes through cuDNN in TF32 by default
-(`torch.backends.cudnn.allow_tf32` is True); `full_f32` turns that off, and
-the plain version and the SuperPoint modules run under it, so every conv
-of the port is float32 end to end, as the kernel is.
+(`torch.backends.cudnn.allow_tf32` is True), and on the CPU through oneDNN;
+`full_f32` turns off both, and the plain versions and the SuperPoint
+modules run under it, so every conv of the port is float32 end to end, as
+the kernels are. The joint train step runs forward and backward under
+`exact_convs`: `full_f32` and, on the card, no cuDNN, whose weight
+gradient takes Winograd for some layers.
 """
 
 from __future__ import annotations
@@ -27,21 +38,44 @@ import torch.nn.functional as F
 from ..utils import build
 
 SOURCE = "conv3x3.cu"
-CIN1_MAX_C = 256  # widest output of the kernel's Cin = 1 path
+CIN1_MAX_C = 256  # widest output of the kernels' Cin = 1 paths
 MAX_GRID_Z = 65535
+SAFE_EPS = 1e-8  # |scale| below this divides as 1 (the TPU kernel's `_safe`)
 
 _lib = None
 
 
 @contextlib.contextmanager
 def full_f32():
-    """cuDNN convolutions in full float32 (no TF32) inside the block."""
-    saved = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+    """Convolutions in full float32 inside the block: cuDNN without TF32,
+    and on the CPU without oneDNN, whose float32 conv backward lost up to 4%
+    of some SuperPoint weight gradients' largest entry (float64 against
+    3e-6 without it, at 128x128)."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.mkldnn.enabled
+    torch.backends.cudnn.allow_tf32 = torch.backends.mkldnn.enabled = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = saved
+        torch.backends.cudnn.allow_tf32, torch.backends.mkldnn.enabled = saved
+
+
+@contextlib.contextmanager
+def exact_convs():
+    """Convolutions to be differentiated, in full float32 inside the block:
+    `full_f32`, and on the card without cuDNN, whose float32 weight
+    gradient takes a Winograd algorithm (winograd_nonfused, 4x4) for some
+    SuperPoint layers and lost up to 1.9% of a weight leaf's largest entry
+    against float64 (a 128x128 frozen-BN joint step on an H100). PyTorch's
+    own CUDA convolution (im2col and a GEMM) has no such algorithm. A
+    convolution's backward stays on the backend its forward took, so the
+    block holds both."""
+    saved = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        with full_f32():
+            yield
+    finally:
+        torch.backends.cudnn.enabled = saved
 
 
 def conv3x3_affine_relu_ref(x, w, scale, bias):
@@ -52,6 +86,28 @@ def conv3x3_affine_relu_ref(x, w, scale, bias):
     return torch.relu(z.permute(0, 2, 3, 1) * scale + bias).contiguous()
 
 
+def conv3x3_affine_relu_bwd_ref(x, w, scale, bias, y, dy, need_dx: bool = True):
+    """Plain version of K5b: (dx, dw, dscale, dbias) from the forward's
+    inputs, its output y and the cotangent dy, with the TPU kernel's math:
+    dz = dy * (y > 0) * scale; dbias = sum dz / s_safe; dscale = sum
+    (dz / s_safe) * (y - bias) / s_safe, where s_safe is scale with entries
+    below 1e-8 in magnitude replaced by 1; dw the nine x-shift^T dz
+    contractions and dx the transposed conv of dz (exactly zero when
+    `need_dx` is False). Convs in full float32."""
+    s_safe = torch.where(scale.abs() < SAFE_EPS, torch.ones_like(scale), scale)
+    dz = dy * (y > 0).to(dy.dtype) * scale
+    m = dz / s_safe
+    dbias = m.sum((0, 1, 2))
+    dscale = (m * (y - bias) / s_safe).sum((0, 1, 2))
+    x_nchw, dz_nchw = x.permute(0, 3, 1, 2), dz.permute(0, 3, 1, 2)
+    w_oihw = w.permute(3, 2, 0, 1)
+    with full_f32():
+        dw = torch.nn.grad.conv2d_weight(x_nchw, w_oihw.shape, dz_nchw, padding=1)
+        dx = (torch.nn.grad.conv2d_input(x_nchw.shape, w_oihw, dz_nchw, padding=1)
+              .permute(0, 2, 3, 1).contiguous() if need_dx else torch.zeros_like(x))
+    return dx, dw.permute(2, 3, 1, 0).contiguous(), dscale, dbias
+
+
 def _load():
     global _lib
     if _lib is None:
@@ -59,14 +115,21 @@ def _load():
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.conv3x3_affine_relu_f32.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
         lib.conv3x3_affine_relu_f32.restype = ctypes.c_int
+        lib.conv3x3_bwd_scratch_floats.argtypes = [I, I, I, I, I]
+        lib.conv3x3_bwd_scratch_floats.restype = ctypes.c_longlong
+        lib.conv3x3_affine_relu_bwd_f32.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P]
+        lib.conv3x3_affine_relu_bwd_f32.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _check(x, w, scale, bias):
-    if not all(t.is_cuda and t.device == x.device for t in (x, w, scale, bias)):
-        raise ValueError(f"the K5 kernel takes CUDA tensors on one device, got x on {x.device}, "
-                         f"w on {w.device}, scale on {scale.device}, bias on {bias.device}")
+def _check(x, w, scale, bias, *saved):
+    """Raise unless the kernels take these tensors (`saved`: y and dy of the
+    backward, [B, H, W, C])."""
+    ts = (x, w, scale, bias, *saved)
+    if not all(t.is_cuda and t.device == x.device for t in ts):
+        raise ValueError(f"the K5 kernels take CUDA tensors on one device, got "
+                         f"{[str(t.device) for t in ts]}")
     if x.dim() != 4 or w.dim() != 4 or w.shape[:3] != (3, 3, x.shape[-1]):
         raise ValueError(f"K5 takes x [B, H, W, Cin] and w [3, 3, Cin, C], got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -75,39 +138,96 @@ def _check(x, w, scale, bias):
     if scale.shape != (C,) or bias.shape != (C,):
         raise ValueError(f"K5 takes scale and bias [{C}], got {tuple(scale.shape)}, "
                          f"{tuple(bias.shape)}")
-    if any(t.dtype != torch.float32 or not t.is_contiguous() for t in (x, w, scale, bias)):
-        raise ValueError("K5 takes contiguous float32 tensors")
+    if any(t.shape != (B, H, W, C) for t in saved):
+        raise ValueError(f"K5b takes y and dy [{B}, {H}, {W}, {C}], got "
+                         f"{[tuple(t.shape) for t in saved]}")
+    if any(t.dtype != torch.float32 or not t.is_contiguous() for t in ts):
+        raise ValueError("the K5 kernels take contiguous float32 tensors")
     if Cin == 1 and C > CIN1_MAX_C:
-        raise ValueError(f"K5 takes C <= {CIN1_MAX_C} for Cin = 1, got {C}")
-    if B * -(-C // 64) > MAX_GRID_Z:
-        raise ValueError(f"K5 takes at most {MAX_GRID_Z} images x 64-channel groups, "
-                         f"got B = {B}, C = {C}")
+        raise ValueError(f"the K5 kernels take C <= {CIN1_MAX_C} for Cin = 1, got {C}")
+    if B * -(-max(C, Cin) // 64) > MAX_GRID_Z:
+        raise ValueError(f"the K5 kernels take at most {MAX_GRID_Z} images x 64-channel "
+                         f"groups, got B = {B}, Cin = {Cin}, C = {C}")
 
 
-def conv3x3_affine_relu(x, w, scale, bias) -> torch.Tensor:
-    """Fused 3x3 SAME conv + affine + ReLU, NHWC float32. CPU tensors take
-    the plain version; CUDA tensors launch K5 (forward only)."""
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def conv3x3_affine_relu_fwd(x, w, scale, bias) -> torch.Tensor:
+    """K5 on CUDA tensors, the plain version on CPU tensors."""
     if x.device.type == "cpu":
         return conv3x3_affine_relu_ref(x, w, scale, bias)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, scale, bias)):
-        raise NotImplementedError(
-            "K5 has no backward on the card: its backward kernel, K5b "
-            "(conv_pallas.py _bwd_kernel), is not ported yet (ROADMAP Queue 1 item 2); "
-            "call it under torch.no_grad()")
     _check(x, w, scale, bias)
     B, H, W, Cin = x.shape
     C = w.shape[-1]
     lib = _load()
     y = torch.empty((B, H, W, C), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.conv3x3_affine_relu_f32(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
                                          bias.data_ptr(), y.data_ptr(), B, H, W, Cin, C,
-                                         stream)
+                                         _stream(x))
     if rc != 0:
         raise RuntimeError(f"K5 kernel launch failed: cudaError {rc}")
     conv3x3_affine_relu.launches += 1
     return y
+
+
+def conv3x3_affine_relu_bwd(x, w, scale, bias, y, dy, need_dx: bool = True):
+    """(dx, dw, dscale, dbias): K5b on CUDA tensors, the plain version on
+    CPU tensors. K5b sums each weight and affine gradient in a fixed order
+    (partial sums per pixel group, then one pass over the groups), so its
+    result does not change from run to run."""
+    if x.device.type == "cpu":
+        return conv3x3_affine_relu_bwd_ref(x, w, scale, bias, y, dy, need_dx)
+    _check(x, w, scale, bias, y, dy)
+    B, H, W, Cin = x.shape
+    C = w.shape[-1]
+    lib = _load()
+    with torch.cuda.device(x.device):
+        part = torch.empty(lib.conv3x3_bwd_scratch_floats(B, H, W, Cin, C),
+                           dtype=torch.float32, device=x.device)
+        out = torch.empty(9 * Cin * C + 2 * C, dtype=torch.float32, device=x.device)
+        dx = torch.empty_like(x) if need_dx else None
+        rc = lib.conv3x3_affine_relu_bwd_f32(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            dy.data_ptr(), dx.data_ptr() if need_dx else None, part.data_ptr(),
+            out.data_ptr(), B, H, W, Cin, C, _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"K5b kernel launch failed: cudaError {rc}")
+    conv3x3_affine_relu_bwd.launches += 1
+    n = 9 * Cin * C
+    dw, dscale, dbias = out[:n].view(3, 3, Cin, C), out[n:n + C], out[n + C:]
+    return dx if need_dx else torch.zeros_like(x), dw, dscale, dbias
+
+
+conv3x3_affine_relu_bwd.launches = 0
+
+
+class FusedConv3x3AffineReLU(torch.autograd.Function):
+    """Forward K5, backward K5b on CUDA tensors; the plain versions on CPU
+    tensors. Inputs: (x, w, scale, bias, need_dx)."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, bias, need_dx):
+        y = conv3x3_affine_relu_fwd(x, w, scale, bias)
+        ctx.save_for_backward(x, w, scale, bias, y)
+        ctx.need_dx = need_dx
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, scale, bias, y = ctx.saved_tensors
+        dx, dw, dscale, dbias = conv3x3_affine_relu_bwd(x, w, scale, bias, y, dy.contiguous(),
+                                                        ctx.need_dx)
+        return dx, dw, dscale, dbias, None
+
+
+def conv3x3_affine_relu(x, w, scale, bias, need_dx: bool = True) -> torch.Tensor:
+    """Fused 3x3 SAME conv + affine + ReLU, NHWC float32, differentiable in
+    x (unless `need_dx` is False), w, scale and bias. CPU tensors take the
+    plain versions; CUDA tensors launch K5 and, in the backward, K5b."""
+    return FusedConv3x3AffineReLU.apply(x, w, scale, bias, need_dx)
 
 
 conv3x3_affine_relu.launches = 0

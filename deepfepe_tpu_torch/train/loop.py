@@ -23,21 +23,11 @@ import numpy as np
 import torch
 
 from ..utils.device import batch_to_device
-from ..utils.weights import to_reference_layout
+from ..utils.weights import to_cpu, to_reference_layout
 from .config import Config, qt_clamps
 from .engine import eval_step, make_optimizer, train_step
 
 TRACE_FILE = "trace.json"
-
-
-def _to_cpu(obj):
-    if isinstance(obj, torch.Tensor):
-        return obj.detach().cpu()
-    if isinstance(obj, dict):
-        return {k: _to_cpu(v) for k, v in obj.items()}
-    if isinstance(obj, (list, tuple)):
-        return type(obj)(_to_cpu(v) for v in obj)
-    return obj
 
 
 def save_checkpoint(path: str, net: torch.nn.Module, opt: Optional[torch.optim.Optimizer],
@@ -47,7 +37,7 @@ def save_checkpoint(path: str, net: torch.nn.Module, opt: Optional[torch.optim.O
         "n_iter": int(n_iter),
         "n_iter_val": int(n_iter_val),
         "model_state_dict": to_reference_layout(net.state_dict()),
-        "optimizer_state_dict": _to_cpu(opt.state_dict()) if opt is not None else {},
+        "optimizer_state_dict": to_cpu(opt.state_dict()) if opt is not None else {},
         "loss": float(loss),
     }, path)
 
@@ -72,6 +62,26 @@ def scalars(metrics: Dict) -> Dict[str, float]:
         vals = torch.stack([metrics[k].double() for k in tensors]).cpu().tolist()
         out.update(zip(tensors, vals))
     return {k: out[k] for k in keys}
+
+
+def start_profile(device: torch.device):
+    """A started `torch.profiler` capture: the CPU, and the card's kernels
+    when `device` is a card."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def stop_profile(prof, device: torch.device, out_dir: str) -> None:
+    """End the capture after the device's work and write `out_dir/trace.json`."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, TRACE_FILE))
 
 
 class MetricLogger:
@@ -142,20 +152,6 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _start_profile(self):
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=acts)
-        prof.start()
-        return prof
-
-    def _stop_profile(self, prof) -> None:
-        self._sync()
-        prof.stop()
-        os.makedirs(self.cfg.training.profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(self.cfg.training.profile_dir, TRACE_FILE))
-
     def fit(self, train_stream: Iterable[Dict],
             val_stream_fn: Optional[Callable[[], Iterable[Dict]]] = None,
             max_iters: Optional[int] = None) -> Dict[str, float]:
@@ -170,9 +166,9 @@ class Trainer:
             if n_iter >= max_iters:
                 break
             if want_profile and n_iter == t.profile_start:
-                prof = self._start_profile()
+                prof = start_profile(self.device)
             if prof is not None and n_iter == t.profile_start + t.profile_steps:
-                self._stop_profile(prof)
+                stop_profile(prof, self.device, t.profile_dir)
                 prof, want_profile = None, False  # one capture per fit
             tb = batch_to_device(batch, self.device)
             metrics = train_step(self.net, self.opt, tb, cfg, *qt_clamps(t, n_iter))
@@ -202,7 +198,7 @@ class Trainer:
             if self.save_dir and t.save_interval > 0 and (n_iter + 1) % t.save_interval == 0:
                 self.save(n_iter + 1)
         if prof is not None:  # the run ended inside the capture window
-            self._stop_profile(prof)
+            stop_profile(prof, self.device, t.profile_dir)
         out = scalars(last)
         self._sync()
         out["wall_s"] = time.perf_counter() - t0

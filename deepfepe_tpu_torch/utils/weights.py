@@ -6,12 +6,14 @@ package's `state_dict()` keys. The port's modules use the reference
 layout, so the output of the JAX package's `export_deepf_state` (Conv1d
 weights [out, in, 1]) and `export_superpoint_gauss2_state` load as well,
 with `load_state_dict(strict=True)`. `to_reference_layout` goes the other
-way, for the checkpoints the port writes. `load_superpoint` reads a
-reference SuperPoint `.pth`/`.pth.tar`.
+way, for the checkpoints the port writes. `save_superpoint` writes a
+SuperPoint net as the reference's `.pth.tar` (BatchNorm buffers
+included), and `load_superpoint` reads one, or a reference `.pth`.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Mapping
 
 import numpy as np
@@ -98,6 +100,29 @@ def superpoint_state_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     return {k: torch.tensor(np.ascontiguousarray(v)) if v.dtype == np.int64
             else torch.tensor(np.ascontiguousarray(v), dtype=torch.float32)
             for k, v in sd.items()}
+
+
+def to_cpu(obj):
+    """Tensors (in dicts, lists and tuples) detached onto the CPU, so a
+    checkpoint loads on any device."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_cpu(v) for v in obj)
+    return obj
+
+
+def save_superpoint(path: str, net: torch.nn.Module, n_iter: int,
+                    opt: torch.optim.Optimizer | None = None, loss: float = 0.0) -> None:
+    """The reference's SuperPoint checkpoint (`superPointNet_<n>_checkpoint
+    .pth.tar`): n_iter, model_state_dict (the reference's keys, BatchNorm
+    running statistics and counts included), optimizer_state_dict, loss."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save({"n_iter": int(n_iter), "model_state_dict": to_cpu(net.state_dict()),
+                "optimizer_state_dict": to_cpu(opt.state_dict()) if opt is not None else {},
+                "loss": float(loss)}, path)
 
 
 def load_superpoint(path: str, device=None) -> torch.nn.Module:

@@ -6,11 +6,12 @@
   aligned 64 -> 64, an odd small one), with that test's forward bar: atol
   5e-5 (float32 sums of up to 576 products in another order).
 - The wrapper on a CPU tensor is the plain version, bit for bit.
-- The wrapper refuses a tensor that is not on the CPU and requires grad
-  (the backward kernel K5b is not ported) and never falls back to the
-  plain version off the CPU; the `meta` device stands in for a card here.
+- The wrapper refuses a tensor that is not on the CPU, with or without
+  grad, and never falls back to the plain version off the CPU; the `meta`
+  device stands in for a card here.
 - The kernel itself against the plain version on the card is in
-  tests/test_torch_cuda_kernels.py, which imports no JAX.
+  tests/test_torch_cuda_kernels.py, which imports no JAX; the backward
+  (K5b) is tested in tests/test_torch_conv_bwd.py.
 """
 
 import importlib
@@ -63,7 +64,7 @@ def test_images_do_not_bleed_into_each_other():
 
 def test_off_cpu_the_wrapper_raises_and_never_falls_back():
     x, w, s, t = (torch.empty(a.shape, device="meta") for a in _inputs((1, 8, 8, 4, 8)))
-    with pytest.raises(NotImplementedError, match="K5b"):
+    with pytest.raises(ValueError, match="CUDA"):
         conv.conv3x3_affine_relu(x.requires_grad_(True), w, s, t)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         conv.conv3x3_affine_relu(x, w, s, t)

@@ -102,13 +102,16 @@ def test_gauss2_state_from_the_jax_exporter_loads_strictly():
 
 
 def test_gauss2_refuses_train_mode_batchnorm():
+    """Train-mode BatchNorm never takes the fused forward, whose BatchNorm
+    is folded from the running statistics (the JAX routing); it needs a
+    net with BatchNorm."""
     net = SuperPointNetGauss2().train()
-    with pytest.raises(NotImplementedError, match="joint"):
-        net(torch.zeros(1, 16, 16, 1))
-    with pytest.raises(NotImplementedError, match="joint"):
-        run_superpoint(net.eval(), torch.zeros(1, 16, 16), FrontendParams(), bn_train=True)
+    with pytest.raises(ValueError, match="train mode"):
+        superpoint_forward_fused(net, torch.zeros(1, 16, 16, 1), "xla")
+    with pytest.raises(ValueError, match="BatchNorm"):
+        run_superpoint(SuperPointNet(), torch.zeros(1, 16, 16), FrontendParams(), bn_train=True)
     with pytest.raises(NotImplementedError, match="s2d"):
-        superpoint_forward_fused(net, torch.zeros(1, 16, 16, 1), "s2d")
+        superpoint_forward_fused(net.eval(), torch.zeros(1, 16, 16, 1), "s2d")
 
 
 def test_flatten_detection_and_nms_equal_jax():

@@ -41,7 +41,8 @@ def test_importing_the_port_loads_no_jax():
     mods = [m.name for m in pkgutil.walk_packages([str(PKG)], "deepfepe_tpu_torch.")]
     assert "deepfepe_tpu_torch.cli" in mods and "deepfepe_tpu_torch.ops.eigh9" in mods
     for m in ("ops.conv", "ops.matcher", "frontend.pipeline", "frontend.sp_fused",
-              "data.synthetic_images", "eval.frontend_eval"):
+              "data.synthetic_images", "eval.frontend_eval", "train.joint", "loader",
+              "utils.weights"):
         assert f"deepfepe_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -89,6 +90,10 @@ def test_train_good_needs_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_pat
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["eval_good", str(REPO / "configs" / "synthetic_baseline.yaml"), "x",
                   "--pretrained", "missing.pth.tar"])
+    joint = config_from_dict({"data": {"dataset": "synthetic_images", "batch_size": 1},
+                              "model": {"if_SP": True, "mlp_dtype": "float32"}})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.train_good(joint, "x", train_iter=1)
     assert not (tmp_path / "logs").exists()
 
 
