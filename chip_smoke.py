@@ -62,18 +62,35 @@ and for the joint slice:
   joint_step  single steps of each stage between synchronizes, batches on
            the card up front, and one step each under torch.profiler;
   check    one joint step on the card against the CPU's plain routes, in
-           both BatchNorm modes (CHECK_JOINT).
+           both BatchNorm modes (CHECK_JOINT);
+and for the solver-variant slice:
+  kernels  K3 (the epipolar residual) and its backward at DeepFNet's, the
+           F-loss's and the sample loss's shapes, with a zero-row F, s = 0
+           and a residual at the clamp, against the plain version and
+           float64, timed beside the plain version and its bound;
+  sample_train  the port's `train_good` with model.if_sample_loss at
+           configs/synthetic_baseline.yaml's full width: 4 steps, one
+           validation, a checkpoint, step 2 profiled; exact launch counts
+           (`sample_expected`), no skipped update; then single steps timed;
+  variants  `train_good` with if_learn_offsets, if_tri_depth and
+           if_goodCorresArch at the same width, 2 steps each, exact launch
+           counts (the learned offsets launch K3's point gradient);
+  check    one sample-loss train step on the card against the CPU, which
+           replays the card's drawn subsets, each against float64 on its
+           own solver branches.
 
 The line before the card's name line is the kernels' JSON summary (eigh9,
-K2, K2b, K5, K4, K5b, each with its launches on the path that carries it);
-the last line is {"ok": true, "device": {...}}. Any failed check exits 1.
+K2, K2b, K5, K4, K5b, K3 and its backward, each with its launches on the
+path that carries it); the last line is {"ok": true, "device": {...}}. Any
+failed check exits 1.
 
     python3 chip_smoke.py --plant FAULT
 
-builds, plants FAULT (one of FAULTS: a wiring fault in the autograd
-Function, or K2b built with one line changed) and runs only the MLP
-checks, printing their readings; it exits 1 when a check caught the
-fault. `--plant none` gives the sound readings the bars are set against.
+builds, plants FAULT (one of FAULTS: a wiring fault in the MLP's autograd
+Function, K2b built with one line changed, or K3's backward built with one
+line changed) and runs only that kernel's checks, printing their readings;
+it exits 1 when a check caught the fault. `--plant none` runs both sets and
+gives the sound readings the bars are set against.
 """
 
 from __future__ import annotations
@@ -94,7 +111,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
-SOURCES = ("eigh9.cu", "mlp.cu", "conv3x3.cu", "matcher.cu")
+SOURCES = ("eigh9.cu", "mlp.cu", "conv3x3.cu", "matcher.cu", "epi_residual.cu")
 
 # The synthetic_baseline.yaml values, built in code (no YAML reader needed).
 BASELINE = {
@@ -111,8 +128,10 @@ BASELINE = {
 }
 EVAL_BATCHES = 5
 # Per eval_good batch: depth (5) weighted 8-point fits in DeepFNet, one
-# batched RANSAC hypothesis fan-out and one RANSAC refit.
+# batched RANSAC hypothesis fan-out and one RANSAC refit; K3 (the epipolar
+# residual) depth - 1 times in DeepFNet and once in the F-loss, forward only.
 EIGH9_PER_BATCH = 5 + 1 + 1
+EPI_PER_BATCH = 4 + 1
 BREAKDOWN_BATCHES = 2
 
 # Training at the same width with the fused MLP kernels (model.use_pallas_mlp).
@@ -157,7 +176,9 @@ MLP_FEATURES = (64, 128, 1024, 512, 256)
 # version's distance, planted faults 1.94 and more (`--plant`; PERF.md).
 MLP_BARS = {"forward": 2e-2, "gradient": 1.5e-1}
 F64_FACTOR, F64_FLOOR = 1.3, 1e-3
-FAULTS = ("none", "dx_zero", "dgamma_dbeta_swapped", "c1_next_item", "c2_next_item")
+FAULTS = ("none", "dx_zero", "dgamma_dbeta_swapped", "c1_next_item", "c2_next_item",
+          "epi_unsafe_norm_grad", "epi_tie_blocked")
+EPI_FAULTS = FAULTS[5:]
 
 
 class CheckFailed(Exception):
@@ -305,9 +326,14 @@ def phase_eval_good(ph: Phases, cfg) -> dict:
     launches = read_counts()
     expected = EIGH9_PER_BATCH * EVAL_BATCHES
     ph.emit("eval_good", summary=summary, launches=launches, eigh9_expected=expected,
+            epi_residual_expected=EPI_PER_BATCH * EVAL_BATCHES,
             pairs_per_s=summary["pairs"] / summary["seconds"])
     check(launches["eigh9"] == expected,
           f"eigh9 launched {launches['eigh9']} times on the path, expected {expected}")
+    check(launches["epi_residual"] == EPI_PER_BATCH * EVAL_BATCHES
+          and launches["epi_residual_bwd"] == 0,
+          f"K3 launched {launches['epi_residual']} times (backward "
+          f"{launches['epi_residual_bwd']}), expected {EPI_PER_BATCH * EVAL_BATCHES} (0)")
     check(launches["mlp_forward"] == launches["mlp_backward"] == 0,
           "the MLP kernels ran on a path configured without them")
     check(launches["conv3x3_affine_relu"] == launches["mutual_nn_kernel"]
@@ -647,18 +673,23 @@ def phase_mlp_kernels(ph: Phases) -> list:
 def kernel_counters():
     from deepfepe_tpu_torch.ops.conv import conv3x3_affine_relu, conv3x3_affine_relu_bwd
     from deepfepe_tpu_torch.ops.eigh9 import eigh9
+    from deepfepe_tpu_torch.ops.epi_residual import epi_residual, epi_residual_bwd
     from deepfepe_tpu_torch.ops.matcher import mutual_nn_kernel
     from deepfepe_tpu_torch.ops.mlp import mlp_backward, mlp_forward
 
     return {"eigh9": eigh9, "mlp_forward": mlp_forward, "mlp_backward": mlp_backward,
             "conv3x3_affine_relu": conv3x3_affine_relu,
             "conv3x3_affine_relu_bwd": conv3x3_affine_relu_bwd,
-            "mutual_nn_kernel": mutual_nn_kernel}
+            "mutual_nn_kernel": mutual_nn_kernel, "epi_residual": epi_residual,
+            "epi_residual_bwd": epi_residual_bwd}
 
 
 def reset_counts() -> None:
+    from deepfepe_tpu_torch.ops.epi_residual import epi_residual_bwd
+
     for fn in kernel_counters().values():
         fn.launches = 0
+    epi_residual_bwd.point_launches = 0
 
 
 def read_counts() -> dict:
@@ -717,11 +748,14 @@ def phase_train_good(ph: Phases) -> dict:
         torch.cuda.synchronize()
         counts = read_counts()
         depth = cfg.model.depth
+        # K3: depth - 1 DeepFNet features and the F-loss a forward; the
+        # F-loss's backward only where it is the loss (not under qt).
         expected = {"mlp_forward": depth * (steps + vals * VAL_BATCHES),
                     "mlp_backward": depth * steps,
                     "eigh9": depth * (steps + vals * VAL_BATCHES),
                     "conv3x3_affine_relu": 0, "conv3x3_affine_relu_bwd": 0,
-                    "mutual_nn_kernel": 0}
+                    "mutual_nn_kernel": 0, "epi_residual": depth * (steps + vals * VAL_BATCHES),
+                    "epi_residual_bwd": (depth if name == "f_loss" else depth - 1) * steps}
         ms = last["wall_s"] * 1e3 / steps
         ph.emit("train_good", run=name, steps=steps, validations=vals, last=last, launches=counts,
                 expected_launches=expected, ms_per_step=ms,
@@ -745,10 +779,12 @@ def phase_train_good(ph: Phases) -> dict:
     return total
 
 
-def phase_step_times(ph: Phases, steps: int = 6) -> None:
-    """Host-clock time of single F-loss train steps at full width with the
-    fused MLP, each between synchronizes, batches made up front; after the
-    counted runs, so it changes no count."""
+def phase_step_times(ph: Phases, raw: dict = TRAIN_F, phase: str = "train_good",
+                     steps: int = 6) -> None:
+    """Host-clock time of single train steps of the config `raw` at full
+    width (F-loss with the fused MLP by default), each between synchronizes,
+    batches made up front, the sample loss's draws from one generator; after
+    the counted runs, so it changes no count."""
     import statistics
 
     import torch
@@ -758,22 +794,24 @@ def phase_step_times(ph: Phases, steps: int = 6) -> None:
     from deepfepe_tpu_torch.train import make_optimizer, train_step
     from deepfepe_tpu_torch.train.config import config_from_dict
 
-    cfg = config_from_dict(TRAIN_F)
+    cfg = config_from_dict(raw)
     dev = torch.device("cuda")
     net = model_loader(cfg, dev, torch.Generator().manual_seed(0), train=True)
     opt = make_optimizer(net, cfg)
+    gen = torch.Generator(device=dev).manual_seed(1)
     batches = [batch_to_device(b, dev) for b in
                data_loader(cfg, "train").batches(cfg.data.batch_size, steps)]
     ms = []
     for b in batches:
         torch.cuda.synchronize()
         t = time.perf_counter()
-        train_step(net, opt, b, cfg, 0.1, 0.5)
+        train_step(net, opt, b, cfg, 0.1, 0.5, gen)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t) * 1e3)
     med = statistics.median(ms[1:])
-    ph.emit("train_good", step_ms=ms, median_step_ms_after_first=med,
-            pairs_per_s=cfg.data.batch_size * 1e3 / med)
+    ph.emit(phase, step_ms=ms, median_step_ms_after_first=med,
+            pairs_per_s=cfg.data.batch_size * 1e3 / med,
+            timed="host clock between synchronizes, batches on the card up front")
 
 
 def train_step_grads(cfg, dev: str, state: dict, batch: dict, float64: bool = False):
@@ -1440,10 +1478,13 @@ JOINT = {
                                "nms_dist": 4, "patch_size": 5}},
 }
 # Launches a step: stage 1 runs K5 and K5b on the six layers with
-# H * W >= 16,384, K4 once (K = 1000), eigh9 once a DeepFNet layer.
+# H * W >= 16,384, K4 once (K = 1000), eigh9 once a DeepFNet layer, K3 and
+# its backward depth - 1 times in DeepFNet and once in the F-loss.
 JOINT_PER_STEP = {"stage1": {"conv3x3_affine_relu": 6, "conv3x3_affine_relu_bwd": 6,
-                             "mutual_nn_kernel": 1, "eigh9": 5},
-                  "stage2": {"mutual_nn_kernel": 1, "eigh9": 5}}
+                             "mutual_nn_kernel": 1, "eigh9": 5, "epi_residual": 5,
+                             "epi_residual_bwd": 5},
+                  "stage2": {"mutual_nn_kernel": 1, "eigh9": 5, "epi_residual": 5,
+                             "epi_residual_bwd": 5}}
 K5B_KERNELS = ("conv3x3_wgrad_kernel", "sum_groups_kernel", "conv3x3_kernel<true>",
                "conv3x3_dgrad_cin1_kernel")
 K5_KERNELS = ("conv3x3_kernel<false>", "conv3x3_cin1_kernel")
@@ -1781,7 +1822,8 @@ class SolverBranches:
                      + 1.0 / (epipolar.safe_norm(Ftx2[..., :2], dim=-1) + eps))
             if self._replay is None:
                 d = orig(pts1_h, pts2_h, F, clamp_at=clamp_at, eps=eps)
-                self.choices.append(torch.stack([s >= 0, s.abs() * scale > clamp_at]).cpu())
+                # The clamp as the route decided it (K3 on the card).
+                self.choices.append(torch.stack([s >= 0, d >= clamp_at]).cpu())
                 return d
             check(bool(self._replay), "a replayed step took more solver choices")
             pos, clamped = self._replay.pop(0).to(s.device)
@@ -2027,6 +2069,403 @@ def phase_check_joint(ph: Phases, seed: int | None = None) -> None:
               f"joint step ({bn_mode}) on the card disagrees with the CPU: {report}")
 
 
+# ------------------------------------------------- solver-variant slice
+
+# K3 (the epipolar residual) at its three callers' shapes (name, P, M, N,
+# clamp): DeepFNet's feature ([B, N, 3] with [B, 3, 3]), the F-loss ([1,
+# B, V, 3] with [L, B, 3, 3]) and the sample loss's auxiliary ([1, B, 1,
+# V, 3] with [L, B, S, 3, 3], L S = 500 matrices per item). Each shape
+# holds a zero-row F (item 0, matrix 0: (F x1)_xy is exactly 0, d is
+# clamped), an s = 0 (item 1, last matrix, point 0) and a d exactly at the
+# clamp (item 2, last matrix, point 1: small powers of two, so the kernel
+# and the plain version compute the same d; the clamp is set to it). The
+# forward is held at tests/test_jacobi.py's bar for the Pallas kernel
+# (rtol 1e-4, atol 1e-5), against the plain version and float64; each
+# gradient (dF, and the points' for the learned offsets) within 1e-4 of the
+# largest float64 entry, against both; float64 differentiates on the plain
+# float32 run's side of each |s| and clamp (the solver's kinks, as in
+# SolverBranches).
+EPI_SHAPES = (("deepfnet", 8, 1, 1000, 0.5), ("f_loss", 8, 5, 100, 0.02),
+              ("sample_aux", 8, 500, 100, 0.02))
+EPI_RTOL, EPI_ATOL, EPI_GRAD_REL = 1e-4, 1e-5, 1e-4
+# Operations per (item, matrix, point), counted from csrc/epi_residual.cu:
+# the residual ~45 (F x1, (F' x2)_xy, s, two norms, two reciprocals); its
+# cotangents ~25; dF's nine products 30; the points' 36.
+EPI_FLOPS = {"forward": 45, "dF": 100, "dpts": 106}
+
+
+def epi_bound_ms(P: int, M: int, N: int, kind: str) -> tuple[float, str]:
+    """Least time for K3 ('forward'), its dF ('dF') or dF and the points'
+    gradients ('dF+dpts'): the operations above over the FP32 rate, against
+    the points, F (and the cotangent) read once and the outputs written
+    once over HBM."""
+    flops = sum(EPI_FLOPS[k] for k in kind.split("+")) * P * M * N
+    pts, mats, res = 2 * P * N * 3, P * M * 9, P * M * N
+    floats = pts + mats + res + (mats if kind != "forward" else 0) \
+        + (pts if "dpts" in kind else 0)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, 4 * floats / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def epi_inputs(P: int, M: int, N: int, clamp: float, seed: int):
+    """Points in the solver's [-1, 1] frame, x2 on x1's epipolar line of a
+    sideways translation (F0) up to noise, and matrices F0 + noise, so that
+    some residuals are clamped and most are not; with the three special
+    cases of EPI_SHAPES. Returns (pts1 [P, N, 3], pts2, F9 [P, M, 9],
+    clamp): the clamp is the tie point's d."""
+    import math
+
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = {"device": "cuda", "generator": g}
+    x1 = torch.rand(P, N, 2, **kw) * 2 - 1
+    x2 = torch.stack([torch.rand(P, N, **kw) * 2 - 1,
+                      x1[..., 1] + 0.5 * clamp * torch.randn(P, N, **kw)], dim=-1)
+    ones = torch.ones(P, N, 1, device="cuda")
+    pts1, pts2 = torch.cat([x1, ones], -1), torch.cat([x2, ones], -1)
+    F0 = torch.tensor([0.0, 0, 0, 0, 0, -1, 0, 1, 0], device="cuda")
+    F9 = F0 + 0.1 * clamp * torch.randn(P, M, 9, **kw)
+    F9[0, 0, :6] = 0.0                                        # zero rows
+    pts1[1, 0] = pts2[1, 0] = torch.tensor([0.0, 0, 1])       # s = F22 = 0
+    F9[1, -1, 8] = 0.0
+    s_tie = 2.0 ** -round(math.log2(2.0 / clamp))             # d ~ clamp
+    pts1[2, 1] = torch.tensor([0.25, 0.5, 1.0])
+    pts2[2, 1] = torch.tensor([0.75, 0.5 - s_tie, 1.0])
+    F9[2, -1] = F0
+    return pts1, pts2, F9
+
+
+def epi_case(P: int, M: int, N: int, clamp: float, seed: int) -> dict:
+    """One EPI_SHAPES case: the kernels against the plain versions (the
+    plain forward with autograd for the gradients) and float64."""
+    import torch
+
+    from deepfepe_tpu_torch.geometry.basic import safe_norm
+    from deepfepe_tpu_torch.ops import epi_residual as epi
+
+    pts1, pts2, F9 = epi_inputs(P, M, N, clamp, seed)
+    F = F9.view(P, M, 3, 3)
+    x1, x2 = pts1[:, None], pts2[:, None]
+    clamp = float(epi.epi_residual_ref(x1[2:3], x2[2:3], F[2:3, -1:], 1e30)[0, 0, 1])
+    g = torch.randn(P, M, N, device="cuda", generator=torch.Generator(device="cuda")
+                    .manual_seed(seed + 1))
+    d = epi.epi_residual_fwd(pts1, pts2, F9, clamp, 1e-6)
+    dF, d1, d2 = epi.epi_residual_bwd(pts1, pts2, F9, g, clamp, 1e-6)
+
+    def plain(dtype, kinks=None):
+        """The plain forward and its autograd gradients in `dtype`; with
+        `kinks` (a float32 run's sign of s and clamp mask) the |s| and the
+        clamp take that run's side, so that float64 differentiates the same
+        piece of the residual."""
+        a, b, f = (t.detach().to(dtype).requires_grad_() for t in (pts1, pts2, F))
+        if kinks is None:
+            out = epi.epi_residual_ref(a[:, None], b[:, None], f, clamp, 1e-6)
+        else:
+            sign, clamped = kinks
+            Fx1, Ftx2 = a[:, None] @ f.transpose(-1, -2), b[:, None] @ f
+            s = torch.sum(b[:, None] * Fx1, dim=-1)
+            scale = (1.0 / (safe_norm(Fx1[..., :2], dim=-1) + 1e-6)
+                     + 1.0 / (safe_norm(Ftx2[..., :2], dim=-1) + 1e-6))
+            out = torch.where(clamped, torch.full_like(s, clamp), sign.to(dtype) * s * scale)
+        grads = torch.autograd.grad(out, (f, a, b), g.to(dtype))
+        return out.detach(), grads[0].reshape(P, M, 9), grads[1], grads[2]
+
+    ref = plain(torch.float32)
+    s32 = torch.sum(x2 * (x1 @ F.transpose(-1, -2)), dim=-1)
+    d32 = epi.epi_residual_ref(x1, x2, F, float("inf"))  # before the clamp
+    # Float32 puts some of the 10^5 residuals on the other side of the clamp
+    # or of s = 0 than float64 (7.7% of dF's largest entry at the sample
+    # aux's shape when float64 takes its own side: a kink, not an error).
+    ref64 = plain(torch.float64, (torch.sign(s32), d32 > clamp))
+    torch.cuda.synchronize()
+    got = (d, dF, d1, d2)
+    names = ("residual", "dF", "dpts1", "dpts2")
+    errs = {}
+    for name, k, r, r64 in zip(names, got, ref, ref64):
+        if name == "residual":
+            tol = EPI_ATOL + EPI_RTOL * r64.abs()
+            errs[name] = {"kernel_vs_plain": ((k - r).abs() / (EPI_ATOL + EPI_RTOL * r.abs()))
+                          .max().item(),
+                          "kernel_vs_f64": ((k.double() - r64).abs() / tol).max().item(),
+                          "plain_vs_f64": ((r.double() - r64).abs() / tol).max().item()}
+        else:
+            top = r64.abs().max().item()
+            errs[name] = {"kernel_vs_plain": (k - r).abs().max().item() / top,
+                          "kernel_vs_f64": (k.double() - r64).abs().max().item() / top,
+                          "plain_vs_f64": (r.double() - r64).abs().max().item() / top}
+    special = {"zero_row_dF_max": dF[0, 0].abs().max().item(),
+               "zero_row_d_clamped": bool(d[0, 0].eq(clamp).all()),
+               "s0_d": d[1, -1, 0].item(), "tie_d_equals_clamp": d[2, -1, 1].item() == clamp,
+               "clamped_share": d.eq(clamp).float().mean().item()}
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    ok = (finite and special["zero_row_dF_max"] == 0.0 and special["zero_row_d_clamped"]
+          and special["s0_d"] == 0.0 and special["tie_d_equals_clamp"]
+          and all(e["kernel_vs_plain"] <= 1.0 and e["kernel_vs_f64"] <= 1.0
+                  for e in [errs["residual"]])
+          and all(errs[n][k] <= EPI_GRAD_REL for n in names[1:]
+                  for k in ("kernel_vs_plain", "kernel_vs_f64")))
+    return {"errors": errs, "special": special, "clamp": clamp, "within_bars": ok,
+            "inputs": (pts1, pts2, F9, g, clamp), "max_abs_err": (d - ref[0]).abs().max().item()}
+
+
+def phase_epi_kernel(ph: Phases) -> list:
+    """K3 and its backward at EPI_SHAPES against the plain versions and
+    float64, each timed beside the plain version and its bound. No single
+    PyTorch call computes the residual, so there is no library time."""
+    import torch
+
+    from deepfepe_tpu_torch.ops import epi_residual as epi
+
+    cases, max_fwd, max_bwd = {}, 0.0, 0.0
+    for i, (name, P, M, N, clamp) in enumerate(EPI_SHAPES):
+        c = epi_case(P, M, N, clamp, seed=10 + i)
+        pts1, pts2, F9, g, clamp = c.pop("inputs")
+        F = F9.view(P, M, 3, 3)
+        Fr = F.clone().requires_grad_()
+
+        def plain_fwd_bwd():
+            out = epi.epi_residual_ref(pts1[:, None], pts2[:, None], Fr, clamp, 1e-6)
+            torch.autograd.grad(out, Fr, g)
+
+        timing = {
+            "ms": cuda_time_ms(lambda: epi.epi_residual_fwd(pts1, pts2, F9, clamp, 1e-6), 200),
+            "bwd_ms": cuda_time_ms(lambda: epi.epi_residual_bwd(
+                pts1, pts2, F9, g, clamp, 1e-6, True, False, False), 200),
+            "bwd_points_ms": cuda_time_ms(lambda: epi.epi_residual_bwd(
+                pts1, pts2, F9, g, clamp, 1e-6), 200),
+            "plain_ms": cuda_time_ms(lambda: epi.epi_residual_ref(
+                pts1[:, None], pts2[:, None], F, clamp, 1e-6), 100),
+            "plain_fwd_bwd_ms": cuda_time_ms(plain_fwd_bwd, 50)}
+        timing["plain_bwd_ms"] = timing["plain_fwd_bwd_ms"] - timing["plain_ms"]
+        for key, kind in (("bound_ms", "forward"), ("bwd_bound_ms", "dF"),
+                          ("bwd_points_bound_ms", "dF+dpts")):
+            timing[key], timing[key.replace("_ms", "_by")] = epi_bound_ms(P, M, N, kind)
+        ph.emit("kernels", kernel="epi_residual", caller=name, shape=[P, M, N], **c, **timing,
+                bars={"residual": f"|kernel - ref| <= {EPI_ATOL} + {EPI_RTOL} |ref| (errors "
+                      "are in units of that bar)", "gradients": f"{EPI_GRAD_REL} of the largest "
+                      "float64 entry"})
+        check(c["within_bars"], f"K3 at {name} {[P, M, N]} is outside its bars: {c}")
+        cases[name] = {"shape": [P, M, N], **timing}
+        max_fwd = max(max_fwd, c["max_abs_err"])
+        max_bwd = max(max_bwd, *(c["errors"][n]["kernel_vs_plain"] for n in ("dF", "dpts1",
+                                                                             "dpts2")))
+    lead = cases["sample_aux"]
+    common = {"route": "cuda", "source": "deepfepe_tpu_torch/csrc/epi_residual.cu",
+              "replaces": "deepfepe_tpu/ops/pallas/epi_residual_pallas.py:23", "launches": None,
+              "library_ms": None,
+              "library": "none: no single PyTorch call computes the residual",
+              "shape": "sample aux: points [8, 100, 3] x F [8, 500, 9] f32", "per_caller": cases}
+    fwd = {"name": "epi_residual", "max_abs_err": max_fwd, "ms": lead["ms"],
+           "plain_ms": lead["plain_ms"], "bound_ms": lead["bound_ms"],
+           "bound_by": lead["bound_by"], **common}
+    bwd = {"name": "epi_residual_bwd", "max_abs_err": max_bwd, "ms": lead["bwd_ms"],
+           "plain_ms": lead["plain_bwd_ms"], "bound_ms": lead["bwd_bound_ms"],
+           "bound_by": lead["bwd_bound_by"],
+           "max_abs_err_is": "relative to the largest float64 entry of dF, dpts1, dpts2",
+           "ms_with_points": lead["bwd_points_ms"],
+           "bound_ms_with_points": lead["bwd_points_bound_ms"], **common}
+    return [fwd, bwd]
+
+
+# The sample-loss variant of train_good at configs/synthetic_baseline.yaml's
+# full width with model.if_sample_loss (B = 8, N = 1000, depth 5, bf16 MLPs
+# on the plain route as configured, 20-point subsets, 100 a layer, V = 100
+# virtual points): SAMPLE_STEPS steps, one validation and a checkpoint, step
+# 2 under torch.profiler.
+SAMPLE_STEPS = 4
+SAMPLE = {
+    **BASELINE,
+    "model": {**BASELINE["model"], "if_sample_loss": True},
+    "training": {**TRAIN_F["training"], "train_iter": SAMPLE_STEPS, "val_interval": SAMPLE_STEPS,
+                 "val_batches": 1, "save_interval": SAMPLE_STEPS, "profile_start": 2,
+                 "profile_steps": 1},
+}
+# The other ported variants at the same width, 2 steps each.
+VARIANT_FLAGS, VARIANT_STEPS = ("if_learn_offsets", "if_tri_depth", "if_goodCorresArch"), 2
+EPI_KERNELS = ("epi_fwd_kernel", "epi_dF_kernel", "epi_dpts_kernel")
+
+
+def sample_expected(depth: int, steps: int, vals: int) -> dict:
+    """Launches of a sample-loss run, counted from the code: a forward fits
+    each layer once and its 100 subsets once more (two eigh9 batches a
+    layer); K3 runs depth - 1 times in DeepFNet, once in the F-loss and once
+    on the subsets' hypotheses (the F-loss's sample auxiliary), each with
+    its backward in a train step; validations run forwards only."""
+    return {"eigh9": 2 * depth * (steps + vals), "epi_residual": (depth + 1) * (steps + vals),
+            "epi_residual_bwd": (depth + 1) * steps, "mlp_forward": 0, "mlp_backward": 0,
+            "conv3x3_affine_relu": 0, "conv3x3_affine_relu_bwd": 0, "mutual_nn_kernel": 0}
+
+
+def train_lines(exp: str, tag: str = "train") -> list:
+    with open(os.path.join("logs", exp, "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if r["tag"] == tag]
+
+
+def phase_sample_train(ph: Phases) -> dict:
+    """The port's train_good with model.if_sample_loss at full width; every
+    kernel's launches read around the run; then single steps timed between
+    synchronizes (after the count)."""
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch import cli
+    from deepfepe_tpu_torch.train.config import config_from_dict
+
+    exp = "smoke_sample"
+    shutil.rmtree(os.path.join(REPO, "logs", exp), ignore_errors=True)
+    prof_dir = os.path.join("logs", exp, "profile")
+    cfg = config_from_dict(SAMPLE)
+    reset_counts()
+    last = cli.train_good(cfg, exp, profile_dir=prof_dir, device="cuda")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expected = sample_expected(cfg.model.depth, SAMPLE_STEPS, 1)
+    steps, vals = train_lines(exp), train_lines(exp, "val")
+    trace_path = os.path.join(prof_dir, "trace.json")
+    trace = read_trace(trace_path)
+    ms = last["wall_s"] * 1e3 / SAMPLE_STEPS
+    ph.emit("sample_train", steps=SAMPLE_STEPS, validations=len(vals), last=last, val=vals,
+            launches=counts, expected_launches=expected, ms_per_step_fit=ms,
+            pairs_per_s_fit=cfg.data.batch_size * 1e3 / ms, profiled_step=trace,
+            k3_device_ms=device_ms(trace_path, EPI_KERNELS),
+            eigh9_device_ms=device_ms(trace_path, ("eigh9_kernel",)),
+            timed="host clock over fit (ending in a synchronize), incl. its validation, "
+                  "checkpoint and profiled step")
+    check(counts == expected, f"sample loss: launches {counts}, expected {expected}")
+    check(last["n_iter"] == SAMPLE_STEPS and len(steps) == SAMPLE_STEPS and len(vals) == 1,
+          f"sample loss: {last['n_iter']} steps, {len(vals)} validations")
+    check(all(np.isfinite(v) for v in last.values()), f"sample loss: non-finite metrics {last}")
+    check(all(r["nonfinite"] == 0.0 and np.isfinite(r["loss_selected_F"]) for r in steps),
+          "sample loss: a step skipped its update or had a non-finite loss_selected_F")
+    check(np.isfinite(vals[0]["loss_selected_F"]), "sample loss: non-finite validation")
+    check(os.path.exists(os.path.join("logs", exp, "checkpoints",
+                                      f"deepFNet_{SAMPLE_STEPS}_checkpoint.pth.tar")),
+          "sample loss: no checkpoint")
+
+    phase_step_times(ph, SAMPLE, "sample_train", 5)
+    return counts
+
+
+def phase_variants(ph: Phases) -> dict:
+    """The port's train_good with each other ported variant at full width,
+    VARIANT_STEPS steps; exact launches (eigh9 once a layer, K3 and its
+    backward depth - 1 times in DeepFNet and once in the F-loss; the learned
+    offsets' point gradient on the depth - 2 layers whose points moved)."""
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch import cli
+    from deepfepe_tpu_torch.ops.epi_residual import epi_residual_bwd
+    from deepfepe_tpu_torch.train.config import config_from_dict
+
+    total = dict.fromkeys(kernel_counters(), 0)
+    for flag in VARIANT_FLAGS:
+        raw = {**BASELINE, "model": {**BASELINE["model"], flag: True},
+               "training": {**TRAIN_F["training"], "train_iter": VARIANT_STEPS,
+                            "val_interval": 0, "save_interval": 0, "tensorboard": False}}
+        cfg = config_from_dict(raw)
+        exp = f"smoke_{flag}"
+        shutil.rmtree(os.path.join(REPO, "logs", exp), ignore_errors=True)
+        reset_counts()
+        last = cli.train_good(cfg, exp, device="cuda")
+        torch.cuda.synchronize()
+        counts, points = read_counts(), epi_residual_bwd.point_launches
+        d, n = cfg.model.depth, VARIANT_STEPS
+        expected = {k: 0 for k in counts}
+        expected.update(eigh9=d * n, epi_residual=d * n, epi_residual_bwd=d * n)
+        want_points = (d - 2) * n if flag == "if_learn_offsets" else 0
+        ph.emit("variants", variant=flag, steps=n, last=last, launches=counts,
+                expected_launches=expected, k3_point_gradient_launches=points,
+                expected_point_gradient_launches=want_points,
+                ms_per_step_fit=last["wall_s"] * 1e3 / n,
+                timed="host clock over fit incl. the first step's warm-up")
+        check(counts == expected and points == want_points,
+              f"{flag}: launches {counts} ({points} point gradients), expected {expected} "
+              f"({want_points})")
+        check(last["n_iter"] == n and all(np.isfinite(v) for v in last.values())
+              and all(r["nonfinite"] == 0.0 for r in train_lines(exp)),
+              f"{flag}: {last}")
+        for k, v in counts.items():
+            total[k] += v
+    return total
+
+
+def sample_step_report(cfg, dev: str, state: dict, batch: dict, float64: bool = False,
+                       idx: list | None = None, replay: "SolverBranches | None" = None) -> dict:
+    """One sample-loss train step from `state` (`train_step_grads`),
+    recording each layer's drawn subsets (replaying `idx` when given) and
+    the solver's kink choices (replaying `replay`'s)."""
+    import importlib
+
+    sample_fit = importlib.import_module("deepfepe_tpu_torch.models.sample_fit")
+    drawn, saved = [], sample_fit.sample_loss_fits
+
+    def fits(*a, **k):
+        if idx is not None:
+            k["idx"] = idx[len(drawn)]
+        out = saved(*a, **k)
+        drawn.append(out["sample_idx"].cpu())
+        return out
+
+    sample_fit.sample_loss_fits = fits
+    branches = SolverBranches()
+    try:
+        with branches.patched(replay):
+            loss, grads = train_step_grads(cfg, dev, state, batch, float64)
+    finally:
+        sample_fit.sample_loss_fits = saved
+    return {"loss": loss, "grads": grads, "idx": drawn, "branches": branches}
+
+
+def phase_check_sample(ph: Phases) -> None:
+    """One sample-loss train step (float32, plain MLP route, B = 2, N = 200,
+    depth 5) on the card against the CPU: the card draws the subsets, the
+    CPU replays them; each run is held against float64 on the CPU on the
+    same draws and on that run's own side of every |s|, clamp and
+    leaky-ReLU kink (`SolverBranches`, as check_joint). Bars as check_joint:
+    the card's distance from float64 at most twice the CPU's plus a floor
+    (loss 1e-4; gradients, the worst parameter in the Frobenius norm, 1e-3),
+    and at most CHECK_JOINT_CAP; gradients zero in exact arithmetic below
+    1e-6."""
+    import torch
+
+    from deepfepe_tpu_torch.data import SyntheticPairs
+    from deepfepe_tpu_torch.loader import model_loader
+    from deepfepe_tpu_torch.train.config import config_from_dict
+
+    batch = SyntheticPairs(image_size=(376, 1241), good_num=200, seed=7).batch(2)
+    cfg = config_from_dict({**SAMPLE, "data": {**SAMPLE["data"], "batch_size": 2,
+                                               "good_num": 200},
+                            "model": {**SAMPLE["model"], "mlp_dtype": "float32"}})
+    state = model_loader(cfg, torch.device("cpu"), torch.Generator().manual_seed(3)).state_dict()
+    card = sample_step_report(cfg, "cuda", state, batch)
+    cpu = sample_step_report(cfg, "cpu", state, batch, idx=card["idx"])
+    f64_card = sample_step_report(cfg, "cpu", state, batch, True, card["idx"], card["branches"])
+    f64_cpu = sample_step_report(cfg, "cpu", state, batch, True, card["idx"], cpu["branches"])
+    f64_own = sample_step_report(cfg, "cpu", state, batch, True, card["idx"])
+    frob = lambda a, b: float((a - b).norm() / b.norm().clamp_min(1e-30))  # noqa: E731
+    live = [k for k, g in f64_card["grads"].items() if g.abs().max().item() > 1e-6]
+    card_d = {k: frob(card["grads"][k], f64_card["grads"][k]) for k in live}
+    cpu_d = {k: frob(cpu["grads"][k], f64_cpu["grads"][k]) for k in live}
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    step = {"loss": against_cpu(rel(card["loss"], f64_card["loss"]),
+                                rel(cpu["loss"], f64_cpu["loss"]), 1e-4),
+            "grads": against_cpu(max(card_d.values()), max(cpu_d.values()), 1e-3)}
+    zero = max(max(card["grads"][k].abs().max().item(), cpu["grads"][k].abs().max().item())
+               for k in card["grads"] if k not in live)
+    kinks = {"card_flips": card["branches"].flips(f64_own["branches"]),
+             "cpu_flips": cpu["branches"].flips(f64_own["branches"]),
+             "worst_grad_f64_own_vs_card_branches": max(
+                 frob(f64_own["grads"][k], f64_card["grads"][k]) for k in live)}
+    ok = all(v["ok"] for v in step.values()) and zero <= 1e-6
+    ph.emit("check", sample_step={"step": step, "worst_param": max(card_d, key=card_d.get),
+                                  "zero_grads_max": zero, "kinks": kinks,
+                                  "subsets_drawn": [list(i.shape) for i in card["idx"]],
+                                  "within_bars": ok})
+    check(ok, f"sample-loss train step on the card disagrees with the CPU: {step}, {zero}")
+
+
 def plant(fault: str) -> None:
     """Install a deliberate fault for `--plant`. Wiring faults wrap the
     autograd Function's backward; kernel faults build a copy of csrc/mlp.cu
@@ -2041,6 +2480,9 @@ def plant(fault: str) -> None:
     from deepfepe_tpu_torch.utils import build
 
     if fault == "none":
+        return
+    if fault in EPI_FAULTS:
+        plant_epi(fault)
         return
     if fault in ("dx_zero", "dgamma_dbeta_swapped"):
         backward = mlp.FusedPointNetMLP.backward
@@ -2078,14 +2520,57 @@ def plant(fault: str) -> None:
     mlp._lib = lib
 
 
+def plant_epi(fault: str) -> None:
+    """K3's backward built from a copy of csrc/epi_residual.cu with one line
+    changed, loaded in place of the library: 'epi_unsafe_norm_grad' takes
+    the norm's gradient as x / |x| without the zero-norm guard (the plain
+    sqrt's NaN at a zero-row F); 'epi_tie_blocked' stops the gradient at
+    d == clamp_at, where torch.clamp passes it."""
+    import ctypes
+    import tempfile
+
+    from deepfepe_tpu_torch.ops import epi_residual as epi
+    from deepfepe_tpu_torch.utils import build
+
+    line, changed = {
+        "epi_unsafe_norm_grad": (
+            "const float u1 = t.n1 > 0.f ? (-gd * as * t.r1 * t.r1) / t.n1 : 0.f;",
+            "const float u1 = (-gd * as * t.r1 * t.r1) / t.n1;"),
+        "epi_tie_blocked": ("const float gd = t.d <= clamp_at ? g : 0.f;",
+                            "const float gd = t.d < clamp_at ? g : 0.f;"),
+    }[fault]
+    src = (build.CSRC / epi.SOURCE).read_text()
+    check(src.count(line) == 1, f"--plant {fault}: the line to change is not in {epi.SOURCE}")
+    tmp = tempfile.mkdtemp(prefix="epi_fault_")
+    cu, so = os.path.join(tmp, "epi_residual.cu"), os.path.join(tmp, "epi_residual.so")
+    with open(cu, "w") as f:
+        f.write(src.replace(line, changed))
+    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", so, cu], check=True,
+                   capture_output=True)
+    epi._lib = None
+    real = build.load
+    build.load = lambda source: ctypes.CDLL(so)  # noqa: E731
+    try:
+        epi._load()
+    finally:
+        build.load = real
+
+
 def run_planted(ph: Phases, fault: str) -> int:
-    """The MLP checks with `fault` planted: every check runs and reports;
-    exits 1 when any of them caught the fault, 0 when none did."""
+    """The checks of the planted kernel with `fault` planted (the MLP checks
+    for K2/K2b faults, the K3 checks for K3's; both for 'none'): every check
+    runs and reports; exits 1 when any of them caught the fault, 0 when none
+    did."""
     plant(fault)
     caught = []
-    for name, fn in (("kernels_c_in_5", lambda: mlp_kernel_errors(ph, 5)),
-                     ("kernels_c_in_8", lambda: mlp_kernel_errors(ph, 8)),
-                     ("check_train", lambda: phase_check_train(ph))):
+    mlp_checks = (("kernels_c_in_5", lambda: mlp_kernel_errors(ph, 5)),
+                  ("kernels_c_in_8", lambda: mlp_kernel_errors(ph, 8)),
+                  ("check_train", lambda: phase_check_train(ph)))
+    epi_checks = (("kernels_epi", lambda: phase_epi_kernel(ph)),
+                  ("check_sample", lambda: phase_check_sample(ph)))
+    chosen = (mlp_checks + epi_checks if fault == "none" else
+              epi_checks if fault in EPI_FAULTS else mlp_checks)
+    for name, fn in chosen:
         try:
             fn()
         except CheckFailed as e:
@@ -2102,9 +2587,9 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--plant", choices=FAULTS, help="plant this fault and run only the MLP "
-                    "checks, to show that they catch it (exit 1 when caught); 'none' gives "
-                    "the sound readings")
+    ap.add_argument("--plant", choices=FAULTS, help="plant this fault and run only the checks "
+                    "of its kernel (K2/K2b or K3), to show that they catch it (exit 1 when "
+                    "caught); 'none' gives the sound readings")
     args = ap.parse_args(argv)
     sys.path.insert(0, REPO)
     from deepfepe_tpu_torch.train.config import config_from_dict
@@ -2134,32 +2619,39 @@ def main(argv=None) -> int:
         mlp_rows = phase_mlp_kernels(ph)
         front_rows = [phase_conv_kernel(ph), phase_matcher_kernel(ph)]
         bwd_row = phase_conv_bwd_kernel(ph)
+        epi_rows = phase_epi_kernel(ph)
         cfg = config_from_dict(BASELINE)
         eval_counts = phase_eval_good(ph, cfg)
         phase_breakdown(ph, cfg)
         train_counts = phase_train_good(ph)
+        sample_counts = phase_sample_train(ph)
+        variant_counts = phase_variants(ph)
         vf_counts = phase_val_feature(ph)
         phase_frontend_breakdown(ph)
         joint_counts = phase_joint_train(ph)
         phase_joint_step_times(ph)
         phase_check(ph, cfg)
         phase_check_train(ph)
+        phase_check_sample(ph)
         phase_check_frontend(ph)
         phase_check_joint(ph)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
-    rows = [row, *mlp_rows, *front_rows, bwd_row]
+    rows = [row, *mlp_rows, *front_rows, bwd_row, *epi_rows]
     # Each kernel's launches on the path that carries it: train_good for
     # eigh9 and the MLP pair, val_feature (a) + (b) for K5 and K4,
-    # joint_train (stages 1 + 2) for K5b.
+    # joint_train (stages 1 + 2) for K5b, the sample-loss train_good for K3.
     for r in rows:
         path, counts = (("val_feature", vf_counts) if r in front_rows
                         else ("joint_train", joint_counts) if r is bwd_row
+                        else ("sample_train", sample_counts) if r in epi_rows
                         else ("train_good", train_counts))
         r["launches"] = counts[r["name"]]
         r["launches_path"] = path
         r["launches_eval_good"] = eval_counts[r["name"]]
+        r["launches_train_good"] = train_counts[r["name"]]
+        r["launches_variants"] = variant_counts[r["name"]]
         r["launches_joint_train"] = joint_counts[r["name"]]
         if r["launches"] <= 0:
             print(f"chip_smoke: FAILED: {r['name']} never launched on {path}",

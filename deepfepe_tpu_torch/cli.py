@@ -15,7 +15,10 @@ stream, and writes logs/<exper_name>/{config.yml, metrics.jsonl, runs/,
 checkpoints/deepFNet_<n>_checkpoint.pth.tar}; it prints the last step's
 scalar metrics as one JSON line. With `model.if_SP` it trains SuperPoint
 and the solver jointly on image pairs (`train_joint`) and also writes
-checkpoints/superPointNet_<n>_checkpoint.pth.tar. `eval_good` runs the solver on the
+checkpoints/superPointNet_<n>_checkpoint.pth.tar. Both `train_good` and
+`eval_good` run the config's DeepFNet variant (`model.if_sample_loss`,
+`if_learn_offsets`, `if_tri_depth`, `if_goodCorresArch`, `if_img_w`).
+`eval_good` runs the solver on the
 config's test stream, scores each pair against the ground truth and the
 8-point RANSAC baseline, and prints the JAX package's summary keys as one
 JSON line. `val_feature` runs the SuperPoint frontend on synthetic image

@@ -85,12 +85,12 @@ def _prep(pts1, pts2, F, if_homo):
 
 def compute_epi_residual(pts1_h, pts2_h, F, clamp_at: float = 0.5, eps: float = 1e-6):
     """|x2ᵀFx1| · (1/(‖(Fx1)_xy‖+eps) + 1/(‖(Fᵀx2)_xy‖+eps)), clamped at
-    `clamp_at`; homogeneous inputs [..., N, 3]."""
-    s, Fx1, Ftx2 = _prep(pts1_h, pts2_h, F, if_homo=True)
-    n1 = safe_norm(Fx1[..., :2], dim=-1)
-    n2 = safe_norm(Ftx2[..., :2], dim=-1)
-    d = torch.abs(s) * (1.0 / (n1 + eps) + 1.0 / (n2 + eps))
-    return torch.clamp(d, max=clamp_at)
+    `clamp_at`; homogeneous inputs [..., N, 3]. CPU tensors take the plain
+    version; CUDA float32 tensors the K3 kernel and its backward
+    (`ops.epi_residual`); other CUDA tensors raise."""
+    from ..ops.epi_residual import epi_residual  # ops imports this module
+
+    return epi_residual(pts1_h, pts2_h, F, clamp_at, eps)
 
 
 def epi_distance(F, pts1, pts2, if_homo: bool = False, eps: float = 1e-10):

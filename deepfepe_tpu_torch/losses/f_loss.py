@@ -3,7 +3,9 @@
 Counterpart of `deepfepe_tpu/losses/f_loss.py`: per layer, the robust
 epipolar residual of the virtual gt-consistent points (moved into the
 solver's normalized frame) against that layer's F; plus the per-layer
-essential matrices E = Kᵀ T2ᵀ F_l T1 K and the weighted epi-res auxiliary.
+essential matrices E = Kᵀ T2ᵀ F_l T1 K, the weighted epi-res auxiliary
+and, for the sample-loss variant, the residual of every sampled
+hypothesis at clamp 0.02.
 """
 
 from __future__ import annotations
@@ -17,7 +19,9 @@ from ..geometry.epipolar import compute_epi_residual
 
 def f_loss(outs: Dict[str, Any], pts1_virt, pts2_virt, Ks, clamp_at: float) -> Dict[str, Any]:
     """Returns loss_F, loss_layers, losses_layers, loss_min_layers,
-    loss_min_batch, E_ests_layers, E_ests, F_ests and loss_epi_res."""
+    loss_min_batch, E_ests_layers, E_ests, F_ests and loss_epi_res; with
+    the sample loss's outputs also loss_selected_layers [L] and
+    loss_selected_F."""
     T1, T2 = outs["T1"], outs["T2"]
     out_layers = outs["out_layers"]  # [L, B, 3, 3]
     pts1_eval = pts1_virt @ T1.transpose(-1, -2)
@@ -39,7 +43,7 @@ def f_loss(outs: Dict[str, Any], pts1_virt, pts2_virt, Ks, clamp_at: float) -> D
             dim=(-1, -2)).mean()
     else:
         loss_epi_res = torch.zeros((), dtype=out_layers.dtype, device=out_layers.device)
-    return {
+    out = {
         "loss_F": loss_layers.mean(),
         "loss_layers": loss_layers,
         "losses_layers": losses,
@@ -50,6 +54,15 @@ def f_loss(outs: Dict[str, Any], pts1_virt, pts2_virt, Ks, clamp_at: float) -> D
         "F_ests": F_ests,
         "loss_epi_res": loss_epi_res,
     }
+    if "out_sample_selected_layers" in outs:
+        # The sample loss's auxiliary: the mean clamped residual of every
+        # sampled hypothesis on the virtual points, [L, B, S, V] (K3's
+        # largest call on the card).
+        sel = compute_epi_residual(pts1_eval[None, :, None], pts2_eval[None, :, None],
+                                   outs["out_sample_selected_layers"], clamp_at=0.02)
+        out["loss_selected_layers"] = sel.mean(dim=(-1, -2, -3))
+        out["loss_selected_F"] = out["loss_selected_layers"].mean()
+    return out
 
 
 def unique_topk(xs: torch.Tensor, topk: int, unique_nums: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""Solver networks: the weight MLP and DeepFNet."""
+"""Solver networks: the weight MLPs (ErrorEstimator, GoodCorresNet) and DeepFNet."""
 
 from .deepfnet import DeepFNet
-from .error_estimator import ErrorEstimator, InstanceNorm1d
+from .error_estimator import ErrorEstimator, GoodCorresNet, InstanceNorm1d
 
-__all__ = ["DeepFNet", "ErrorEstimator", "InstanceNorm1d"]
+__all__ = ["DeepFNet", "ErrorEstimator", "GoodCorresNet", "InstanceNorm1d"]

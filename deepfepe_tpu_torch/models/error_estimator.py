@@ -109,3 +109,68 @@ class ErrorEstimator(nn.Module):
         lin = self.fw[-1]
         x = x @ lin.weight.to(dt).T + lin.bias.to(dt)
         return x.to(acc)
+
+
+class GoodCorresNet(nn.Module):
+    """The legacy global-context weight net (`if_goodCorresArch`), the
+    counterpart of the JAX package's `GoodCorresNet`: Linear + InstanceNorm
+    + ReLU blocks, a stem (64, 128, 128) and a local MLP (512, 2048), a max
+    over the points, the per-point concatenation of every block's output
+    and the global feature (4,928 channels), a segmentation head (256, 256,
+    128) and the logits. It runs in its input's type (float32 on the path).
+
+    The reference has no parameter layout for it (its blocks came from an
+    external package), so the submodules keep the JAX package's names:
+    `stem<i>_conv`, `stem<i>_in`, `local<i>_...`, `seg<i>_...`, `logits`;
+    Linear weights are [out, in] ([out, in, 1] in a checkpoint)."""
+
+    STEM, LOCAL, SEG = (64, 128, 128), (512, 2048), (256, 256, 128)
+
+    def __init__(self, in_features: int, output_size: int = 1):
+        super().__init__()
+        self.output_size = output_size
+        self.blocks = []
+        c, skip = in_features, 0
+        for group, widths in (("stem", self.STEM), ("local", self.LOCAL)):
+            for i, f in enumerate(widths):
+                self._block(f"{group}{i}", c, f)
+                c, skip = f, skip + f
+        c = skip + c  # every block's output and the global feature
+        for i, f in enumerate(self.SEG):
+            self._block(f"seg{i}", c, f)
+            c = f
+        self.logits = nn.Linear(c, output_size)
+        self._register_load_state_dict_pre_hook(_drop_conv_kernel_axis)
+
+    def _block(self, name: str, c_in: int, c_out: int) -> None:
+        setattr(self, f"{name}_conv", nn.Linear(c_in, c_out))
+        setattr(self, f"{name}_in", InstanceNorm1d(c_out))
+        self.blocks.append(name)
+
+    def _run(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(getattr(self, f"{name}_in")(getattr(self, f"{name}_conv")(x)))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """The JAX package's initializers (LeCun-normal kernels, zero
+        biases, unit norm scales)."""
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
+                m.bias.zero_()
+            elif isinstance(m, InstanceNorm1d):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        skips = []
+        for name in self.blocks[:len(self.STEM) + len(self.LOCAL)]:
+            x = self._run(name, x)
+            skips.append(x)
+        g = torch.amax(x, dim=-2, keepdim=True)  # the global feature
+        x = torch.cat(skips + [g.expand(x.shape)], dim=-1)
+        for name in self.blocks[len(self.STEM) + len(self.LOCAL):]:
+            x = self._run(name, x)
+        return self.logits(x)

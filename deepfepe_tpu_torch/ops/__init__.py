@@ -1,7 +1,8 @@
 """Core numeric ops: eigensolvers (the eigh9 kernel in `ops.eigh9` and its
 plain Jacobi version), the weighted 8-point solve and the NaN scrub. The
 other kernels' modules are imported by name: `ops.mlp` (K2, K2b),
-`ops.conv` (K5) and `ops.matcher` (K4)."""
+`ops.conv` (K5, K5b), `ops.matcher` (K4) and `ops.epi_residual` (K3 and
+its backward, behind `geometry.compute_epi_residual`)."""
 
 import torch as _torch
 

@@ -59,10 +59,12 @@ def smallest_eigvec(A: torch.Tensor, gap_eps: float = DEFAULT_GAP_EPS):
     return w[..., 0], V[..., :, 0]
 
 
-def smallest_singular_vec_gram(X: torch.Tensor, gap_eps: float = DEFAULT_GAP_EPS):
+def smallest_singular_vec_gram(X: torch.Tensor, gap_eps: float = DEFAULT_GAP_EPS,
+                               accumulate: torch.dtype = torch.float32):
     """Smallest right singular vector of [..., N, k] via the k x k Gram
-    matrix XᵀX (a plain matmul, accumulated in at least float32)."""
-    acc = torch.promote_types(X.dtype, torch.float32)
+    matrix XᵀX (a plain matmul, summed in at least `accumulate` and
+    rounded back to X's type)."""
+    acc = torch.promote_types(X.dtype, accumulate)
     Xa = X.to(acc)
     G = (Xa.transpose(-1, -2) @ Xa).to(X.dtype)
     _, v = smallest_eigvec(G, gap_eps)

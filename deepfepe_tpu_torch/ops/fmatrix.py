@@ -46,7 +46,12 @@ def weighted_eight_point(pts1_h, pts2_h, weights, normalize_svd: bool = True,
     if normalize_svd:
         p = p / (torch.linalg.vector_norm(p, dim=-1, keepdim=True) + eps)
     X = p * weights[..., None]
-    f = smallest_singular_vec_gram(X, gap_eps)
+    # The Gram matrix is summed in float64: a float32 matmul on the CPU sums
+    # less exactly than the JAX package's float32 einsum, and near-degenerate
+    # weighted fits (untrained weights, sampled subsets with repeated points)
+    # took the float32 gradients twice as far from float64 as the JAX
+    # package's (tests/test_torch_sample_loss.py).
+    f = smallest_singular_vec_gram(X, gap_eps, accumulate=torch.float64)
     F2 = rank2_projection(f.reshape(f.shape[:-1] + (3, 3)), gap_eps)
     residual = (X @ f[..., :, None])[..., 0]
     if sign_canonical:

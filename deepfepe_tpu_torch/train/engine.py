@@ -3,6 +3,7 @@
 Counterpart of `deepfepe_tpu/train/engine.py`:
 
   F-mode:  loss = loss_F (mean robust epi residual on virtual points)
+           (+ loss_selected_F * balance_select_F with the sample loss)
   qt-mode: loss = loss_q * balance_q + loss_t * balance_t (replaces the
            F-loss, per Train_model_pipeline.py:575-589)
 
@@ -10,7 +11,7 @@ The optimizer is `torch.optim.Adam` with optax's defaults and the
 reference's staircase decay. A non-finite loss or gradient skips the
 whole update (parameters and Adam state, step count included, keep their
 values), as does the skip-optimizer on an already solved batch. The
-sample loss is not ported yet.
+sample loss draws its subsets from the caller's generator.
 """
 
 from __future__ import annotations
@@ -48,15 +49,19 @@ def update_count(opt: torch.optim.Optimizer) -> int:
 
 
 def compute_losses(net, batch: Dict[str, torch.Tensor], cfg: Config, q_clamp: float,
-                   t_clamp: float) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Forward and loss composition; returns (scalar loss, metrics)."""
+                   t_clamp: float, generator: torch.Generator | None = None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Forward and loss composition; returns (scalar loss, metrics).
+    `generator` draws the sample loss's subsets (DeepFNet's seed-0
+    generator when None, as the JAX package's PRNGKey(0))."""
     mcfg = cfg.model
-    if mcfg.if_sample_loss:
-        raise NotImplementedError("the sample loss is not ported yet")
-    outs = net(batch)
+    outs = net(batch, generator)
     ld = f_loss(outs, batch["pts1_virt"], batch["pts2_virt"], batch["Ks"], mcfg.clamp_at)
     metrics = {k: ld[k] for k in ("loss_F", "loss_layers", "loss_min_batch", "loss_epi_res")}
     loss = ld["loss_F"]
+    if "loss_selected_F" in ld:
+        loss = loss + ld["loss_selected_F"] * mcfg.balance_select_F
+        metrics["loss_selected_F"] = ld["loss_selected_F"]
     if mcfg.if_qt_loss:
         R_gt = torch.linalg.inv(batch["delta_Rtijs_4_4"])[..., :3, :3]
         rd = rt_loss(ld["E_ests_layers"], batch["q_cam"], batch["t_cam"], R_gt,
@@ -80,12 +85,14 @@ def compute_losses(net, batch: Dict[str, torch.Tensor], cfg: Config, q_clamp: fl
 
 
 def train_step(net, opt: torch.optim.Optimizer, batch: Dict[str, torch.Tensor], cfg: Config,
-               q_clamp: float, t_clamp: float) -> Dict[str, torch.Tensor]:
+               q_clamp: float, t_clamp: float, generator: torch.Generator | None = None
+               ) -> Dict[str, torch.Tensor]:
     """One update of `net` and `opt` in place; returns detached metrics with
-    'nonfinite' (and 'skipped' when the skip-optimizer is on)."""
+    'nonfinite' (and 'skipped' when the skip-optimizer is on). `generator`
+    draws the step's sample-loss subsets."""
     net.train()
     opt.zero_grad(set_to_none=True)
-    loss, metrics = compute_losses(net, batch, cfg, q_clamp, t_clamp)
+    loss, metrics = compute_losses(net, batch, cfg, q_clamp, t_clamp, generator)
     loss.backward()
     params = [p for g in opt.param_groups for p in g["params"]]
     for p in params:
@@ -113,7 +120,8 @@ def train_step(net, opt: torch.optim.Optimizer, batch: Dict[str, torch.Tensor], 
 
 @torch.no_grad()
 def eval_step(net, batch: Dict[str, torch.Tensor], cfg: Config) -> Dict[str, torch.Tensor]:
-    """Forward and losses with the final clamps of the curriculum."""
+    """Forward and losses with the final clamps of the curriculum (the sample
+    loss's subsets drawn from DeepFNet's seed-0 generator)."""
     t = cfg.training
     return compute_losses(net, batch, cfg, float(t.clamp_q_params[-1]),
                           float(t.clamp_t_params[-1]))[1]

@@ -131,13 +131,22 @@ class MetricLogger:
 
 class Trainer:
     """One-device trainer for the DeepFNet solver; `net` already lies on
-    the device its batches are sent to."""
+    the device its batches are sent to.
+
+    The sample loss's subsets are drawn, step after step, from one
+    generator on that device seeded SAMPLE_SEED (the JAX Trainer's
+    'sample' stream seed, its rng_seed 0 + 1); validations draw from
+    DeepFNet's seed-0 generator, as the JAX package's use PRNGKey(0). A
+    torch.Generator and jax.random give different draws from one seed."""
+
+    SAMPLE_SEED = 1
 
     def __init__(self, net: torch.nn.Module, cfg: Config, save_dir: Optional[str] = None):
         self.net = net
         self.cfg = cfg
         self.save_dir = save_dir
         self.device = next(net.parameters()).device
+        self.sample_generator = torch.Generator(device=self.device).manual_seed(self.SAMPLE_SEED)
         self.opt = make_optimizer(net, cfg)
         self.n_iter = 0
         self.n_iter_val = 0
@@ -171,7 +180,8 @@ class Trainer:
                 stop_profile(prof, self.device, t.profile_dir)
                 prof, want_profile = None, False  # one capture per fit
             tb = batch_to_device(batch, self.device)
-            metrics = train_step(self.net, self.opt, tb, cfg, *qt_clamps(t, n_iter))
+            metrics = train_step(self.net, self.opt, tb, cfg, *qt_clamps(t, n_iter),
+                                 self.sample_generator)
             self.n_iter += 1
             self.logger.log(n_iter, "train", metrics)
             last = metrics

@@ -40,13 +40,34 @@ def error_estimator_state_from_flax(tree: Mapping, prefix: str) -> Dict[str, tor
             for k, v in sd.items()}
 
 
+def good_corres_state_from_flax(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """A JAX GoodCorresNet's {'<block>_conv': {kernel [in, out], bias},
+    '<block>_in': {scale, bias}, 'logits': {...}} -> '<prefix>.<name>.
+    {weight, bias}': the reference has no layout for this net, so the JAX
+    package's names stay."""
+    sd = {}
+    for name, p in tree.items():
+        if "kernel" in p:
+            sd[f"{prefix}.{name}.weight"] = np.asarray(p["kernel"]).T
+        else:
+            sd[f"{prefix}.{name}.weight"] = np.asarray(p["scale"])
+        sd[f"{prefix}.{name}.bias"] = np.asarray(p["bias"])
+    return {k: torch.tensor(np.ascontiguousarray(v), dtype=torch.float32)
+            for k, v in sd.items()}
+
+
 def deepfnet_state_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX DeepFNet's params ({'params': {...}} or the inner dict) ->
-    this package's DeepFNet state_dict."""
+    this package's DeepFNet state_dict: the weight nets (ErrorEstimators
+    or GoodCorresNets) and, with learned offsets, `update_offsets`."""
     params = params.get("params", params)
     sd = {}
-    for name in ("input_weights", "update_weights"):
-        sd.update(error_estimator_state_from_flax(params[name], name))
+    for name in ("input_weights", "update_weights", "update_offsets"):
+        if name not in params:
+            continue
+        tree = params[name]
+        sd.update(error_estimator_state_from_flax(tree, name) if "Dense_0" in tree
+                  else good_corres_state_from_flax(tree, name))
     return sd
 
 

@@ -1,5 +1,6 @@
-"""The frontend kernels on the card: K5 and K5b (`csrc/conv3x3.cu`) and
-K4 (`csrc/matcher.cu`) against their plain versions.
+"""Kernels on the card against their plain versions: K5 and K5b
+(`csrc/conv3x3.cu`), K4 (`csrc/matcher.cu`) and K3 with its backward
+(`csrc/epi_residual.cu`).
 
 This file imports torch and the port only, so it runs on a machine with
 the card and without JAX:
@@ -21,6 +22,10 @@ numpy seeds.
 - K4 on sign-vector descriptors (every similarity exact in any summation
   order, ties frequent): nn12, nn21, dist12 and mutual equal the plain
   version's exactly, ties to the lowest index.
+- K3 at DeepFNet's, the F-loss's and a ragged sample-loss shape: the
+  residual at tests/test_jacobi.py's bar (rtol 1e-4, atol 1e-5), each
+  gradient within 1e-5 of its largest entry, the zero-row F's exactly 0;
+  through `compute_epi_residual` with exact launch counts.
 """
 
 import importlib
@@ -30,6 +35,7 @@ import pytest
 import torch
 
 conv = importlib.import_module("deepfepe_tpu_torch.ops.conv")
+epi = importlib.import_module("deepfepe_tpu_torch.ops.epi_residual")
 matcher = importlib.import_module("deepfepe_tpu_torch.ops.matcher")
 
 CONV_SHAPES = [(2, 13, 17, 1, 64), (1, 16, 32, 64, 64), (3, 9, 21, 5, 8), (2, 40, 150, 64, 128)]
@@ -129,3 +135,63 @@ def test_k4_matches_plain_on_the_card(cuda, B, K):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _epi_case(P, M, N, cuda, seed):
+    """Points near the epipolar lines of a sideways translation, matrices
+    that translation plus noise: some residuals clamped at 0.02, most not."""
+    rng = np.random.RandomState(seed)
+    x1 = np.concatenate([rng.uniform(-1, 1, (P, N, 2)), np.ones((P, N, 1))], -1)
+    x2 = x1.copy()
+    x2[..., 0] = rng.uniform(-1, 1, (P, N))
+    x2[..., 1] += 0.01 * rng.randn(P, N)
+    F = np.array([0.0, 0, 0, 0, 0, -1, 0, 1, 0]) + 0.002 * rng.randn(P, M, 9)
+    F[0, 0, :6] = 0.0  # a zero-row F: (F x1)_xy = 0
+    return [torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (x1, x2, F)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,M,N", [(3, 1, 1000), (2, 5, 100), (2, 130, 37)])
+def test_k3_matches_plain_on_the_card(cuda, P, M, N):
+    """K3 (csrc/epi_residual.cu) and its backward kernels against the plain
+    versions on the card: the residual at tests/test_jacobi.py's bar for
+    the Pallas kernel (rtol 1e-4, atol 1e-5), each gradient within 1e-5 of
+    its largest entry (float32 sums of up to 1,000 terms in another order),
+    the zero-row F's gradient exactly 0."""
+    x1, x2, F9 = _epi_case(P, M, N, cuda, seed=M)
+    g = torch.randn(P, M, N, device=cuda, generator=torch.Generator(device=cuda).manual_seed(0))
+    d = epi.epi_residual_fwd(x1, x2, F9, 0.02, 1e-6)
+    got = epi.epi_residual_bwd(x1, x2, F9, g, 0.02, 1e-6)
+    want = epi.epi_residual_bwd_ref(x1, x2, F9, g, 0.02, 1e-6)
+    ref = epi.epi_residual_ref(x1[:, None], x2[:, None], F9.view(P, M, 3, 3), 0.02)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(d, ref, rtol=1e-4, atol=1e-5)
+    assert 0.05 < (ref < 0.02).float().mean().item() < 0.95
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+    assert got[0][0, 0].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+def test_k3_through_compute_epi_residual_on_the_card(cuda):
+    """The F-loss's broadcast through the route: one forward and one
+    backward launch, gradients as the plain version's; a float64 CUDA
+    tensor raises, never falls back."""
+    from deepfepe_tpu_torch.geometry.epipolar import compute_epi_residual
+
+    x1, x2, F9 = _epi_case(4, 3, 50, cuda, seed=7)
+    pts1, pts2 = x1[None], x2[None]                      # [1, B, V, 3]
+    F = F9.view(4, 3, 3, 3).transpose(0, 1).contiguous().requires_grad_()  # [L, B, 3, 3]
+    counts = epi.epi_residual.launches, epi.epi_residual_bwd.launches
+    out = compute_epi_residual(pts1, pts2, F, clamp_at=0.02)
+    (gF,) = torch.autograd.grad(out.mean(), F)
+    ref = epi.epi_residual_ref(pts1, pts2, F, 0.02)
+    (gF_ref,) = torch.autograd.grad(ref.mean(), F)
+    torch.cuda.synchronize()
+    assert (epi.epi_residual.launches, epi.epi_residual_bwd.launches) == \
+        (counts[0] + 1, counts[1] + 1)
+    assert out.shape == (3, 4, 50)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    assert (gF - gF_ref).abs().max().item() <= 1e-5 * gF_ref.abs().max().item()
+    with pytest.raises(ValueError, match="float32"):
+        compute_epi_residual(pts1.double(), pts2.double(), F.detach().double())

@@ -127,8 +127,7 @@ def test_export_deepf_state_loads_strict_with_same_logits(batch):
         assert torch.equal(a[k], b[k]), k
 
 
-@pytest.mark.parametrize("flag", ["if_learn_offsets", "if_img_w", "if_des", "if_tri_depth",
-                                  "if_sample_loss", "if_goodCorresArch"])
+@pytest.mark.parametrize("flag", ["if_des"])
 def test_unported_variants_raise(flag):
     with pytest.raises(NotImplementedError, match=flag):
         DeepFNet(**{flag: True})

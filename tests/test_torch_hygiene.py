@@ -42,7 +42,7 @@ def test_importing_the_port_loads_no_jax():
     assert "deepfepe_tpu_torch.cli" in mods and "deepfepe_tpu_torch.ops.eigh9" in mods
     for m in ("ops.conv", "ops.matcher", "frontend.pipeline", "frontend.sp_fused",
               "data.synthetic_images", "eval.frontend_eval", "train.joint", "loader",
-              "utils.weights"):
+              "utils.weights", "ops.epi_residual", "models.sample_fit"):
         assert f"deepfepe_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
