@@ -77,20 +77,33 @@ and for the solver-variant slice:
            counts (the learned offsets launch K3's point gradient);
   check    one sample-loss train step on the card against the CPU, which
            replays the card's drawn subsets, each against float64 on its
-           own solver branches.
+           own solver branches;
+and for the conv-formulation slice:
+  kernels  X1-X4 (csrc/conv_formulations.cu) at inc.conv1, x [8, 376,
+           1240, 64] -> 64 in bf16 with non-trivial s and t: every kind of
+           the port's tools/bench_conv_formulations.py against its plain
+           version and float64 (the top rows of the first image and the
+           bottom rows of the last), timed beside the plain version, cuDNN's
+           fused bf16 conv + bias + ReLU and the bound (s2d's own 2x floor
+           beside it);
+  conv_formulations  that tool's entry point on all nine kinds at the same
+           size, with exact launch counts around it (2 + 3 x 10 calls a
+           kind), no error line, and each kind's max_err against its cuDNN
+           yardstick within 2^-6 of max |y|.
 
 The line before the card's name line is the kernels' JSON summary (eigh9,
-K2, K2b, K5, K4, K5b, K3 and its backward, each with its launches on the
-path that carries it); the last line is {"ok": true, "device": {...}}. Any
-failed check exits 1.
+K2, K2b, K5, K4, K5b, K3 and its backward, X1-X4, each with its launches
+on the path that carries it); the last line is {"ok": true, "device":
+{...}}. Any failed check exits 1.
 
     python3 chip_smoke.py --plant FAULT
 
 builds, plants FAULT (one of FAULTS: a wiring fault in the MLP's autograd
-Function, K2b built with one line changed, or K3's backward built with one
-line changed) and runs only that kernel's checks, printing their readings;
-it exits 1 when a check caught the fault. `--plant none` runs both sets and
-gives the sound readings the bars are set against.
+Function, K2b built with one line changed, K3's backward built with one
+line changed, or conv_formulations.cu built with taps9's centre tap read
+one column off) and runs only that kernel's checks, printing their
+readings; it exits 1 when a check caught the fault. `--plant none` runs
+every set and gives the sound readings the bars are set against.
 """
 
 from __future__ import annotations
@@ -111,7 +124,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
-SOURCES = ("eigh9.cu", "mlp.cu", "conv3x3.cu", "matcher.cu", "epi_residual.cu")
+SOURCES = ("eigh9.cu", "mlp.cu", "conv3x3.cu", "matcher.cu", "epi_residual.cu",
+           "conv_formulations.cu")
 
 # The synthetic_baseline.yaml values, built in code (no YAML reader needed).
 BASELINE = {
@@ -177,8 +191,9 @@ MLP_FEATURES = (64, 128, 1024, 512, 256)
 MLP_BARS = {"forward": 2e-2, "gradient": 1.5e-1}
 F64_FACTOR, F64_FLOOR = 1.3, 1e-3
 FAULTS = ("none", "dx_zero", "dgamma_dbeta_swapped", "c1_next_item", "c2_next_item",
-          "epi_unsafe_norm_grad", "epi_tie_blocked")
-EPI_FAULTS = FAULTS[5:]
+          "epi_unsafe_norm_grad", "epi_tie_blocked", "xconv_tap_shift")
+EPI_FAULTS = ("epi_unsafe_norm_grad", "epi_tie_blocked")
+XCONV_FAULTS = ("xconv_tap_shift",)
 
 
 class CheckFailed(Exception):
@@ -671,6 +686,7 @@ def phase_mlp_kernels(ph: Phases) -> list:
 
 
 def kernel_counters():
+    from deepfepe_tpu_torch.ops import conv_formulations as cf
     from deepfepe_tpu_torch.ops.conv import conv3x3_affine_relu, conv3x3_affine_relu_bwd
     from deepfepe_tpu_torch.ops.eigh9 import eigh9
     from deepfepe_tpu_torch.ops.epi_residual import epi_residual, epi_residual_bwd
@@ -681,7 +697,9 @@ def kernel_counters():
             "conv3x3_affine_relu": conv3x3_affine_relu,
             "conv3x3_affine_relu_bwd": conv3x3_affine_relu_bwd,
             "mutual_nn_kernel": mutual_nn_kernel, "epi_residual": epi_residual,
-            "epi_residual_bwd": epi_residual_bwd}
+            "epi_residual_bwd": epi_residual_bwd, "conv_strip": cf.conv_strip,
+            "conv_strip_async": cf.conv_strip_async, "conv_tile2d": cf.conv_tile2d,
+            "conv_s2d": cf.conv_s2d}
 
 
 def reset_counts() -> None:
@@ -750,11 +768,11 @@ def phase_train_good(ph: Phases) -> dict:
         depth = cfg.model.depth
         # K3: depth - 1 DeepFNet features and the F-loss a forward; the
         # F-loss's backward only where it is the loss (not under qt).
-        expected = {"mlp_forward": depth * (steps + vals * VAL_BATCHES),
+        expected = {**dict.fromkeys(counts, 0),
+                    "mlp_forward": depth * (steps + vals * VAL_BATCHES),
                     "mlp_backward": depth * steps,
                     "eigh9": depth * (steps + vals * VAL_BATCHES),
-                    "conv3x3_affine_relu": 0, "conv3x3_affine_relu_bwd": 0,
-                    "mutual_nn_kernel": 0, "epi_residual": depth * (steps + vals * VAL_BATCHES),
+                    "epi_residual": depth * (steps + vals * VAL_BATCHES),
                     "epi_residual_bwd": (depth if name == "f_loss" else depth - 1) * steps}
         ms = last["wall_s"] * 1e3 / steps
         ph.emit("train_good", run=name, steps=steps, validations=vals, last=last, launches=counts,
@@ -2292,9 +2310,8 @@ def sample_expected(depth: int, steps: int, vals: int) -> dict:
     layer); K3 runs depth - 1 times in DeepFNet, once in the F-loss and once
     on the subsets' hypotheses (the F-loss's sample auxiliary), each with
     its backward in a train step; validations run forwards only."""
-    return {"eigh9": 2 * depth * (steps + vals), "epi_residual": (depth + 1) * (steps + vals),
-            "epi_residual_bwd": (depth + 1) * steps, "mlp_forward": 0, "mlp_backward": 0,
-            "conv3x3_affine_relu": 0, "conv3x3_affine_relu_bwd": 0, "mutual_nn_kernel": 0}
+    return {**dict.fromkeys(kernel_counters(), 0), "eigh9": 2 * depth * (steps + vals),
+            "epi_residual": (depth + 1) * (steps + vals), "epi_residual_bwd": (depth + 1) * steps}
 
 
 def train_lines(exp: str, tag: str = "train") -> list:
@@ -2466,6 +2483,213 @@ def phase_check_sample(ph: Phases) -> None:
     check(ok, f"sample-loss train step on the card disagrees with the CPU: {step}, {zero}")
 
 
+# The conv-formulation slice (X1-X4): the port of
+# tools/bench_conv_formulations.py at inc.conv1's [8, 376, 1240, 64] -> 64 in
+# bf16. Rows: (summary name = the wrapper, X number, the TPU kernel); each
+# row covers the kinds of the port tool's ALL_KINDS that its wrapper runs.
+XCONV_ROWS = (("conv_strip", "X4", "tools/bench_conv_formulations.py:67"),
+              ("conv_strip_async", "X1", "tools/bench_conv_formulations.py:132"),
+              ("conv_tile2d", "X3", "tools/bench_conv_formulations.py:393"),
+              ("conv_s2d", "X2", "tools/bench_conv_formulations.py:252"))
+# Each kind against its plain version on the same inputs, within one bf16
+# ulp plus a float32 floor: |d| <= 2^-7 |plain| + 1e-5 (both sum exact bf16
+# products in float32, in other orders, and round once; where the affine
+# cancels z s against t, the sums' rounding is left as an absolute error,
+# 3.8e-6 at y = 2.9e-4 in tests/test_torch_conv_formulations.py). Against
+# float64 on the top XCONV_F64_ROWS rows of the first image and the bottom
+# ones of the last (every column: all four edges), half an ulp of the one
+# rounding plus that floor: |d| <= 2^-8 |y64| + 1e-5. The tool's max_err
+# against its cuDNN yardstick, which rounds twice, within 2^-6 of max |y|.
+XCONV_ULP, XCONV_HALF_ULP, XCONV_FLOOR, XCONV_TOOL_REL = 2.0 ** -7, 2.0 ** -8, 1e-5, 2.0 ** -6
+XCONV_F64_ROWS = 8
+XCONV_ITERS = 10  # the tool's --iters: each kind is called 2 + 3 XCONV_ITERS times
+
+
+def xconv_specs(name: str) -> list:
+    """The specs of the tool's ALL_KINDS that wrapper `name` runs."""
+    from deepfepe_tpu_torch.tools import bench_conv_formulations as tool
+
+    return [k for k in tool.ALL_KINDS if tool.ROUTES[k.split("_")[0]][1].__name__ == name]
+
+
+def xconv_bound_ms(B: int, H: int, W: int, C: int, flop_factor: int = 1) -> tuple[float, str]:
+    """Least time for the function: its useful products (2 flops a
+    multiply-add, times `flop_factor`: 2 for s2d's own floor) and the affine
+    and ReLU (3 an output) over the bf16 tensor-core rate, against x and y
+    (bf16), w, s and t (float32) read or written once over HBM."""
+    px = B * H * W
+    flops = flop_factor * 2 * px * 9 * C * C + 3 * px * C
+    nbytes = 2 * 2 * px * C + 4 * (9 * C * C + 2 * C)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def xconv_inputs(seed: int):
+    """x [8, 376, 1240, 64] bf16 from N(0, 1), w [3, 3, 64, 64] float32 of
+    scale 0.1 (the tool's), s in [0.5, 1.5) and t of scale 0.1."""
+    import torch
+
+    from deepfepe_tpu_torch.tools import bench_conv_formulations as tool
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = {"device": "cuda", "generator": g}
+    x = torch.randn(tool.B, tool.H, tool.W, tool.C, **kw).to(torch.bfloat16)
+    w = torch.randn(3, 3, tool.C, tool.C, **kw) * 0.1
+    return x, w, torch.rand(tool.C, **kw) + 0.5, 0.1 * torch.randn(tool.C, **kw)
+
+
+def xconv_f64(x, w, s, t, rows: int = XCONV_F64_ROWS):
+    """The function in float64 from x's and w's bf16 values on the first
+    `rows` output rows of image 0 and the last `rows` of the last image."""
+    import torch
+    import torch.nn.functional as F
+
+    wd = w.bfloat16().double().permute(3, 2, 0, 1)
+
+    def f(xs):
+        z = F.conv2d(xs.double().permute(0, 3, 1, 2), wd, padding=1).permute(0, 2, 3, 1)
+        return torch.relu(z * s.double() + t.double())
+
+    return f(x[:1, :rows + 1])[:, :rows], f(x[-1:, -rows - 1:])[:, 1:]
+
+
+def xconv_case(spec: str, x, w, s, t, y64, library_ms: float) -> dict:
+    """One kind: its kernel against the plain version and float64, timed
+    beside the plain version, with the bound."""
+    import torch
+
+    from deepfepe_tpu_torch.ops import conv_formulations as cf
+    from deepfepe_tpu_torch.tools import bench_conv_formulations as tool
+
+    f = tool.build(spec)
+    plain_fn = cf.PLAIN[spec.split("_")[0].split("-")[-1]]
+    R = XCONV_F64_ROWS
+    with torch.no_grad():
+        y = f(x, w, s, t)
+        plain = plain_fn(x, w, s, t)
+        torch.cuda.synchronize()
+        yf, pf = y.float(), plain.float()
+        ratio = ((yf - pf).abs() / (XCONV_ULP * pf.abs() + XCONV_FLOOR)).max().item()
+
+        def vs64(v):
+            edges = (v[:1, :R].double(), v[-1:, -R:].double())
+            d = max((e - r).abs().max().item() for e, r in zip(edges, y64))
+            over = max(((e - r).abs() / (XCONV_HALF_ULP * r.abs() + XCONV_FLOOR)).max().item()
+                       for e, r in zip(edges, y64))
+            return d, over
+
+        k64, k64_over = vs64(y)
+        p64, p64_over = vs64(plain)
+        errs = {"kernel_vs_plain": (yf - pf).abs().max().item(), "kernel_vs_plain_over_bar": ratio,
+                "kernel_vs_f64": k64, "kernel_vs_f64_over_bar": k64_over, "plain_vs_f64": p64,
+                "plain_vs_f64_over_bar": p64_over, "max_abs_y": pf.abs().max().item(),
+                "relu_zero_share": (plain == 0).float().mean().item(),
+                "finite": bool(torch.isfinite(yf).all())}
+        del y, plain, yf, pf
+        torch.cuda.empty_cache()
+        kind = spec.split("_")[0]
+        bound, bound_by = xconv_bound_ms(*x.shape)
+        timing = {"ms": cuda_time_ms(lambda: f(x, w, s, t), 20),
+                  "plain_ms": cuda_time_ms(lambda: plain_fn(x, w, s, t), 2, warmup=1),
+                  "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by}
+    if kind.startswith("s2d"):
+        timing["own_floor_ms"] = xconv_bound_ms(*x.shape, flop_factor=2)[0]
+    ok = errs["finite"] and ratio <= 1.0 and k64_over <= 1.0
+    return {"spec": spec, "errors": errs, "within_bars": ok, **timing}
+
+
+def phase_xconv_kernels(ph: Phases) -> list:
+    """X1-X4 at inc.conv1 in bf16, every kind of the port tool, against
+    their plain versions and float64, timed beside the plain version, the
+    bound and cuDNN: its fused bf16 conv + bias + ReLU in one call
+    (`torch.cudnn_convolution_relu`, s folded into w, so it rounds w s to
+    bf16: the same function up to that rounding), and, unfused, its bf16
+    conv with the affine and ReLU in place."""
+    import torch
+    import torch.nn.functional as F
+
+    x, w, s, t = xconv_inputs(seed=0)
+    y64 = xconv_f64(x, w, s, t)
+    x_nchw = x.permute(0, 3, 1, 2)
+    cl = torch.channels_last
+    w_cl = w.bfloat16().permute(3, 2, 0, 1).contiguous(memory_format=cl)
+    ws_cl = (w * s).bfloat16().permute(3, 2, 0, 1).contiguous(memory_format=cl)
+    s4, t4, t16 = s[:, None, None], t[:, None, None], t.bfloat16()
+
+    def unfused():
+        with torch.no_grad():
+            torch.relu_(F.conv2d(x_nchw, w_cl, padding=1).mul_(s4).add_(t4))
+
+    with torch.no_grad():
+        fused = torch.cudnn_convolution_relu(x_nchw, ws_cl, t16, (1, 1), (1, 1), (1, 1), 1)
+        fused_err = (fused.permute(0, 2, 3, 1)[:1, :XCONV_F64_ROWS].double() - y64[0]).abs().max()
+    del fused
+    library_ms = cuda_time_ms(lambda: torch.cudnn_convolution_relu(
+        x_nchw, ws_cl, t16, (1, 1), (1, 1), (1, 1), 1), 20)
+    unfused_ms = cuda_time_ms(unfused, 20)
+    conv_ms = cuda_time_ms(lambda: F.conv2d(x_nchw, w_cl, padding=1), 20)
+    ph.emit("kernels", kernel="xconv_library", shape=list(x.shape), library_ms=library_ms,
+            library_vs_f64=fused_err.item(), unfused_ms=unfused_ms, conv_only_ms=conv_ms)
+    rows = []
+    for name, xn, replaces in XCONV_ROWS:
+        cases = {}
+        for spec in xconv_specs(name):
+            case = xconv_case(spec, x, w, s, t, y64, library_ms)
+            ph.emit("kernels", kernel=name, x=xn, bars={"ulp": XCONV_ULP, "half_ulp":
+                    XCONV_HALF_ULP, "floor": XCONV_FLOOR}, **case)
+            check(case["within_bars"], f"{xn} {spec} is outside its bars: {case['errors']}")
+            cases[spec] = case
+        best = min(cases.values(), key=lambda c: c["ms"])
+        rows.append({"name": name, "route": "cuda",
+                     "source": "deepfepe_tpu_torch/csrc/conv_formulations.cu",
+                     "replaces": replaces, "launches": None,
+                     "max_abs_err": max(c["errors"]["kernel_vs_plain"] for c in cases.values()),
+                     "ms": best["ms"], "kind": best["spec"], "plain_ms": best["plain_ms"],
+                     "bound_ms": best["bound_ms"], "bound_by": best["bound_by"],
+                     "library_ms": library_ms,
+                     "library": "torch.cudnn_convolution_relu, bf16, channels-last, s folded "
+                                "into w", "library_unfused_ms": unfused_ms,
+                     "library_conv_only_ms": conv_ms,
+                     "shape": "inc.conv1: x [8, 376, 1240, 64] -> 64, bf16",
+                     "per_kind": {k: {key: c[key] for key in ("ms", "plain_ms", "bound_ms")
+                                      + (("own_floor_ms",) if "own_floor_ms" in c else ())}
+                                  for k, c in cases.items()}})
+    del x, w, s, t, x_nchw
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_conv_formulations(ph: Phases) -> dict:
+    """The port tool's entry point on all nine kinds at full size, with
+    exact launch counts around that run alone and no error line."""
+    import io
+
+    import torch
+
+    from deepfepe_tpu_torch.tools import bench_conv_formulations as tool
+
+    reset_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = tool.main(["--kinds=all", f"--iters={XCONV_ITERS}"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines()]
+    per_kind = 2 + 3 * XCONV_ITERS  # the max_err call, timeit's warm-up, k + 2k
+    want = {name: 0 for name in counts}
+    for name, _, _ in XCONV_ROWS:
+        want[name] = per_kind * len(xconv_specs(name))
+    ref = lines[0]
+    bad = [ln for ln in lines[1:] if "error" in ln
+           or not ln["max_err"] <= XCONV_TOOL_REL * ref["max_abs_y"]]
+    ph.emit("conv_formulations", rc=rc, lines=lines, launches=counts, expected=want,
+            max_err_bar=XCONV_TOOL_REL * ref["max_abs_y"])
+    check(rc == 0 and not bad and len(lines) == 1 + len(tool.ALL_KINDS),
+          f"the conv-formulation tool failed (rc {rc}): {bad}")
+    check(counts == want, f"conv_formulations launches {counts}, expected {want}")
+    return counts
+
+
 def plant(fault: str) -> None:
     """Install a deliberate fault for `--plant`. Wiring faults wrap the
     autograd Function's backward; kernel faults build a copy of csrc/mlp.cu
@@ -2483,6 +2707,9 @@ def plant(fault: str) -> None:
         return
     if fault in EPI_FAULTS:
         plant_epi(fault)
+        return
+    if fault in XCONV_FAULTS:
+        plant_xconv(fault)
         return
     if fault in ("dx_zero", "dgamma_dbeta_swapped"):
         backward = mlp.FusedPointNetMLP.backward
@@ -2556,9 +2783,35 @@ def plant_epi(fault: str) -> None:
         build.load = real
 
 
+def plant_xconv(fault: str) -> None:
+    """csrc/conv_formulations.cu built from a copy with one line changed,
+    loaded in place of the library: 'xconv_tap_shift' reads taps9's centre
+    tap one column to the right."""
+    import ctypes
+    import tempfile
+
+    from deepfepe_tpu_torch.ops import conv_formulations as cf
+    from deepfepe_tpu_torch.utils import build
+
+    line, changed = {
+        "xconv_tap_shift": ("const bf16* ap = halo + ((r + ky) * hc + c0 + kx) * C;",
+                            "const bf16* ap = halo + ((r + ky) * hc + c0 + kx + (tap == 4)) * C;"),
+    }[fault]
+    src = (build.CSRC / cf.SOURCE).read_text()
+    check(src.count(line) == 1, f"--plant {fault}: the line to change is not in {cf.SOURCE}")
+    tmp = tempfile.mkdtemp(prefix="xconv_fault_")
+    cu, so = os.path.join(tmp, cf.SOURCE), os.path.join(tmp, "conv_formulations.so")
+    with open(cu, "w") as f:
+        f.write(src.replace(line, changed))
+    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", so, cu], check=True,
+                   capture_output=True)
+    cf._lib = cf.bind(ctypes.CDLL(so))
+
+
 def run_planted(ph: Phases, fault: str) -> int:
     """The checks of the planted kernel with `fault` planted (the MLP checks
-    for K2/K2b faults, the K3 checks for K3's; both for 'none'): every check
+    for K2/K2b faults, the K3 checks for K3's, the X1-X4 checks for
+    conv_formulations.cu's; all three for 'none'): every check
     runs and reports; exits 1 when any of them caught the fault, 0 when none
     did."""
     plant(fault)
@@ -2568,8 +2821,11 @@ def run_planted(ph: Phases, fault: str) -> int:
                   ("check_train", lambda: phase_check_train(ph)))
     epi_checks = (("kernels_epi", lambda: phase_epi_kernel(ph)),
                   ("check_sample", lambda: phase_check_sample(ph)))
-    chosen = (mlp_checks + epi_checks if fault == "none" else
-              epi_checks if fault in EPI_FAULTS else mlp_checks)
+    xconv_checks = (("kernels_xconv", lambda: phase_xconv_kernels(ph)),
+                    ("conv_formulations", lambda: phase_conv_formulations(ph)))
+    chosen = (mlp_checks + epi_checks + xconv_checks if fault == "none" else
+              epi_checks if fault in EPI_FAULTS else
+              xconv_checks if fault in XCONV_FAULTS else mlp_checks)
     for name, fn in chosen:
         try:
             fn()
@@ -2588,8 +2844,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--plant", choices=FAULTS, help="plant this fault and run only the checks "
-                    "of its kernel (K2/K2b or K3), to show that they catch it (exit 1 when "
-                    "caught); 'none' gives the sound readings")
+                    "of its kernel (K2/K2b, K3 or X1-X4), to show that they catch it (exit 1 "
+                    "when caught); 'none' gives the sound readings")
     args = ap.parse_args(argv)
     sys.path.insert(0, REPO)
     from deepfepe_tpu_torch.train.config import config_from_dict
@@ -2620,12 +2876,14 @@ def main(argv=None) -> int:
         front_rows = [phase_conv_kernel(ph), phase_matcher_kernel(ph)]
         bwd_row = phase_conv_bwd_kernel(ph)
         epi_rows = phase_epi_kernel(ph)
+        xconv_rows = phase_xconv_kernels(ph)
         cfg = config_from_dict(BASELINE)
         eval_counts = phase_eval_good(ph, cfg)
         phase_breakdown(ph, cfg)
         train_counts = phase_train_good(ph)
         sample_counts = phase_sample_train(ph)
         variant_counts = phase_variants(ph)
+        xconv_counts = phase_conv_formulations(ph)
         vf_counts = phase_val_feature(ph)
         phase_frontend_breakdown(ph)
         joint_counts = phase_joint_train(ph)
@@ -2638,14 +2896,16 @@ def main(argv=None) -> int:
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
-    rows = [row, *mlp_rows, *front_rows, bwd_row, *epi_rows]
+    rows = [row, *mlp_rows, *front_rows, bwd_row, *epi_rows, *xconv_rows]
     # Each kernel's launches on the path that carries it: train_good for
     # eigh9 and the MLP pair, val_feature (a) + (b) for K5 and K4,
-    # joint_train (stages 1 + 2) for K5b, the sample-loss train_good for K3.
+    # joint_train (stages 1 + 2) for K5b, the sample-loss train_good for K3,
+    # the conv-formulation tool for X1-X4.
     for r in rows:
         path, counts = (("val_feature", vf_counts) if r in front_rows
                         else ("joint_train", joint_counts) if r is bwd_row
                         else ("sample_train", sample_counts) if r in epi_rows
+                        else ("conv_formulations", xconv_counts) if r in xconv_rows
                         else ("train_good", train_counts))
         r["launches"] = counts[r["name"]]
         r["launches_path"] = path
@@ -2653,6 +2913,7 @@ def main(argv=None) -> int:
         r["launches_train_good"] = train_counts[r["name"]]
         r["launches_variants"] = variant_counts[r["name"]]
         r["launches_joint_train"] = joint_counts[r["name"]]
+        r["launches_conv_formulations"] = xconv_counts[r["name"]]
         if r["launches"] <= 0:
             print(f"chip_smoke: FAILED: {r['name']} never launched on {path}",
                   file=sys.stderr, flush=True)

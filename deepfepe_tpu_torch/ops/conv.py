@@ -79,11 +79,17 @@ def exact_convs():
 
 
 def conv3x3_affine_relu_ref(x, w, scale, bias):
-    """Plain version: relu(conv3x3_same(x, w) * scale + bias) in NHWC,
-    float32, with `F.conv2d` in full float32."""
+    """Plain version: relu(conv3x3_same(x, w) * scale + bias) in NHWC, as the
+    JAX package's `conv3x3_affine_relu_ref`: w is cast to x's dtype and the
+    conv runs in it (`F.conv2d`, in full float32 for float32), the affine
+    and ReLU run in float32 (float64 for float64), and the result comes
+    back in x's dtype. For bf16 that is cuDNN's bf16 conv on the card,
+    rounded twice."""
     with full_f32():
-        z = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1)
-    return torch.relu(z.permute(0, 2, 3, 1) * scale + bias).contiguous()
+        z = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype).permute(3, 2, 0, 1), padding=1)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    y = torch.relu(z.permute(0, 2, 3, 1).to(acc) * scale.to(acc) + bias.to(acc))
+    return y.to(x.dtype).contiguous()
 
 
 def conv3x3_affine_relu_bwd_ref(x, w, scale, bias, y, dy, need_dx: bool = True):

@@ -42,7 +42,8 @@ def test_importing_the_port_loads_no_jax():
     assert "deepfepe_tpu_torch.cli" in mods and "deepfepe_tpu_torch.ops.eigh9" in mods
     for m in ("ops.conv", "ops.matcher", "frontend.pipeline", "frontend.sp_fused",
               "data.synthetic_images", "eval.frontend_eval", "train.joint", "loader",
-              "utils.weights", "ops.epi_residual", "models.sample_fit"):
+              "utils.weights", "ops.epi_residual", "models.sample_fit",
+              "ops.conv_formulations", "tools.bench_conv_formulations"):
         assert f"deepfepe_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
