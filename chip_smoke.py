@@ -15,7 +15,11 @@ seconds:
            K2b) against its plain PyTorch version on the card at the main
            paths' shapes, with its bars (K2 and K2b also against the exact
            float64 stack), and timed beside the plain version, a PyTorch
-           yardstick and its bound;
+           yardstick and its bound; eigh9's two kernels (a warp a matrix
+           below ops/eigh9.py's CROSSOVER_B, a thread a matrix at or above
+           it) each at B = 1 to 4097, against each other, on a NaN matrix,
+           and as one device operation a call (torch.profiler), timed at
+           B = 4 to 4096;
   eval_good  the port's `eval_good` entry point at the full width of
            configs/synthetic_baseline.yaml (B=8, N=1000, depth 5, bf16
            MLP, 512 RANSAC hypotheses), 5 batches, seeded weights, with
@@ -35,8 +39,10 @@ seconds:
 and for the frontend slice:
   kernels  K5 (the fused 3x3 conv + affine + ReLU) at the SuperPoint
            path's layer shapes and K4 (the mutual-NN matcher) at K = 1000
-           and 2048, each against its plain version and float64, timed
-           beside the plain version, a PyTorch yardstick and its bound;
+           and 2048 and at MATCH_EDGE's cases (K = 1 and 65, D = 132 and
+           250, exact ties across tiles, every keypoint invalid), each
+           against its plain version and float64, timed beside the plain
+           version, a PyTorch yardstick and its bound;
   val_feature  the port's `val_feature` entry point with the conv switch on
            K5 and K = 1000: (a) SuperPointNet at 120x160, 2 pairs a batch,
            5 batches; (b) SuperPointNetGauss2 at 376x1240, 4 pairs a batch
@@ -100,10 +106,12 @@ on the path that carries it); the last line is {"ok": true, "device":
 
 builds, plants FAULT (one of FAULTS: a wiring fault in the MLP's autograd
 Function, K2b built with one line changed, K3's backward built with one
-line changed, or conv_formulations.cu built with taps9's centre tap read
-one column off) and runs only that kernel's checks, printing their
-readings; it exits 1 when a check caught the fault. `--plant none` runs
-every set and gives the sound readings the bars are set against.
+line changed, conv_formulations.cu built with taps9's centre tap read
+one column off, matcher.cu's fold keeping the higher index on equal
+values, or eigh9.cu's warp kernel skipping rotation (7, 8)) and runs only
+that kernel's checks, printing their readings; it exits 1 when a check
+caught the fault. `--plant none` runs every set and gives the sound
+readings the bars are set against.
 """
 
 from __future__ import annotations
@@ -191,9 +199,36 @@ MLP_FEATURES = (64, 128, 1024, 512, 256)
 MLP_BARS = {"forward": 2e-2, "gradient": 1.5e-1}
 F64_FACTOR, F64_FLOOR = 1.3, 1e-3
 FAULTS = ("none", "dx_zero", "dgamma_dbeta_swapped", "c1_next_item", "c2_next_item",
-          "epi_unsafe_norm_grad", "epi_tie_blocked", "xconv_tap_shift")
-EPI_FAULTS = ("epi_unsafe_norm_grad", "epi_tie_blocked")
-XCONV_FAULTS = ("xconv_tap_shift",)
+          "epi_unsafe_norm_grad", "epi_tie_blocked", "xconv_tap_shift",
+          "matcher_fold_last_index", "eigh9_warp_skip_rotation")
+# Kernel faults, each planted into one source line: (module under
+# deepfepe_tpu_torch.ops, the line, its faulty form). c1/c2_next_item read
+# K2b's next item's coefficient; epi_unsafe_norm_grad takes the norm's
+# gradient as x / |x| without the zero-norm guard (the plain sqrt's NaN at
+# a zero-row F); epi_tie_blocked stops the gradient at d == clamp_at, where
+# torch.clamp passes it; xconv_tap_shift reads taps9's centre tap one
+# column to the right; matcher_fold_last_index keeps the later tile on
+# equal values (the higher index); eigh9_warp_skip_rotation skips rotation
+# (7, 8) in the warp kernel.
+SOURCE_FAULTS = {
+    "c1_next_item": ("mlp", "dh[i] = __float2bfloat16(t3 - c1b[p]);",
+                     "dh[i] = __float2bfloat16(t3 - c1b[(p + C) % (total / Nn)]);"),
+    "c2_next_item": ("mlp", "const float t2 = round_bf16(xh * c2b[p]);",
+                     "const float t2 = round_bf16(xh * c2b[(p + C) % (total / Nn)]);"),
+    "epi_unsafe_norm_grad": (
+        "epi_residual", "const float u1 = t.n1 > 0.f ? (-gd * as * t.r1 * t.r1) / t.n1 : 0.f;",
+        "const float u1 = (-gd * as * t.r1 * t.r1) / t.n1;"),
+    "epi_tie_blocked": ("epi_residual", "const float gd = t.d <= clamp_at ? g : 0.f;",
+                        "const float gd = t.d < clamp_at ? g : 0.f;"),
+    "xconv_tap_shift": (
+        "conv_formulations", "const bf16* ap = halo + ((r + ky) * hc + c0 + kx) * C;",
+        "const bf16* ap = halo + ((r + ky) * hc + c0 + kx + (tap == 4)) * C;"),
+    "matcher_fold_last_index": ("matcher", "if (v > best) {  // a later tile wins only by a "
+                                "larger value", "if (v >= best) {"),
+    "eigh9_warp_skip_rotation": ("eigh9", "const float apq = __shfl_sync(FULL, g[q], p);",
+                                 "const float apq = (p == 7 && q == 8) ? 0.0f "
+                                 ": __shfl_sync(FULL, g[q], p);"),
+}
 
 
 class CheckFailed(Exception):
@@ -282,7 +317,41 @@ def eigh9_bound_ms(B: int) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+# eigh9 at the path's batches (Gram rows as the path forms them): a
+# DeepFNet layer (B=8) and the joint step (4) with 1,000 rows, the sample
+# loss's subset fits (800 of 20 rows), RANSAC (4096 of 8); 1 and 4097 for
+# the ragged edges. Both kernels at each; their times at the path's
+# batches, and at 2048 and 3072 between them, set ops/eigh9.py's
+# CROSSOVER_B.
+EIGH9_CASES = ((1, 1000), (4, 1000), (8, 1000), (800, 20), (4096, 8), (4097, 8))
+EIGH9_TIMED = ((4, 1000), (8, 1000), (800, 20), (2048, 8), (3072, 8), (4096, 8))
+
+
+def device_ops(fn) -> list:
+    """Names of the device operations (kernels, copies, sets) that one call
+    of fn runs, from a torch.profiler trace."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = os.path.join(tempfile.mkdtemp(prefix="device_ops_"), "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e["name"] for e in events if e.get("ph") == "X"
+            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
 def phase_kernels(ph: Phases) -> dict:
+    """eigh9: both kernels against the plain version and float64 at the
+    path's batches, against each other, on a NaN matrix, as one device
+    operation a call; timed beside the plain version, torch.linalg.eigh and
+    the bound."""
     import torch
 
     from deepfepe_tpu_torch.ops import eigh9 as eigh9_mod
@@ -290,43 +359,94 @@ def phase_kernels(ph: Phases) -> dict:
 
     gen = torch.Generator().manual_seed(0)
     max_err = 0.0
-    for B, rows in ((1, 1000), (8, 1000), (4096, 8), (4097, 8)):
+    for B, rows in EIGH9_CASES:
         A = gram_batch(B, rows, gen)
-        w, V = eigh9_mod.eigh9(A)
         w_ref, V_ref = jacobi_eigh(A)
+        for kernel in eigh9_mod.KERNELS:
+            w, V = eigh9_mod.launch(A, kernel=kernel)
+            torch.cuda.synchronize()
+            errs = eigh_errors(A, w, V, w_ref, V_ref)
+            ok = all(errs[k] <= bar for k, bar in EIGH9_BARS.items())
+            ph.emit("kernels", kernel="eigh9", route=kernel, B=B, rows=rows, errors=errs,
+                    bars=EIGH9_BARS, within_bars=ok)
+            check(ok, f"eigh9 ({kernel}) at B={B} is outside its bars: {errs}")
+            check(bool(torch.isfinite(w).all() and torch.isfinite(V).all()),
+                  f"eigh9 ({kernel}) at B={B} gave non-finite values")
+            max_err = max(max_err, errs["dw_rel"], errs["dV_separated"])
+        # The wrapper is the routed kernel, one launch and one device op.
+        before = eigh9_mod.eigh9.launches
+        w, V = eigh9_mod.eigh9(A)
+        w_k, V_k = eigh9_mod.launch(A, kernel=eigh9_mod.route(B))
         torch.cuda.synchronize()
-        errs = eigh_errors(A, w, V, w_ref, V_ref)
-        ok = all(errs[k] <= bar for k, bar in EIGH9_BARS.items())
-        ph.emit("kernels", kernel="eigh9", B=B, rows=rows, errors=errs, bars=EIGH9_BARS,
-                within_bars=ok)
-        check(ok, f"eigh9 at B={B} is outside its bars: {errs}")
-        check(bool(torch.isfinite(w).all() and torch.isfinite(V).all()),
-              f"eigh9 at B={B} gave non-finite values")
-        max_err = max(max_err, errs["dw_rel"], errs["dV_separated"])
+        check(eigh9_mod.eigh9.launches == before + 2 and torch.equal(w, w_k)
+              and torch.equal(V, V_k), f"eigh9 at B={B} is not its routed kernel")
+
+    # The two kernels against each other (same operations, same order).
+    A = gram_batch(8, 1000, gen)
+    (w_w, V_w), (w_t, V_t) = (eigh9_mod.launch(A, kernel=k) for k in ("warp", "thread"))
+    torch.cuda.synchronize()
+    cross = eigh_errors(A, w_w, V_w, w_t, V_t)
+    warp_vs_thread = {"w_max_abs": (w_w - w_t).abs().max().item(),
+                      "V_max_abs": (V_w - V_t).abs().max().item(),
+                      "bitwise_equal": bool(torch.equal(w_w, w_t) and torch.equal(V_w, V_t))}
+    ok = all(cross[k] <= bar for k, bar in EIGH9_BARS.items())
+    ph.emit("kernels", kernel="eigh9", warp_vs_thread=warp_vs_thread, errors=cross,
+            within_bars=ok)
+    check(ok, f"eigh9's warp and thread kernels disagree at B=8: {cross}")
+
+    # A NaN matrix: non-finite outputs in its own row only, where the plain
+    # version has them, and the other matrices unchanged.
+    A_nan = A.clone()
+    A_nan[3, 2, 5] = float("nan")
+    w_p, V_p = jacobi_eigh(A_nan)
+    nan_rows = {}
+    for kernel in eigh9_mod.KERNELS:
+        w, V = eigh9_mod.launch(A_nan, kernel=kernel)
+        w0, V0 = eigh9_mod.launch(A, kernel=kernel)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(torch.isfinite(w), torch.isfinite(w_p))
+                    and torch.equal(torch.isfinite(V), torch.isfinite(V_p)))
+        bad = sorted(set(torch.nonzero(~torch.isfinite(w))[:, 0].tolist())
+                     | set(torch.nonzero(~torch.isfinite(V))[:, 0].tolist()))
+        keep = torch.arange(8, device=A.device) != 3
+        rest = bool(torch.equal(w[keep], w0[keep]) and torch.equal(V[keep], V0[keep]))
+        nan_rows[kernel] = {"nonfinite_rows": bad, "as_plain": same, "others_unchanged": rest}
+        check(bad == [3] and same and rest, f"eigh9 ({kernel}) on a NaN matrix: "
+              f"{nan_rows[kernel]}")
+    ph.emit("kernels", kernel="eigh9", nan_matrix=nan_rows)
+
+    ops = {}
+    for B, A_B in ((8, A), (4096, gram_batch(4096, 8, gen))):
+        ops[B] = device_ops(lambda: eigh9_mod.eigh9(A_B))
+    ph.emit("kernels", kernel="eigh9", device_ops_a_call=ops)
+    check(all(len(v) == 1 and "eigh9_" in v[0] for v in ops.values()),
+          f"an eigh9 call is not one kernel launch: {ops}")
 
     timings = {}
-    for B, rows in ((8, 1000), (4096, 8)):
+    for B, rows in EIGH9_TIMED:
         A = gram_batch(B, rows, gen)
-        A_sym = ((A + A.transpose(-1, -2)) * 0.5).contiguous()
         bound, bound_by = eigh9_bound_ms(B)
-        timings[B] = {
-            "kernel_ms": cuda_time_ms(lambda: eigh9_mod.launch(A_sym), 200),
-            "wrapper_ms": cuda_time_ms(lambda: eigh9_mod.eigh9(A), 100),
-            "plain_ms": cuda_time_ms(lambda: jacobi_eigh(A), 3, warmup=1),
-            "library_ms": cuda_time_ms(lambda: torch.linalg.eigh(A), 20),
-            "bound_ms": bound,
-            "bound_by": bound_by,
-        }
-        ph.emit("kernels", kernel="eigh9", timing_B=B, **timings[B])
-    t = timings[4096]
+        t = {f"{k}_ms": cuda_time_ms(lambda: eigh9_mod.launch(A, kernel=k), 200)
+             for k in eigh9_mod.KERNELS}
+        t.update(route=eigh9_mod.route(B), wrapper_ms=cuda_time_ms(lambda: eigh9_mod.eigh9(A), 200),
+                 library_ms=cuda_time_ms(lambda: torch.linalg.eigh(A), 20),
+                 bound_ms=bound, bound_by=bound_by)
+        t["ms"] = t[f"{t['route']}_ms"]
+        if B in (8, 4096):
+            t["plain_ms"] = cuda_time_ms(lambda: jacobi_eigh(A), 3, warmup=1)
+        timings[B] = t
+        ph.emit("kernels", kernel="eigh9", timing_B=B, **t)
+    t, t8 = timings[4096], timings[8]
     return {"name": "eigh9", "route": "cuda", "source": "deepfepe_tpu_torch/csrc/eigh9.cu",
             "replaces": "deepfepe_tpu/ops/pallas/eigh9_pallas.py:34",
-            "launches": None, "max_abs_err": max_err, "ms": t["kernel_ms"],
+            "launches": None, "max_abs_err": max_err, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": "[4096, 9, 9] f32",
-            "wrapper_ms": t["wrapper_ms"], "wrapper_ms_B8": timings[8]["wrapper_ms"],
-            "ms_B8": timings[8]["kernel_ms"], "plain_ms_B8": timings[8]["plain_ms"],
-            "library_ms_B8": timings[8]["library_ms"], "bound_ms_B8": timings[8]["bound_ms"]}
+            "wrapper_ms": t["wrapper_ms"], "wrapper_ms_B8": t8["wrapper_ms"],
+            "ms_B8": t8["ms"], "route_B8": t8["route"], "plain_ms_B8": t8["plain_ms"],
+            "library_ms_B8": t8["library_ms"], "bound_ms_B8": t8["bound_ms"],
+            "crossover_B": eigh9_mod.CROSSOVER_B, "warp_vs_thread_B8": warp_vs_thread,
+            "per_B": timings}
 
 
 def phase_eval_good(ph: Phases, cfg) -> dict:
@@ -1028,6 +1148,15 @@ CONV_F64_ROWS = 32
 # similarities lie within MATCH_TIE in float64; dist12 within MATCH_ATOL.
 MATCH_CASES = ((2, 1000), (4, 1000), (2, 2048), (4, 2048))
 MATCH_TIE, MATCH_ATOL = 1e-5, 1e-5
+# Edge cases (name, B, K, D), held to the same bars: K = 1, K = 65 (a
+# ragged second 64-wide tile), D = 132 (not a multiple of the kernel's
+# 16-entry chunk) and D = 250 (not of 4: its 4-byte copies), duplicated
+# descriptors whose exact ties straddle tile boundaries (MATCH_TIES: the
+# lowest index must win both ways), and pairs with every keypoint invalid
+# (every masked similarity -1e9: index 0 everywhere).
+MATCH_EDGE = (("K1", 2, 1, 256), ("K65", 2, 65, 256), ("D132", 2, 300, 132),
+              ("D250", 2, 300, 250), ("ties", 2, 200, 256), ("all_invalid", 2, 300, 256))
+MATCH_TIES = {"col": 60, "dup_cols": (70, 130), "row": 5, "dup_rows": (64, 190)}
 # Card against CPU on the small val_feature batch: descriptors and
 # subpixel offsets (the two convs that run K5 sum in another order than
 # the CPU's, ~1e-7 relative, through three more layers and a
@@ -1151,50 +1280,103 @@ def match_inputs(B: int, K: int, seed: int, D: int = 256):
     return d1, d2, torch.rand(B, K, **kw) < 0.8, torch.rand(B, K, **kw) < 0.8
 
 
+def match_edge_inputs(name: str, B: int, K: int, D: int, seed: int):
+    """match_inputs, with MATCH_TIES's duplicates ('ties': every keypoint
+    valid, row `row` of desc1 a noisy copy of column `col` of desc2,
+    similarity about 0.96: at an exact copy dist12 = sqrt(2 - 2 s) would sit
+    where float32 rounding of s near 1 leaves it ~3e-4 from float64 in any
+    implementation) or every keypoint invalid ('all_invalid')."""
+    import torch.nn.functional as F
+
+    d1, d2, v1, v2 = match_inputs(B, K, seed, D)
+    if name == "ties":
+        t = MATCH_TIES
+        v1[:], v2[:] = True, True
+        for c in t["dup_cols"]:
+            d2[:, c] = d2[:, t["col"]]
+        d1[:, t["row"]] = F.normalize(d2[:, t["col"]] + 0.3 * d1[:, t["row"]], dim=-1)
+        for r in t["dup_rows"]:
+            d1[:, r] = d1[:, t["row"]]
+    elif name == "all_invalid":
+        v1[:], v2[:] = False, False
+    return d1, d2, v1, v2
+
+
 def near_ties(d1, d2, v1, v2, tie: float = MATCH_TIE):
     """Float64 masked similarities: (nn12, nn21, best12, rows whose two
-    best columns lie within `tie`, columns whose two best rows do)."""
+    best columns lie within `tie`, columns whose two best rows do). A
+    masked entry is -1e9 exactly: float32 rounds dot - 1e9 there for any
+    |dot| < 32 (its ulp is 64), so every invalid entry ties."""
     import torch
+    import torch.nn.functional as F
 
     dot = d1.double() @ d2.double().transpose(-1, -2)
-    s12 = dot + torch.where(v2, 0.0, -1e9).double()[:, None, :]
-    s21 = dot + torch.where(v1, 0.0, -1e9).double()[:, :, None]
-    top12 = s12.topk(2, dim=-1).values
-    top21 = s21.topk(2, dim=-2).values
+    s12 = torch.where(v2[:, None, :], dot, -1e9)
+    s21 = torch.where(v1[:, :, None], dot, -1e9)
+    top12 = F.pad(s12, (0, 1), value=-float("inf")).topk(2, dim=-1).values
+    top21 = F.pad(s21, (0, 0, 0, 1), value=-float("inf")).topk(2, dim=-2).values
     return (s12.argmax(-1), s21.argmax(-2), top12[..., 0],
             top12[..., 0] - top12[..., 1] < tie, top21[:, 0] - top21[:, 1] < tie)
 
 
-def phase_matcher_kernel(ph: Phases) -> dict:
-    """K4 against its plain version and float64, timed beside the plain
-    version, torch.matmul + max/argmax and its bound."""
+def match_case(name: str, d1, d2, v1, v2) -> tuple[dict, bool]:
+    """K4 on one input against its plain version and float64: (errors,
+    within the bars)."""
     import torch
 
     from deepfepe_tpu_torch.ops import matcher
 
+    nn12, nn21, dist12, mutual = matcher.mutual_nn_kernel(d1, d2, v1, v2)
+    p12, p21, pdist, pmut = matcher.mutual_nn_plain(d1, d2, v1, v2)
+    e12, e21, best, tie12, tie21 = near_ties(d1, d2, v1, v2)
+    dist64 = torch.sqrt(torch.clamp(2 - 2 * best, min=0))
+    torch.cuda.synchronize()
+    # mutual[i] reads nn12[i] and nn21 at nn12[i]: excuse ties there.
+    tie_mut = tie12 | torch.gather(tie21, 1, nn12.long()) | torch.gather(tie21, 1, p12.long())
+    # dist12 against float64 where a row has a valid column; elsewhere it
+    # is sqrt(2 + 2e9) in float32 (ulp 0.004), held to the plain version.
+    real = v2.any(-1, keepdim=True).expand_as(dist12)
+    errs = {"nn12_vs_plain": int(((nn12 != p12) & ~tie12).sum()),
+            "nn21_vs_plain": int(((nn21 != p21) & ~tie21).sum()),
+            "nn12_vs_f64": int(((nn12.long() != e12) & ~tie12).sum()),
+            "nn21_vs_f64": int(((nn21.long() != e21) & ~tie21).sum()),
+            "mutual_vs_plain": int(((mutual != pmut) & ~tie_mut).sum()),
+            "near_tie_rows": int(tie12.sum()), "near_tie_cols": int(tie21.sum()),
+            "nn12_differs_at_near_ties": int(((nn12 != p12) & tie12).sum()),
+            "dist12_vs_plain": (dist12 - pdist).abs().max().item(),
+            "dist12_vs_f64": ((dist12.double() - dist64).abs() * real).max().item(),
+            "valid_share": v1.float().mean().item(), "mutual_share": mutual.float().mean().item()}
+    ok = all(errs[k] == 0 for k in ("nn12_vs_plain", "nn21_vs_plain", "nn12_vs_f64",
+                                    "nn21_vs_f64", "mutual_vs_plain")) \
+        and errs["dist12_vs_plain"] <= MATCH_ATOL and errs["dist12_vs_f64"] <= MATCH_ATOL
+    if name == "ties":
+        t = MATCH_TIES
+        rows, cols = [t["row"], *t["dup_rows"]], [t["col"], *t["dup_cols"]]
+        errs["ties_to_lowest"] = bool((nn12[:, rows] == t["col"]).all()
+                                      and (nn21[:, cols] == t["row"]).all())
+        errs["plain_ties_to_lowest"] = bool((p12[:, rows] == t["col"]).all()
+                                            and (p21[:, cols] == t["row"]).all())
+        ok = ok and errs["ties_to_lowest"]
+    if name == "all_invalid":
+        errs["index_0_everywhere"] = bool((nn12 == 0).all() and (nn21 == 0).all()
+                                          and not mutual.any())
+        ok = ok and errs["index_0_everywhere"]
+    return errs, ok
+
+
+def phase_matcher_kernel(ph: Phases) -> dict:
+    """K4 against its plain version and float64 at the path's shapes and
+    MATCH_EDGE's, timed beside the plain version, torch.matmul +
+    max/argmax and its bound."""
+    import torch
+
+    from deepfepe_tpu_torch.ops import matcher
+
+    runs = [(f"B{B}_K{K}", B, K, 256) for B, K in MATCH_CASES] + list(MATCH_EDGE)
     cases, max_err = {}, 0.0
-    for i, (B, K) in enumerate(MATCH_CASES):
-        d1, d2, v1, v2 = match_inputs(B, K, seed=100 + i)
-        nn12, nn21, dist12, mutual = matcher.mutual_nn_kernel(d1, d2, v1, v2)
-        p12, p21, pdist, pmut = matcher.mutual_nn_plain(d1, d2, v1, v2)
-        e12, e21, best, tie12, tie21 = near_ties(d1, d2, v1, v2)
-        dist64 = torch.sqrt(torch.clamp(2 - 2 * best, min=0))
-        torch.cuda.synchronize()
-        # mutual[i] reads nn12[i] and nn21 at nn12[i]: excuse ties there.
-        tie_mut = tie12 | torch.gather(tie21, 1, nn12.long()) | torch.gather(tie21, 1, p12.long())
-        errs = {"nn12_vs_plain": int(((nn12 != p12) & ~tie12).sum()),
-                "nn21_vs_plain": int(((nn21 != p21) & ~tie21).sum()),
-                "nn12_vs_f64": int(((nn12.long() != e12) & ~tie12).sum()),
-                "nn21_vs_f64": int(((nn21.long() != e21) & ~tie21).sum()),
-                "mutual_vs_plain": int(((mutual != pmut) & ~tie_mut).sum()),
-                "near_tie_rows": int(tie12.sum()), "near_tie_cols": int(tie21.sum()),
-                "nn12_differs_at_near_ties": int(((nn12 != p12) & tie12).sum()),
-                "dist12_vs_plain": (dist12 - pdist).abs().max().item(),
-                "dist12_vs_f64": (dist12.double() - dist64).abs().max().item(),
-                "valid_share": v1.float().mean().item(), "mutual_share": mutual.float().mean().item()}
-        ok = all(errs[k] == 0 for k in ("nn12_vs_plain", "nn21_vs_plain", "nn12_vs_f64",
-                                        "nn21_vs_f64", "mutual_vs_plain")) \
-            and errs["dist12_vs_plain"] <= MATCH_ATOL and errs["dist12_vs_f64"] <= MATCH_ATOL
+    for i, (name, B, K, D) in enumerate(runs):
+        d1, d2, v1, v2 = match_edge_inputs(name, B, K, D, seed=100 + i)
+        errs, ok = match_case(name, d1, d2, v1, v2)
         m1 = torch.where(v1, 0.0, -1e9)[:, :, None]
         m2 = torch.where(v2, 0.0, -1e9)[:, None, :]
 
@@ -1203,15 +1385,15 @@ def phase_matcher_kernel(ph: Phases) -> dict:
             (dot + m2).max(dim=-1)
             (dot + m1).argmax(dim=-2)
 
-        bound, bound_by = match_bound_ms(B, K)
+        bound, bound_by = match_bound_ms(B, K, D)
         timing = {"ms": cuda_time_ms(lambda: matcher.launch(d1, d2, v1, v2), 50),
                   "wrapper_ms": cuda_time_ms(lambda: matcher.mutual_nn_kernel(d1, d2, v1, v2), 50),
                   "plain_ms": cuda_time_ms(lambda: matcher.mutual_nn_plain(d1, d2, v1, v2), 50),
                   "library_ms": cuda_time_ms(library, 50), "bound_ms": bound, "bound_by": bound_by}
-        ph.emit("kernels", kernel="mutual_nn_kernel", B=B, K=K, errors=errs,
+        ph.emit("kernels", kernel="mutual_nn_kernel", case=name, B=B, K=K, D=D, errors=errs,
                 bars={"near_tie": MATCH_TIE, "dist12_atol": MATCH_ATOL}, within_bars=ok, **timing)
-        check(ok, f"K4 at B={B}, K={K} is outside its bars: {errs}")
-        cases[f"B{B}_K{K}"] = timing
+        check(ok, f"K4 {name} (B={B}, K={K}, D={D}) is outside its bars: {errs}")
+        cases[name] = timing
         max_err = max(max_err, errs["dist12_vs_plain"])
     lead = cases["B4_K1000"]
     return {"name": "mutual_nn_kernel", "route": "cuda", "source": "deepfepe_tpu_torch/csrc/matcher.cu",
@@ -2346,7 +2528,7 @@ def phase_sample_train(ph: Phases) -> dict:
             launches=counts, expected_launches=expected, ms_per_step_fit=ms,
             pairs_per_s_fit=cfg.data.batch_size * 1e3 / ms, profiled_step=trace,
             k3_device_ms=device_ms(trace_path, EPI_KERNELS),
-            eigh9_device_ms=device_ms(trace_path, ("eigh9_kernel",)),
+            eigh9_device_ms=device_ms(trace_path, ("eigh9_warp_kernel", "eigh9_thread_kernel")),
             timed="host clock over fit (ending in a synchronize), incl. its validation, "
                   "checkpoint and profiled step")
     check(counts == expected, f"sample loss: launches {counts}, expected {expected}")
@@ -2691,129 +2873,62 @@ def phase_conv_formulations(ph: Phases) -> dict:
 
 
 def plant(fault: str) -> None:
-    """Install a deliberate fault for `--plant`. Wiring faults wrap the
-    autograd Function's backward; kernel faults build a copy of csrc/mlp.cu
-    with one line changed, in a temporary directory, and load it in place
-    of the library."""
-    import ctypes
-    import tempfile
-
+    """Install a deliberate fault for `--plant`. Wiring faults wrap the MLP
+    autograd Function's backward; kernel faults (SOURCE_FAULTS) build a
+    copy of a csrc source with one line changed and bind it in place of the
+    module's library."""
     import torch
 
     from deepfepe_tpu_torch.ops import mlp
-    from deepfepe_tpu_torch.utils import build
 
     if fault == "none":
         return
-    if fault in EPI_FAULTS:
-        plant_epi(fault)
+    if fault in SOURCE_FAULTS:
+        plant_source(fault)
         return
-    if fault in XCONV_FAULTS:
-        plant_xconv(fault)
-        return
-    if fault in ("dx_zero", "dgamma_dbeta_swapped"):
-        backward = mlp.FusedPointNetMLP.backward
+    backward = mlp.FusedPointNetMLP.backward
 
-        def faulty(ctx, g):
-            grads = list(backward(ctx, g))
-            L = ctx.L
-            if fault == "dx_zero":
-                grads[0] = torch.zeros_like(grads[0])
-            else:
-                dg, db = grads[5 + L:5 + 2 * L], grads[5 + 2 * L:]
-                grads[5 + L:] = db + dg
-            return tuple(grads)
+    def faulty(ctx, g):
+        grads = list(backward(ctx, g))
+        L = ctx.L
+        if fault == "dx_zero":
+            grads[0] = torch.zeros_like(grads[0])
+        else:
+            dg, db = grads[5 + L:5 + 2 * L], grads[5 + 2 * L:]
+            grads[5 + L:] = db + dg
+        return tuple(grads)
 
-        mlp.FusedPointNetMLP.backward = staticmethod(faulty)
-        return
-    line, changed = {
-        "c1_next_item": ("dh[i] = __float2bfloat16(t3 - c1b[p]);",
-                         "dh[i] = __float2bfloat16(t3 - c1b[(p + C) % (total / Nn)]);"),
-        "c2_next_item": ("const float t2 = round_bf16(xh * c2b[p]);",
-                         "const float t2 = round_bf16(xh * c2b[(p + C) % (total / Nn)]);"),
-    }[fault]
-    src = (build.CSRC / mlp.SOURCE).read_text()
-    check(src.count(line) == 1, f"--plant {fault}: the line to change is not in {mlp.SOURCE}")
-    tmp = tempfile.mkdtemp(prefix="mlp_fault_")
-    cu, so = os.path.join(tmp, "mlp.cu"), os.path.join(tmp, "mlp.so")
-    with open(cu, "w") as f:
-        f.write(src.replace(line, changed))
-    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", so, cu], check=True,
-                   capture_output=True)
-    lib = ctypes.CDLL(so)
-    for name, args in mlp._SIGNATURES.items():
-        getattr(lib, name).argtypes = args
-        getattr(lib, name).restype = ctypes.c_int
-    mlp._lib = lib
+    mlp.FusedPointNetMLP.backward = staticmethod(faulty)
 
 
-def plant_epi(fault: str) -> None:
-    """K3's backward built from a copy of csrc/epi_residual.cu with one line
-    changed, loaded in place of the library: 'epi_unsafe_norm_grad' takes
-    the norm's gradient as x / |x| without the zero-norm guard (the plain
-    sqrt's NaN at a zero-row F); 'epi_tie_blocked' stops the gradient at
-    d == clamp_at, where torch.clamp passes it."""
+def plant_source(fault: str) -> None:
+    """A module's csrc source built from a copy with SOURCE_FAULTS[fault]'s
+    line changed, bound in place of its library."""
     import ctypes
+    import importlib
     import tempfile
 
-    from deepfepe_tpu_torch.ops import epi_residual as epi
     from deepfepe_tpu_torch.utils import build
 
-    line, changed = {
-        "epi_unsafe_norm_grad": (
-            "const float u1 = t.n1 > 0.f ? (-gd * as * t.r1 * t.r1) / t.n1 : 0.f;",
-            "const float u1 = (-gd * as * t.r1 * t.r1) / t.n1;"),
-        "epi_tie_blocked": ("const float gd = t.d <= clamp_at ? g : 0.f;",
-                            "const float gd = t.d < clamp_at ? g : 0.f;"),
-    }[fault]
-    src = (build.CSRC / epi.SOURCE).read_text()
-    check(src.count(line) == 1, f"--plant {fault}: the line to change is not in {epi.SOURCE}")
-    tmp = tempfile.mkdtemp(prefix="epi_fault_")
-    cu, so = os.path.join(tmp, "epi_residual.cu"), os.path.join(tmp, "epi_residual.so")
+    name, line, changed = SOURCE_FAULTS[fault]
+    mod = importlib.import_module(f"deepfepe_tpu_torch.ops.{name}")
+    src = (build.CSRC / mod.SOURCE).read_text()
+    check(src.count(line) == 1, f"--plant {fault}: the line to change is not in {mod.SOURCE}")
+    tmp = tempfile.mkdtemp(prefix=f"{name}_fault_")
+    cu, so = os.path.join(tmp, mod.SOURCE), os.path.join(tmp, f"{name}.so")
     with open(cu, "w") as f:
         f.write(src.replace(line, changed))
     subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", so, cu], check=True,
                    capture_output=True)
-    epi._lib = None
-    real = build.load
-    build.load = lambda source: ctypes.CDLL(so)  # noqa: E731
-    try:
-        epi._load()
-    finally:
-        build.load = real
-
-
-def plant_xconv(fault: str) -> None:
-    """csrc/conv_formulations.cu built from a copy with one line changed,
-    loaded in place of the library: 'xconv_tap_shift' reads taps9's centre
-    tap one column to the right."""
-    import ctypes
-    import tempfile
-
-    from deepfepe_tpu_torch.ops import conv_formulations as cf
-    from deepfepe_tpu_torch.utils import build
-
-    line, changed = {
-        "xconv_tap_shift": ("const bf16* ap = halo + ((r + ky) * hc + c0 + kx) * C;",
-                            "const bf16* ap = halo + ((r + ky) * hc + c0 + kx + (tap == 4)) * C;"),
-    }[fault]
-    src = (build.CSRC / cf.SOURCE).read_text()
-    check(src.count(line) == 1, f"--plant {fault}: the line to change is not in {cf.SOURCE}")
-    tmp = tempfile.mkdtemp(prefix="xconv_fault_")
-    cu, so = os.path.join(tmp, cf.SOURCE), os.path.join(tmp, "conv_formulations.so")
-    with open(cu, "w") as f:
-        f.write(src.replace(line, changed))
-    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", so, cu], check=True,
-                   capture_output=True)
-    cf._lib = cf.bind(ctypes.CDLL(so))
+    mod._lib = mod.bind(ctypes.CDLL(so))
 
 
 def run_planted(ph: Phases, fault: str) -> int:
     """The checks of the planted kernel with `fault` planted (the MLP checks
     for K2/K2b faults, the K3 checks for K3's, the X1-X4 checks for
-    conv_formulations.cu's; all three for 'none'): every check
-    runs and reports; exits 1 when any of them caught the fault, 0 when none
-    did."""
+    conv_formulations.cu's, the K4 or eigh9 kernel checks for theirs; all
+    of them for 'none'): every check runs and reports; exits 1 when any of
+    them caught the fault, 0 when none did."""
     plant(fault)
     caught = []
     mlp_checks = (("kernels_c_in_5", lambda: mlp_kernel_errors(ph, 5)),
@@ -2823,9 +2938,12 @@ def run_planted(ph: Phases, fault: str) -> int:
                   ("check_sample", lambda: phase_check_sample(ph)))
     xconv_checks = (("kernels_xconv", lambda: phase_xconv_kernels(ph)),
                     ("conv_formulations", lambda: phase_conv_formulations(ph)))
-    chosen = (mlp_checks + epi_checks + xconv_checks if fault == "none" else
-              epi_checks if fault in EPI_FAULTS else
-              xconv_checks if fault in XCONV_FAULTS else mlp_checks)
+    by_module = {"mlp": mlp_checks, "epi_residual": epi_checks,
+                 "conv_formulations": xconv_checks,
+                 "matcher": (("kernels_k4", lambda: phase_matcher_kernel(ph)),),
+                 "eigh9": (("kernels_eigh9", lambda: phase_kernels(ph)),)}
+    chosen = (sum(by_module.values(), ()) if fault == "none" else
+              by_module[SOURCE_FAULTS[fault][0]] if fault in SOURCE_FAULTS else mlp_checks)
     for name, fn in chosen:
         try:
             fn()
@@ -2844,8 +2962,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--plant", choices=FAULTS, help="plant this fault and run only the checks "
-                    "of its kernel (K2/K2b, K3 or X1-X4), to show that they catch it (exit 1 "
-                    "when caught); 'none' gives the sound readings")
+                    "of its kernel (K2/K2b, K3, X1-X4, K4 or eigh9), to show that they catch it "
+                    "(exit 1 when caught); 'none' gives the sound readings")
     args = ap.parse_args(argv)
     sys.path.insert(0, REPO)
     from deepfepe_tpu_torch.train.config import config_from_dict

@@ -76,16 +76,20 @@ def epi_residual_bwd_ref(pts1, pts2, F9, g, clamp_at: float, eps: float):
     return dF.reshape(P, M, 9), dpts1, dpts2
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from SOURCE."""
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.epi_residual_f32.argtypes = [P, P, P, P, I, I, I, Fl, Fl, P]
+    lib.epi_residual_f32.restype = ctypes.c_int
+    lib.epi_residual_bwd_f32.argtypes = [P, P, P, P, P, P, P, I, I, I, Fl, Fl, P]
+    lib.epi_residual_bwd_f32.restype = ctypes.c_int
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        lib = build.load(SOURCE)
-        P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.epi_residual_f32.argtypes = [P, P, P, P, I, I, I, Fl, Fl, P]
-        lib.epi_residual_f32.restype = ctypes.c_int
-        lib.epi_residual_bwd_f32.argtypes = [P, P, P, P, P, P, P, I, I, I, Fl, Fl, P]
-        lib.epi_residual_bwd_f32.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(build.load(SOURCE))
     return _lib
 
 

@@ -8,10 +8,12 @@ invalid columns (for nn12) and rows (for nn21), ties to the lowest index;
 dist12 = sqrt(max(2 - 2 best12, 0)); and the mutual check.
 
 `mutual_nn_kernel` runs the plain version, `mutual_nn_plain`, for tensors on
-the CPU; for CUDA tensors it launches `csrc/matcher.cu` or raises. Its
-outputs carry no gradient (the TPU kernel has no VJP either); the matcher
-recomputes the chosen pairs' distances from the indices
-(frontend/matching.py). `mutual_nn_kernel.launches` counts launches.
+the CPU; for CUDA tensors it launches `csrc/matcher.cu` or raises: a tile
+kernel writes per-tile (best, index) partials to scratch the wrapper
+allocates, and a fold kernel reduces them. Its outputs carry no gradient
+(the TPU kernel has no VJP either); the matcher recomputes the chosen
+pairs' distances from the indices (frontend/matching.py).
+`mutual_nn_kernel.launches` counts calls (two CUDA launches each).
 """
 
 from __future__ import annotations
@@ -51,23 +53,26 @@ def mutual_nn_plain(desc1, desc2, valid1, valid2):
     return nn12, nn21, dist12, _mutual(nn12, nn21, valid1, valid2)
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from SOURCE."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.mutual_nn_f32.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, P]
+    lib.mutual_nn_f32.restype = ctypes.c_int
+    lib.mutual_nn_f32_scratch_bytes.argtypes = [I, I]
+    lib.mutual_nn_f32_scratch_bytes.restype = ctypes.c_longlong
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        lib = build.load(SOURCE)
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.mutual_nn_f32.argtypes = [P, P, P, P, P, P, P, I, I, I, P]
-        lib.mutual_nn_f32.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(build.load(SOURCE))
     return _lib
 
 
 def launch(desc1, desc2, valid1, valid2):
     """Run K4 on CUDA tensors; returns (nn12, nn21, dist12)."""
     ts = (desc1, desc2, valid1, valid2)
-    if not all(t.is_cuda and t.device == desc1.device for t in ts):
-        raise ValueError(f"the K4 kernel takes CUDA tensors on one device, got "
-                         f"{[str(t.device) for t in ts]}")
     if desc1.dim() != 3 or desc2.shape != desc1.shape or valid1.shape != desc1.shape[:2] \
             or valid2.shape != desc1.shape[:2]:
         raise ValueError(f"K4 takes desc1, desc2 [B, K, D] and valid1, valid2 [B, K], got "
@@ -78,17 +83,24 @@ def launch(desc1, desc2, valid1, valid2):
     B, K, D = desc1.shape
     if B > MAX_B:
         raise ValueError(f"K4 takes at most {MAX_B} pairs, got {B}")
+    if not all(t.is_cuda and t.device == desc1.device for t in ts):
+        raise ValueError(f"the K4 kernel takes CUDA tensors on one device, got "
+                         f"{[str(t.device) for t in ts]}")
     d1, d2 = desc1.detach().contiguous(), desc2.detach().contiguous()
     v1, v2 = valid1.contiguous(), valid2.contiguous()
+    # 16-byte copies need rows that start on 16-byte boundaries.
+    vec = int(D % 4 == 0 and d1.data_ptr() % 16 == 0 and d2.data_ptr() % 16 == 0)
     lib = _load()
     nn12 = torch.empty((B, K), dtype=torch.int32, device=desc1.device)
     nn21 = torch.empty_like(nn12)
     dist12 = torch.empty((B, K), dtype=torch.float32, device=desc1.device)
+    scratch = torch.empty(lib.mutual_nn_f32_scratch_bytes(B, K), dtype=torch.uint8,
+                          device=desc1.device)
     with torch.cuda.device(desc1.device):
         stream = torch.cuda.current_stream(desc1.device).cuda_stream
         rc = lib.mutual_nn_f32(d1.data_ptr(), d2.data_ptr(), v1.data_ptr(), v2.data_ptr(),
-                               nn12.data_ptr(), nn21.data_ptr(), dist12.data_ptr(), B, K, D,
-                               stream)
+                               nn12.data_ptr(), nn21.data_ptr(), dist12.data_ptr(),
+                               scratch.data_ptr(), B, K, D, vec, stream)
     if rc != 0:
         raise RuntimeError(f"K4 kernel launch failed: cudaError {rc}")
     mutual_nn_kernel.launches += 1

@@ -137,15 +137,19 @@ _SIGNATURES = {
 }
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from SOURCE."""
+    for name, args in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        lib = build.load(SOURCE)
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(build.load(SOURCE))
     return _lib
 
 

@@ -124,3 +124,29 @@ def test_chip_smoke_fails_alone(tmp_path):
                          env=_env_without_cuda(), capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout and "deepfepe_tpu_torch" in out.stderr
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("fault", ["c1_next_item", "c2_next_item", "epi_unsafe_norm_grad",
+                                   "epi_tie_blocked", "xconv_tap_shift",
+                                   "matcher_fold_last_index", "eigh9_warp_skip_rotation"])
+def test_chip_smoke_kernel_faults_name_one_source_line(fault):
+    """Each `--plant` kernel fault changes a line that occurs once in its
+    module's CUDA source, and the module can bind the faulty build."""
+    import importlib
+
+    smoke = _chip_smoke()
+    assert fault in smoke.FAULTS
+    name, line, changed = smoke.SOURCE_FAULTS[fault]
+    mod = importlib.import_module(f"deepfepe_tpu_torch.ops.{name}")
+    src = (PKG / "csrc" / mod.SOURCE).read_text()
+    assert src.count(line) == 1 and changed not in src
+    assert callable(mod.bind)
