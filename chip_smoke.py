@@ -100,7 +100,10 @@ and for the conv-formulation slice:
 The line before the card's name line is the kernels' JSON summary (eigh9,
 K2, K2b, K5, K4, K5b, K3 and its backward, X1-X4, each with its launches
 on the path that carries it); the last line is {"ok": true, "device":
-{...}}. Any failed check exits 1.
+{...}}. Any failed check exits 1. K5's and K5b's bounds take their
+products as FP32 FFMA or as three TF32 passes on the tensor cores,
+whichever is faster (`f32_gemm_bound_ms`); `bound_fp32_ms` beside them is
+the FFMA-only bound of the kernels' earlier rows.
 
     python3 chip_smoke.py --plant FAULT
 
@@ -108,7 +111,9 @@ builds, plants FAULT (one of FAULTS: a wiring fault in the MLP's autograd
 Function, K2b built with one line changed, K3's backward built with one
 line changed, conv_formulations.cu built with taps9's centre tap read
 one column off, matcher.cu's fold keeping the higher index on equal
-values, or eigh9.cu's warp kernel skipping rotation (7, 8)) and runs only
+values, eigh9.cu's warp kernel skipping rotation (7, 8), conv3x3.cu's
+tensor-core kernel reading the centre tap one column off, or its fold of
+K5b's gradients dropping the last pixel group) and runs only
 that kernel's checks, printing their readings; it exits 1 when a check
 caught the fault. `--plant none` runs every set and gives the sound
 readings the bars are set against.
@@ -130,6 +135,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, dense
 # bf16 on the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 SOURCES = ("eigh9.cu", "mlp.cu", "conv3x3.cu", "matcher.cu", "epi_residual.cu",
@@ -200,7 +206,8 @@ MLP_BARS = {"forward": 2e-2, "gradient": 1.5e-1}
 F64_FACTOR, F64_FLOOR = 1.3, 1e-3
 FAULTS = ("none", "dx_zero", "dgamma_dbeta_swapped", "c1_next_item", "c2_next_item",
           "epi_unsafe_norm_grad", "epi_tie_blocked", "xconv_tap_shift",
-          "matcher_fold_last_index", "eigh9_warp_skip_rotation")
+          "matcher_fold_last_index", "eigh9_warp_skip_rotation", "conv_mma_tap_shift",
+          "conv_fold_drop_group")
 # Kernel faults, each planted into one source line: (module under
 # deepfepe_tpu_torch.ops, the line, its faulty form). c1/c2_next_item read
 # K2b's next item's coefficient; epi_unsafe_norm_grad takes the norm's
@@ -209,7 +216,10 @@ FAULTS = ("none", "dx_zero", "dgamma_dbeta_swapped", "c1_next_item", "c2_next_it
 # torch.clamp passes it; xconv_tap_shift reads taps9's centre tap one
 # column to the right; matcher_fold_last_index keeps the later tile on
 # equal values (the higher index); eigh9_warp_skip_rotation skips rotation
-# (7, 8) in the warp kernel.
+# (7, 8) in the warp kernel; conv_mma_tap_shift reads the centre tap's A
+# fragments one column to the right in conv3x3.cu's tensor-core kernel (K5
+# for Cin >= 2, K5b's dx); conv_fold_drop_group leaves the last pixel group
+# out of the fold of K5b's weight and affine gradients.
 SOURCE_FAULTS = {
     "c1_next_item": ("mlp", "dh[i] = __float2bfloat16(t3 - c1b[p]);",
                      "dh[i] = __float2bfloat16(t3 - c1b[(p + C) % (total / Nn)]);"),
@@ -228,6 +238,12 @@ SOURCE_FAULTS = {
     "eigh9_warp_skip_rotation": ("eigh9", "const float apq = __shfl_sync(FULL, g[q], p);",
                                  "const float apq = (p == 7 && q == 8) ? 0.0f "
                                  ": __shfl_sync(FULL, g[q], p);"),
+    "conv_mma_tap_shift": (
+        "conv", "const float* arow = sas + ((2 * warp + mi + ky) * HC + kx) * CKP;",
+        "const float* arow = sas + ((2 * warp + mi + ky) * HC + kx + (tap == 4)) * CKP;"),
+    "conv_fold_drop_group": (
+        "conv", "for (int g = 0; g < G; ++g) s += part[g * E + e];  // every group, in order",
+        "for (int g = 0; g < G - 1; ++g) s += part[g * E + e];"),
 }
 
 
@@ -1165,15 +1181,31 @@ MATCH_TIES = {"col": 60, "dup_cols": (70, 130), "row": 5, "dup_rows": (64, 190)}
 FRONT_BARS = {"desc": 1e-4, "offsets_px": 1e-4}
 
 
-def conv_bound_ms(B: int, H: int, W: int, Cin: int, C: int) -> tuple[float, str]:
-    """Least time for K5: 2 flops a multiply-add over B H W x 9 Cin x C,
-    plus the affine and ReLU (3 a output), over the FP32 rate; against x,
-    w, scale, bias read once and y written once over HBM."""
+def f32_gemm_bound_ms(macs: int, other_flops: int, nbytes: int) -> dict:
+    """Least time for float32 products held to float32's bars: `macs`
+    multiply-adds either as FP32 FFMA or as three TF32 passes on the tensor
+    cores (hi hi + hi lo + lo hi), whichever is faster, plus `other_flops`
+    on the FP32 pipes; against `nbytes` over HBM. `bound_by` is "bytes" or
+    "operations", `ops_route` the faster route ("fp32" or "tf32x3");
+    `bound_fp32_ms` is the bound with FFMA alone, as before the kernels
+    took the tensor cores."""
+    t_fp32 = (2 * macs + other_flops) / PEAK_FP32_FLOPS * 1e3
+    t_tf32 = (3 * 2 * macs / PEAK_TF32_FLOPS + other_flops / PEAK_FP32_FLOPS) * 1e3
+    t_ops = min(t_fp32, t_tf32)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops_route": "tf32x3" if t_tf32 < t_fp32 else "fp32",
+            "bound_fp32_ms": max(t_fp32, t_bytes)}
+
+
+def conv_bound_ms(B: int, H: int, W: int, Cin: int, C: int) -> dict:
+    """Least time for K5 (`f32_gemm_bound_ms`): B H W x 9 Cin x C
+    multiply-adds, plus the affine and ReLU (3 flops an output); against x,
+    w, scale, bias read once and y written once."""
     px = B * H * W
-    flops = 2 * px * 9 * Cin * C + 3 * px * C
     nbytes = 4 * (px * Cin + 9 * Cin * C + 2 * C + px * C)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return f32_gemm_bound_ms(px * 9 * Cin * C, 3 * px * C, nbytes)
 
 
 def match_bound_ms(B: int, K: int, D: int = 256) -> tuple[float, str]:
@@ -1240,13 +1272,12 @@ def phase_conv_kernel(ph: Phases) -> dict:
                 torch.relu_(F.conv2d(x_nchw, w_oihw, padding=1).mul_(s4).add_(t4))
 
         iters = 10 if B * H * W > 1e6 else 50
-        bound, bound_by = conv_bound_ms(B, H, W, Cin, C)
         with torch.no_grad():
             timing = {"ms": cuda_time_ms(lambda: conv_mod.conv3x3_affine_relu(x, w, s, t), iters),
                       "plain_ms": cuda_time_ms(
                           lambda: conv_mod.conv3x3_affine_relu_ref(x, w, s, t), iters),
                       "library_ms": cuda_time_ms(library, iters),
-                      "bound_ms": bound, "bound_by": bound_by}
+                      **conv_bound_ms(B, H, W, Cin, C)}
         ph.emit("kernels", kernel="conv3x3_affine_relu", layer=name, shape=[B, H, W, Cin, C],
                 errors=errs, bar=bar, within_bars=ok, **timing)
         check(ok, f"K5 at {name} {[B, H, W, Cin, C]} is outside its bar {bar}: {errs}")
@@ -1260,6 +1291,7 @@ def phase_conv_kernel(ph: Phases) -> dict:
             "replaces": "deepfepe_tpu/ops/pallas/conv_pallas.py:111", "launches": None,
             "max_abs_err": max_err, "ms": lead["ms"], "plain_ms": lead["plain_ms"],
             "bound_ms": lead["bound_ms"], "bound_by": lead["bound_by"],
+            "bound_fp32_ms": lead["bound_fp32_ms"], "ops_route": lead["ops_route"],
             "library_ms": lead["library_ms"],
             "library": "cuDNN F.conv2d (float32, TF32 off) + affine + ReLU in place",
             "shape": "inc.conv1: x [8, 376, 1240, 64] -> 64, f32", "per_layer": shapes}
@@ -1685,9 +1717,11 @@ JOINT_PER_STEP = {"stage1": {"conv3x3_affine_relu": 6, "conv3x3_affine_relu_bwd"
                              "epi_residual_bwd": 5},
                   "stage2": {"mutual_nn_kernel": 1, "eigh9": 5, "epi_residual": 5,
                              "epi_residual_bwd": 5}}
-K5B_KERNELS = ("conv3x3_wgrad_kernel", "sum_groups_kernel", "conv3x3_kernel<true>",
-               "conv3x3_dgrad_cin1_kernel")
-K5_KERNELS = ("conv3x3_kernel<false>", "conv3x3_cin1_kernel")
+# Device kernel names (substrings of the profiler's) of K5b and K5; a
+# stage-1 joint step must read more than 0 ms of each group.
+K5B_KERNELS = ("conv3x3_wgrad_mma_kernel", "conv3x3_wgrad_cin1_kernel", "sum_groups_kernel",
+               "conv3x3_mma_kernel<true", "conv3x3_dgrad_cin1_kernel")
+K5_KERNELS = ("conv3x3_mma_kernel<false", "conv3x3_cin1_kernel")
 # check_joint: gauss2 at 128x128 (inc's two convs take K5 and K5b), 2 pairs,
 # K = N = 128, depth 3, sign-canonical null vectors (eigh9 and the CPU's
 # Jacobi may return opposite signs), running statistics from a calibration
@@ -1723,16 +1757,15 @@ CHECK_JOINT = {"size": (128, 128), "pairs": 2, "K": 128, "depth": 3, "seed": 5}
 CHECK_JOINT_CAP = 0.1
 
 
-def conv_bwd_bound_ms(B, H, W, Cin, C, need_dx) -> tuple[float, str]:
-    """Least time for K5b: dw's 2 B H W 9 Cin C flops, dx's as many when
-    needed, and the affine gradients' ~6 a pixel-channel, over the FP32
-    rate; against x, y, dy (and w, scale, bias) read once and dx, dw,
-    dscale, dbias written once over HBM."""
+def conv_bwd_bound_ms(B, H, W, Cin, C, need_dx) -> dict:
+    """Least time for K5b (`f32_gemm_bound_ms`): dw's B H W 9 Cin C
+    multiply-adds, dx's as many when needed, and the affine gradients' ~6
+    flops a pixel-channel; against x, y, dy (and w, scale, bias) read once
+    and dx, dw, dscale, dbias written once."""
     px = B * H * W
-    flops = (2 if need_dx else 1) * 2 * px * 9 * Cin * C + 6 * px * C
+    macs = (2 if need_dx else 1) * px * 9 * Cin * C
     nbytes = 4 * (px * Cin + 2 * px * C + 2 * 9 * Cin * C + 4 * C + (px * Cin if need_dx else 0))
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return f32_gemm_bound_ms(macs, 6 * px * C, nbytes)
 
 
 def conv_bwd_f64(x, w, s, t, y, dy):
@@ -1801,13 +1834,12 @@ def phase_conv_bwd_kernel(ph: Phases) -> dict:
             torch.autograd.grad(out, wanted, dy_nchw, retain_graph=True)
 
         iters = 5 if B * H * W > 1e6 else 30
-        bound, bound_by = conv_bwd_bound_ms(B, H, W, Cin, C, need_dx)
         timing = {"ms": cuda_time_ms(lambda: conv_mod.conv3x3_affine_relu_bwd(
                       x, w, s, t, y, dy, need_dx), iters),
                   "plain_ms": cuda_time_ms(lambda: conv_mod.conv3x3_affine_relu_bwd_ref(
                       x, w, s, t, y, dy, need_dx), iters),
                   "library_ms": cuda_time_ms(library, iters),
-                  "bound_ms": bound, "bound_by": bound_by}
+                  **conv_bwd_bound_ms(B, H, W, Cin, C, need_dx)}
         ph.emit("kernels", kernel="conv3x3_affine_relu_bwd", layer=name,
                 shape=[B, H, W, Cin, C], need_dx=need_dx, errors=errs, bar_rel=CONV_BWD_REL,
                 within_bars=ok, **timing)
@@ -1824,7 +1856,8 @@ def phase_conv_bwd_kernel(ph: Phases) -> dict:
             "replaces": "deepfepe_tpu/ops/pallas/conv_pallas.py:175", "launches": None,
             "max_abs_err": max_err, "max_rel_err": max_rel,
             "ms": lead["ms"], "plain_ms": lead["plain_ms"], "bound_ms": lead["bound_ms"],
-            "bound_by": lead["bound_by"], "library_ms": lead["library_ms"],
+            "bound_by": lead["bound_by"], "bound_fp32_ms": lead["bound_fp32_ms"],
+            "ops_route": lead["ops_route"], "library_ms": lead["library_ms"],
             "library": "cuDNN backward of F.conv2d + affine + ReLU (autograd, float32, TF32 off)",
             "shape": "inc.conv1: x, y, dy [8, 376, 1240, 64] -> dx, dw, dscale, dbias, f32",
             "per_layer": shapes}
@@ -1966,6 +1999,9 @@ def phase_joint_step_times(ph: Phases, steps: int = 4) -> None:
         med = statistics.median(ms[1:])
         tr = read_trace(trace)
         k5b, k5 = device_ms(trace, K5B_KERNELS), device_ms(trace, K5_KERNELS)
+        if stage == "stage1":
+            check(k5b > 0 and k5 > 0, f"a stage-1 joint step read K5b {k5b} and K5 {k5} device "
+                  f"ms: K5B_KERNELS or K5_KERNELS name no kernel of the trace")
         ph.emit("joint_step", stage=stage, step_ms=ms, median_step_ms_after_first=med,
                 pairs_per_s=cfg.data.batch_size * 1e3 / med, profiled_step=tr,
                 k5b_device_ms=k5b, k5_device_ms=k5, k5b_share_of_window=k5b / tr["window_ms"],
@@ -2926,8 +2962,8 @@ def plant_source(fault: str) -> None:
 def run_planted(ph: Phases, fault: str) -> int:
     """The checks of the planted kernel with `fault` planted (the MLP checks
     for K2/K2b faults, the K3 checks for K3's, the X1-X4 checks for
-    conv_formulations.cu's, the K4 or eigh9 kernel checks for theirs; all
-    of them for 'none'): every check runs and reports; exits 1 when any of
+    conv_formulations.cu's, the K5 and K5b kernel checks for conv3x3.cu's,
+    the K4 or eigh9 kernel checks for theirs; all of them for 'none'): every check runs and reports; exits 1 when any of
     them caught the fault, 0 when none did."""
     plant(fault)
     caught = []
@@ -2940,6 +2976,8 @@ def run_planted(ph: Phases, fault: str) -> int:
                     ("conv_formulations", lambda: phase_conv_formulations(ph)))
     by_module = {"mlp": mlp_checks, "epi_residual": epi_checks,
                  "conv_formulations": xconv_checks,
+                 "conv": (("kernels_k5", lambda: phase_conv_kernel(ph)),
+                          ("kernels_k5b", lambda: phase_conv_bwd_kernel(ph))),
                  "matcher": (("kernels_k4", lambda: phase_matcher_kernel(ph)),),
                  "eigh9": (("kernels_eigh9", lambda: phase_kernels(ph)),)}
     chosen = (sum(by_module.values(), ()) if fault == "none" else
@@ -2962,7 +3000,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--plant", choices=FAULTS, help="plant this fault and run only the checks "
-                    "of its kernel (K2/K2b, K3, X1-X4, K4 or eigh9), to show that they catch it "
+                    "of its kernel (K2/K2b, K3, X1-X4, K5/K5b, K4 or eigh9), to show that they catch it "
                     "(exit 1 when caught); 'none' gives the sound readings")
     args = ap.parse_args(argv)
     sys.path.insert(0, REPO)

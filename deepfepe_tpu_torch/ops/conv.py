@@ -16,7 +16,10 @@ launch `csrc/conv3x3.cu` (K5, then K5b in the backward) or raise.
 `need_dx=False` declares the input's gradient unused: it is exactly zero
 and K5b launches no dx kernel. `conv3x3_affine_relu.launches` and
 `conv3x3_affine_relu_bwd.launches` count the wrapper calls that launched
-K5 and K5b.
+K5 and K5b. The kernels take their products on the tensor cores in three
+TF32 passes (each float32 operand split into a TF32 high and low part,
+only low x low dropped), which keeps them within float32's bars; Cin = 1
+runs FP32 kernels of its own.
 
 A float32 convolution on the card goes through cuDNN in TF32 by default
 (`torch.backends.cudnn.allow_tf32` is True), and on the CPU through oneDNN;
@@ -114,18 +117,22 @@ def conv3x3_affine_relu_bwd_ref(x, w, scale, bias, y, dy, need_dx: bool = True):
     return dx, dw.permute(2, 3, 1, 0).contiguous(), dscale, dbias
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from SOURCE."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.conv3x3_affine_relu_f32.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
+    lib.conv3x3_affine_relu_f32.restype = ctypes.c_int
+    lib.conv3x3_bwd_scratch_floats.argtypes = [I, I, I, I, I]
+    lib.conv3x3_bwd_scratch_floats.restype = ctypes.c_longlong
+    lib.conv3x3_affine_relu_bwd_f32.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P]
+    lib.conv3x3_affine_relu_bwd_f32.restype = ctypes.c_int
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        lib = build.load(SOURCE)
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.conv3x3_affine_relu_f32.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
-        lib.conv3x3_affine_relu_f32.restype = ctypes.c_int
-        lib.conv3x3_bwd_scratch_floats.argtypes = [I, I, I, I, I]
-        lib.conv3x3_bwd_scratch_floats.restype = ctypes.c_longlong
-        lib.conv3x3_affine_relu_bwd_f32.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P]
-        lib.conv3x3_affine_relu_bwd_f32.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(build.load(SOURCE))
     return _lib
 
 
@@ -151,6 +158,7 @@ def _check(x, w, scale, bias, *saved):
         raise ValueError("the K5 kernels take contiguous float32 tensors")
     if Cin == 1 and C > CIN1_MAX_C:
         raise ValueError(f"the K5 kernels take C <= {CIN1_MAX_C} for Cin = 1, got {C}")
+    # The forward's and dx's grids hold B x 64-channel groups in z.
     if B * -(-max(C, Cin) // 64) > MAX_GRID_Z:
         raise ValueError(f"the K5 kernels take at most {MAX_GRID_Z} images x 64-channel "
                          f"groups, got B = {B}, Cin = {Cin}, C = {C}")

@@ -19,6 +19,11 @@ numpy seeds.
   rtol = atol = 1e-5 of the plain version's (that file's need_dx test).
   Through autograd, the Function launches K5 once and K5b once and its
   gradients are the plain backward's on the same inputs.
+- K5 and K5b at the SuperPoint path's ragged shapes, reduced in B
+  (PATH_SHAPES), at the same bars; inc.conv0's Cin = 1 with
+  need_dx=False (dx exactly zero); two K5b calls on the same inputs give
+  bit-identical dw, dscale and dbias (a fixed summation order, no
+  atomics).
 - K4 on sign-vector descriptors (every similarity exact in any summation
   order, ties frequent): nn12, nn21, dist12 and mutual equal the plain
   version's exactly, ties to the lowest index.
@@ -119,6 +124,44 @@ def test_k5_k5b_through_autograd_on_the_card(cuda):
     for leaf, b in zip(leaves, want):
         rel = (leaf.grad - b).abs().max().item() / (b.abs().max().item() + 1e-9)
         assert rel < 1e-4, rel
+
+
+# The path's shapes, reduced in B: H = 94 and W = 310 (down2) are not
+# multiples of the kernels' 16 x 16 (forward, dx) or 4 x 32 (weight
+# gradient) tiles, nor is a.conv1b's 120 x 160; Cin = 128 and C = 128 as at
+# down2; Cin = 1 as at inc.conv0, whose input takes no gradient.
+PATH_SHAPES = [(1, 94, 310, 64, 128), (1, 94, 310, 128, 128), (2, 120, 160, 64, 64),
+               (1, 94, 310, 1, 64)]
+PATH_IDS = ["down2_conv0", "down2_conv1", "a_conv1b", "inc_conv0"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PATH_SHAPES, ids=PATH_IDS)
+def test_k5_at_the_path_shapes_on_the_card(cuda, shape):
+    x, w, s, t, ref, _ = _bwd_inputs(shape, cuda, seed=5)
+    with torch.no_grad():
+        y = conv.conv3x3_affine_relu(x, w, s, t)
+    torch.cuda.synchronize()
+    assert (y - ref).abs().max().item() <= 5e-5 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PATH_SHAPES, ids=PATH_IDS)
+def test_k5b_at_the_path_shapes_on_the_card(cuda, shape):
+    need_dx = shape[3] > 1
+    args = _bwd_inputs(shape, cuda, seed=6)
+    got = conv.conv3x3_affine_relu_bwd(*args, need_dx=need_dx)
+    again = conv.conv3x3_affine_relu_bwd(*args, need_dx=need_dx)
+    want = conv.conv3x3_affine_relu_bwd_ref(*args, need_dx=need_dx)
+    torch.cuda.synchronize()
+    if not need_dx:
+        assert got[0].abs().max().item() == 0.0
+    for name, a, b in list(zip(("dx", "dw", "dscale", "dbias"), got, want))[0 if need_dx else 1:]:
+        assert a.shape == b.shape, name
+        rel = (a - b).abs().max().item() / (b.abs().max().item() + 1e-9)
+        assert rel < 1e-4, (name, rel)
+    for name, a, b in zip(("dw", "dscale", "dbias"), got[1:], again[1:]):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
