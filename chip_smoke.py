@@ -188,7 +188,6 @@ TRAIN_QT = {
                  "train_iter": TRAIN_F_STEPS + TRAIN_QT_STEPS, "val_interval": 0,
                  "save_interval": 0},
 }
-MLP_FEATURES = (64, 128, 1024, 512, 256)
 # Each output of K2/K2b is held two ways. Against the plain version on the
 # same inputs, at the JAX package's bars (tests/test_mlp_pallas.py):
 # forward 2e-2, each gradient 1.5e-1 (bf16 backward transients and the
@@ -205,12 +204,15 @@ MLP_FEATURES = (64, 128, 1024, 512, 256)
 MLP_BARS = {"forward": 2e-2, "gradient": 1.5e-1}
 F64_FACTOR, F64_FLOOR = 1.3, 1e-3
 FAULTS = ("none", "dx_zero", "dgamma_dbeta_swapped", "c1_next_item", "c2_next_item",
-          "epi_unsafe_norm_grad", "epi_tie_blocked", "xconv_tap_shift",
+          "stats_straddle_next_item", "epi_unsafe_norm_grad", "epi_tie_blocked", "xconv_tap_shift",
           "matcher_fold_last_index", "eigh9_warp_skip_rotation", "conv_mma_tap_shift",
           "conv_fold_drop_group")
 # Kernel faults, each planted into one source line: (module under
-# deepfepe_tpu_torch.ops, the line, its faulty form). c1/c2_next_item read
-# K2b's next item's coefficient; epi_unsafe_norm_grad takes the norm's
+# deepfepe_tpu_torch.ops, the line, its faulty form). c1/c2_next_item build
+# K2b's dh with the next item's coefficient; stats_straddle_next_item
+# keeps a straddling 64-row tile's sums of the earlier item in the next
+# item's partial (the products' epilogue: the statistics and the
+# backward's r1, r2); epi_unsafe_norm_grad takes the norm's
 # gradient as x / |x| without the zero-norm guard (the plain sqrt's NaN at
 # a zero-row F); epi_tie_blocked stops the gradient at d == clamp_at, where
 # torch.clamp passes it; xconv_tap_shift reads taps9's centre tap one
@@ -221,10 +223,14 @@ FAULTS = ("none", "dx_zero", "dgamma_dbeta_swapped", "c1_next_item", "c2_next_it
 # for Cin >= 2, K5b's dx); conv_fold_drop_group leaves the last pixel group
 # out of the fold of K5b's weight and affine gradients.
 SOURCE_FAULTS = {
-    "c1_next_item": ("mlp", "dh[i] = __float2bfloat16(t3 - c1b[p]);",
-                     "dh[i] = __float2bfloat16(t3 - c1b[(p + C) % (total / Nn)]);"),
-    "c2_next_item": ("mlp", "const float t2 = round_bf16(xh * c2b[p]);",
-                     "const float t2 = round_bf16(xh * c2b[(p + C) % (total / Nn)]);"),
+    "c1_next_item": ("mlp", "load8(p.c1b + pi, k.c1);  // c1 of the row's item",
+                     "load8(p.c1b + (pi + p.pch) % (static_cast<long long>((p.prow + p.Nn - 1) "
+                     "/ p.Nn) * p.pch), k.c1);"),
+    "c2_next_item": ("mlp", "load8(p.c2b + pi, k.c2);  // c2 of the row's item",
+                     "load8(p.c2b + (pi + p.pch) % (static_cast<long long>((p.prow + p.Nn - 1) "
+                     "/ p.Nn) * p.pch), k.c2);"),
+    "stats_straddle_next_item": ("mlp", "s1 = 0.0f;  s2 = 0.0f;  // the next item's statistics "
+                                 "start here", ";  // planted: the sums run on into the next item"),
     "epi_unsafe_norm_grad": (
         "epi_residual", "const float u1 = t.n1 > 0.f ? (-gd * as * t.r1 * t.r1) / t.n1 : 0.f;",
         "const float u1 = (-gd * as * t.r1 * t.r1) / t.n1;"),
@@ -268,18 +274,10 @@ class Phases:
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
-    import torch
+    """Mean ms a call of back-to-back calls (`tools/profile_mlp.cuda_time_ms`)."""
+    from deepfepe_tpu_torch.tools.profile_mlp import cuda_time_ms as timed
 
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return timed(fn, iters, warmup)
 
 
 def gram_batch(B: int, rows: int, gen):
@@ -602,7 +600,9 @@ def build_all(ph: Phases) -> None:
 
 
 def mlp_dims(c_in: int) -> list:
-    return [c_in, *MLP_FEATURES, 1]
+    from deepfepe_tpu_torch.models.error_estimator import FEATURES
+
+    return [c_in, *FEATURES, 1]
 
 
 def mlp_bound_ms(c_in: int, rows: int, backward: bool) -> tuple[float, str]:
@@ -696,27 +696,11 @@ def worst(errs: dict) -> dict:
 
 def mlp_inputs(c_in: int, B: int = 8, N: int = 1000):
     """A full-width ErrorEstimator on the card with non-trivial affines and
-    final bias, its parameters as the wrappers take them, x and g."""
-    import torch
+    final bias, its parameters as the wrappers take them, x and g
+    (`tools/profile_mlp.mlp_inputs`)."""
+    from deepfepe_tpu_torch.tools.profile_mlp import mlp_inputs as inputs
 
-    from deepfepe_tpu_torch.models import ErrorEstimator
-
-    gen = torch.Generator().manual_seed(c_in)
-    est = ErrorEstimator(c_in, 1, dtype=torch.bfloat16)
-    est.reset_parameters(gen)
-    with torch.no_grad():
-        for m in est.fw[1:-1:3]:
-            m.weight.uniform_(0.5, 1.5, generator=gen)
-            m.bias.uniform_(-0.2, 0.2, generator=gen)
-        est.fw[-1].bias.fill_(0.1)
-    est = est.cuda()
-    params = ([est.fw[i].weight.detach() for i in range(0, 15, 3)],
-              [est.fw[i + 1].weight.detach() for i in range(0, 15, 3)],
-              [est.fw[i + 1].bias.detach() for i in range(0, 15, 3)],
-              est.fw[-1].weight.detach(), est.fw[-1].bias.detach())
-    x = torch.rand(B, N, c_in, generator=gen).cuda()
-    g = (torch.randn(B, N, 1, generator=gen) / (B * N)).cuda()
-    return est, params, x, g
+    return inputs(c_in, B, N)
 
 
 def mlp_kernel_errors(ph: Phases, c_in: int, B: int = 8, N: int = 1000) -> dict:
@@ -749,75 +733,134 @@ def mlp_kernel_errors(ph: Phases, c_in: int, B: int = 8, N: int = 1000) -> dict:
     return {"fwd_abs": (out - ref).abs().max().item(), "bwd_abs": max_abs}
 
 
+# K2 and K2b are timed at the path's B = 8 and at bench.py's solver-step
+# point, B = 64 (N = 1000 each); one call of each is profiled for its device
+# operations, which must be mlp_device_ops (L = 5 hidden layers).
+MLP_TIMED_B = (8, 64)
+
+
+def mlp_device_ops(name: str) -> int:
+    """Device operations a call: K2 packs, runs a product and a fold a
+    layer and the final pass; K2b runs 5 a layer and 3 more."""
+    from deepfepe_tpu_torch.models.error_estimator import FEATURES
+
+    per_layer, more = {"mlp_forward": (2, 2), "mlp_backward": (5, 3)}[name]
+    return per_layer * len(FEATURES) + more
+
+
+def mlp_determinism(ph: Phases, c_in: int) -> bool:
+    """Two K2 and two K2b calls on the same inputs give the same bits."""
+    import torch
+
+    from deepfepe_tpu_torch.ops import mlp
+
+    _, (Ws, gammas, betas, Wf, bf), x, g = mlp_inputs(c_in)
+    outs = [(mlp.mlp_forward(x, Ws, gammas, betas, Wf, bf),
+             flat_grads(mlp.mlp_backward(x, g, Ws, gammas, betas, Wf))) for _ in range(2)]
+    torch.cuda.synchronize()
+    (o1, g1), (o2, g2) = outs
+    same = bool(torch.equal(o1, o2) and all(torch.equal(a, b) for a, b in zip(g1, g2)))
+    ph.emit("kernels", kernel="mlp", c_in=c_in, bitwise_repeat=same)
+    check(same, f"two K2/K2b calls at C_in={c_in} gave different bits")
+    return same
+
+
 def phase_mlp_kernels(ph: Phases) -> list:
     """K2 and K2b against their plain versions at B=8, N=1000, C_in 5 and 8
-    (the input and update weight MLPs), timed beside the plain versions and
-    the port's unfused route (cuBLAS bf16 matmuls and torch InstanceNorm,
-    the default use_pallas_mlp: false): no single PyTorch call computes the
-    whole stack, so that route is the yardstick users have."""
+    (the input and update weight MLPs), bit-identical from call to call,
+    timed at B = 8 and 64 beside the plain versions and the port's unfused
+    route (cuBLAS bf16 matmuls and torch InstanceNorm, the default
+    use_pallas_mlp: false): no single PyTorch call computes the whole
+    stack, so that route is the yardstick users have. One call of each is
+    profiled: its device operations and their time by kernel."""
     import torch
 
     from deepfepe_tpu_torch.models import ErrorEstimator
     from deepfepe_tpu_torch.ops import mlp
+    from deepfepe_tpu_torch.tools.profile_mlp import device_profile
 
-    B, N = 8, 1000
+    N = 1000
     rows_out = {}
     for c_in in (5, 8):
-        errs = mlp_kernel_errors(ph, c_in, B, N)
-        est, (Ws, gammas, betas, Wf, bf), x, g = mlp_inputs(c_in, B, N)
-        unfused = ErrorEstimator(c_in, 1, dtype=torch.bfloat16).cuda()
-        unfused.load_state_dict(est.state_dict())
-        xg = x.clone().requires_grad_(True)
+        errs = mlp_kernel_errors(ph, c_in, 8, N)
+        mlp_determinism(ph, c_in)
+        for B in MLP_TIMED_B:
+            est, (Ws, gammas, betas, Wf, bf), x, g = mlp_inputs(c_in, B, N)
+            unfused = ErrorEstimator(c_in, 1, dtype=torch.bfloat16).cuda()
+            unfused.load_state_dict(est.state_dict())
+            xg = x.clone().requires_grad_(True)
 
-        def unfused_fwd():
-            with torch.no_grad():
-                unfused(x)
+            def unfused_fwd():
+                with torch.no_grad():
+                    unfused(x)
 
-        def unfused_fwd_bwd():
-            unfused(xg).backward(g)
+            def unfused_fwd_bwd():
+                unfused(xg).backward(g)
 
-        est.use_fused = True
+            est.use_fused = True
 
-        def fused_fwd_bwd():
-            est(xg).backward(g)
+            def fused_fwd_bwd():
+                est(xg).backward(g)
 
-        t = {
-            "K2_ms": cuda_time_ms(lambda: mlp.mlp_forward(x, Ws, gammas, betas, Wf, bf), 50),
-            "K2b_ms": cuda_time_ms(lambda: mlp.mlp_backward(x, g, Ws, gammas, betas, Wf), 20),
-            "fused_fwd_bwd_ms": cuda_time_ms(fused_fwd_bwd, 20),
-            "plain_fwd_ms": cuda_time_ms(
-                lambda: mlp.reference_pointnet_mlp(x, Ws, gammas, betas, Wf, bf), 10),
-            "plain_bwd_ms": cuda_time_ms(
-                lambda: mlp.reference_pointnet_mlp_bwd(x, g, Ws, gammas, betas, Wf), 10),
-            "unfused_fwd_ms": cuda_time_ms(unfused_fwd, 50),
-            "unfused_fwd_bwd_ms": cuda_time_ms(unfused_fwd_bwd, 20),
-        }
-        fb, fb_by = mlp_bound_ms(c_in, B * N, backward=False)
-        bb, bb_by = mlp_bound_ms(c_in, B * N, backward=True)
-        ph.emit("kernels", kernel="mlp", c_in=c_in, timing=t, K2_bound_ms=fb, K2_bound_by=fb_by,
-                K2b_bound_ms=bb, K2b_bound_by=bb_by)
-        rows_out[c_in] = dict(t=t, fb=(fb, fb_by), bb=(bb, bb_by), **errs)
+            def fwd():
+                return mlp.mlp_forward(x, Ws, gammas, betas, Wf, bf)
 
-    r8, r5 = rows_out[8], rows_out[5]
+            def bwd():
+                return mlp.mlp_backward(x, g, Ws, gammas, betas, Wf)
+
+            n = 1 if B == 8 else 8
+            t = {
+                "K2_ms": cuda_time_ms(fwd, 50), "K2b_ms": cuda_time_ms(bwd, 20),
+                "fused_fwd_bwd_ms": cuda_time_ms(fused_fwd_bwd, 20),
+                "plain_fwd_ms": cuda_time_ms(
+                    lambda: mlp.reference_pointnet_mlp(x, Ws, gammas, betas, Wf, bf), 10 // n + 1),
+                "plain_bwd_ms": cuda_time_ms(
+                    lambda: mlp.reference_pointnet_mlp_bwd(x, g, Ws, gammas, betas, Wf),
+                    10 // n + 1),
+                "unfused_fwd_ms": cuda_time_ms(unfused_fwd, 50),
+                "unfused_fwd_bwd_ms": cuda_time_ms(unfused_fwd_bwd, 20),
+            }
+            prof = {"K2": device_profile(fwd), "K2b": device_profile(bwd)}
+            fb, fb_by = mlp_bound_ms(c_in, B * N, backward=False)
+            bb, bb_by = mlp_bound_ms(c_in, B * N, backward=True)
+            ph.emit("kernels", kernel="mlp", c_in=c_in, B=B, timing=t, K2_bound_ms=fb,
+                    K2_bound_by=fb_by, K2b_bound_ms=bb, K2b_bound_by=bb_by,
+                    K2_device=prof["K2"], K2b_device=prof["K2b"])
+            for name, key in (("mlp_forward", "K2"), ("mlp_backward", "K2b")):
+                # A trace may miss the window's first kernel, never add one.
+                want = mlp_device_ops(name)
+                check(0 < prof[key]["device_ops"] <= want,
+                      f"a {key} call ran {prof[key]['device_ops']} device operations, "
+                      f"not {want}")
+            rows_out[c_in, B] = dict(t=t, fb=(fb, fb_by), bb=(bb, bb_by), prof=prof, **errs)
+
+    def row(name, key, c_in):
+        r8, r64 = rows_out[c_in, 8], rows_out[c_in, 64]
+        fwd = key == "K2"
+        ms, plain = (f"{key}_ms", "plain_fwd_ms" if fwd else "plain_bwd_ms")
+        lib, bound = ("unfused_fwd_ms" if fwd else "unfused_fwd_bwd_ms"), ("fb" if fwd else "bb")
+        return {"ms": r8["t"][ms], "plain_ms": r8["t"][plain], "bound_ms": r8[bound][0],
+                "bound_by": r8[bound][1], "library_ms": r8["t"][lib],
+                "device_ms": r8["prof"][key]["device_ms"],
+                "device_ops": r8["prof"][key]["device_ops"],
+                "ms_B64": r64["t"][ms], "plain_ms_B64": r64["t"][plain],
+                "bound_ms_B64": r64[bound][0], "library_ms_B64": r64["t"][lib],
+                "device_ms_B64": r64["prof"][key]["device_ms"]}
+
+    r8, r5 = rows_out[8, 8], rows_out[5, 8]
     k2 = {"name": "mlp_forward", "route": "cuda", "source": "deepfepe_tpu_torch/csrc/mlp.cu",
           "replaces": "deepfepe_tpu/ops/pallas/mlp_pallas.py:97", "launches": None,
-          "max_abs_err": max(r8["fwd_abs"], r5["fwd_abs"]), "ms": r8["t"]["K2_ms"],
-          "plain_ms": r8["t"]["plain_fwd_ms"], "bound_ms": r8["fb"][0], "bound_by": r8["fb"][1],
-          "library_ms": r8["t"]["unfused_fwd_ms"],
+          "max_abs_err": max(r8["fwd_abs"], r5["fwd_abs"]), **row("mlp_forward", "K2", 8),
           "library": "the port's unfused ErrorEstimator forward (cuBLAS bf16 + torch ops)",
-          "shape": "x [8, 1000, 8] f32, 64-128-1024-512-256-1", "ms_cin5": r5["t"]["K2_ms"],
-          "plain_ms_cin5": r5["t"]["plain_fwd_ms"], "bound_ms_cin5": r5["fb"][0],
-          "library_ms_cin5": r5["t"]["unfused_fwd_ms"]}
+          "shape": "x [8, 1000, 8] f32, 64-128-1024-512-256-1; _B64: x [64, 1000, 8]",
+          "cin5": row("mlp_forward", "K2", 5), "bitwise_repeat": True}
     k2b = {"name": "mlp_backward", "route": "cuda", "source": "deepfepe_tpu_torch/csrc/mlp.cu",
            "replaces": "deepfepe_tpu/ops/pallas/mlp_pallas.py:126", "launches": None,
-           "max_abs_err": max(r8["bwd_abs"], r5["bwd_abs"]), "ms": r8["t"]["K2b_ms"],
-           "plain_ms": r8["t"]["plain_bwd_ms"], "bound_ms": r8["bb"][0],
-           "bound_by": r8["bb"][1], "library_ms": r8["t"]["unfused_fwd_bwd_ms"],
+           "max_abs_err": max(r8["bwd_abs"], r5["bwd_abs"]), **row("mlp_backward", "K2b", 8),
            "library": "the port's unfused ErrorEstimator forward+backward (autograd)",
            "fused_fwd_bwd_ms": r8["t"]["fused_fwd_bwd_ms"],
-           "shape": "g [8, 1000, 1] f32, as K2", "ms_cin5": r5["t"]["K2b_ms"],
-           "plain_ms_cin5": r5["t"]["plain_bwd_ms"], "bound_ms_cin5": r5["bb"][0],
-           "library_ms_cin5": r5["t"]["unfused_fwd_bwd_ms"]}
+           "shape": "g [8, 1000, 1] f32, as K2", "cin5": row("mlp_backward", "K2b", 5),
+           "bitwise_repeat": True}
     return [k2, k2b]
 
 

@@ -34,11 +34,14 @@ from ..utils import build
 SOURCE = "mlp.cu"
 EPS = 1e-5
 MAX_IN = 128  # widest C_in and output the routing sends here (as in JAX)
-# Split the weight-gradient products over rows until about this many
-# blocks are in flight (two per SM of an H100), keeping >= 512 rows each.
+MAX_LAST = 1024  # widest last hidden layer the final passes take
+MAX_SEGMENTS = 16  # buffers one pack launch casts: x, the hidden weights, Wf
+TILE = 64  # rows of a statistics tile (one warpgroup's wgmma M)
+BLOCK_ROWS = 128  # rows of a product block (two warpgroups)
+K_ALIGN = 16  # the first layer's depth is padded to wgmma's k16
+# Split the weight-gradient products over row ranges until about this many
+# blocks are in flight (two waves of one block an SM of an H100).
 TARGET_BLOCKS = 264
-MIN_ROWS_PER_SPLIT = 512
-TILE = 64
 
 _lib = None
 _recorded = None  # the list `record_calls` fills, or None
@@ -125,15 +128,13 @@ def reference_pointnet_mlp_bwd(x, g, Ws, gammas, betas, Wf, slope: float = 0.01)
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "mlp_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _LL, _P],
-    "mlp_sum_splits": [_P, _P, _LL, _I, _P],
-    "mlp_cast_bf16": [_P, _P, _LL, _P],
-    "mlp_in_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "mlp_in_apply": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-    "mlp_bwd_reduce": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-    "mlp_sum_items": [_P, _P, _P, _P, _I, _I, _P],
-    "mlp_bwd_dh": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-    "mlp_colsum_bf16": [_P, _P, _LL, _I, _P],
+    "mlp_pack": [_P, _I, _P],
+    "mlp_gemm_fwd": [_P] * 11 + [_I] * 5 + [_F, _P],
+    "mlp_fold": [_I] + [_P] * 10 + [_I] * 4 + [_P, _P, _LL, _I, _P, _P, _LL, _I, _P],
+    "mlp_final_fwd": [_P] * 6 + [_I] * 4 + [_F, _P],
+    "mlp_final_bwd": [_P] * 14 + [_I] * 5 + [_F, _P],
+    "mlp_gemm_dw": [_P] * 7 + [_I, _P] + [_I] * 6 + [_P],
+    "mlp_gemm_dy": [_P, _P, _I] + [_P] * 7 + [_I] * 5 + [_F, _P],
 }
 
 
@@ -158,34 +159,61 @@ def _stream(x: torch.Tensor) -> int:
 
 
 class _Launcher:
-    """Calls into the library on one stream; raises on a failed launch."""
+    """Calls into the library on one stream; raises on a failed launch.
+    Buffers are passed as addresses (ints)."""
 
     def __init__(self, lib, stream: int):
         self.lib, self.stream = lib, stream
 
     def __call__(self, name: str, *args):
-        args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
         rc = getattr(self.lib, name)(*args, self.stream)
         if rc != 0:
-            raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+            raise RuntimeError(f"{name} kernel launch failed: error {rc}")
 
-    def gemm(self, A, B, C, M, N, K, a_t, b_t, bias=None):
-        """C [M, N] f32 = op(A) @ op(B) (+ bias); A is [M, K] or, with a_t,
-        [K, M]; B is [K, N] or, with b_t, [N, K]; all contiguous. A long
-        depth is split over row ranges whose partial sums are added in a
-        fixed order."""
-        lda = M if a_t else K
-        ldb = K if b_t else N
-        tiles = -(-M // TILE) * -(-N // TILE)
-        splits = max(1, min(-(-TARGET_BLOCKS // tiles), K // MIN_ROWS_PER_SPLIT))
-        if splits == 1:
-            self("mlp_gemm", A, B, C, bias, M, N, K, lda, ldb, N, a_t, b_t, 1, 0)
-            return
-        if bias is not None:
-            raise ValueError("a bias is added only to an unsplit product")
-        part = torch.empty((splits, M, N), dtype=_F32, device=C.device)
-        self("mlp_gemm", A, B, part, None, M, N, K, lda, ldb, N, a_t, b_t, splits, M * N)
-        self("mlp_sum_splits", part, C, M * N, splits)
+
+# Host-side geometry of the kernels: 64-row tiles over the B*N rows (a
+# product block holds two), items of N rows each. A tile's statistics are
+# kept per item it holds ("slots"), and folded per item over its tiles in
+# tile order.
+
+def pad_k(c_in: int) -> int:
+    """The first layer's depth, padded with zero columns to wgmma's k16."""
+    return -(-c_in // K_ALIGN) * K_ALIGN
+
+
+def tile_slots(n_points: int, B: int) -> int:
+    """Most items a 64-row tile can hold: a tile starts on a multiple of 64
+    and spans 63 further rows."""
+    return min(B, -(-(TILE - 1) // n_points) + 1)
+
+
+def dw_splits(rows: int, cout: int, cin: int) -> tuple:
+    """(rows a split, splits) of a weight-gradient product: row ranges of
+    whole 64-row stages, enough of them for about TARGET_BLOCKS blocks."""
+    tiles = -(-cout // BLOCK_ROWS) * -(-cin // _tile_cols(cin))
+    stages = -(-rows // TILE)
+    per = -(-stages // max(1, min(stages, -(-TARGET_BLOCKS // tiles))))
+    return per * TILE, -(-stages // per)
+
+
+def _tile_cols(n: int) -> int:
+    """A product tile's width for n output columns (csrc/mlp.cu nb_for)."""
+    return 256 if n > 128 else 128 if n > 64 else 64
+
+
+class _Workspace:
+    """Addresses of named buffers in one byte allocation, each 256-byte
+    aligned: `name` is an int, or a list of `count` ints."""
+
+    def __init__(self, device, specs):
+        """specs: (name, count or None, bytes of one buffer)."""
+        sizes = [(name, count, -(-nbytes // 256) * 256) for name, count, nbytes in specs]
+        self.buf = torch.empty(sum((c or 1) * n for _, c, n in sizes) or 1, dtype=torch.uint8,
+                               device=device)
+        addr = self.buf.data_ptr()
+        for name, count, size in sizes:
+            setattr(self, name, addr if count is None else [addr + k * size for k in range(count)])
+            addr += (count or 1) * size
 
 
 def _require_cuda(x: torch.Tensor, tensors: Sequence[torch.Tensor]) -> None:
@@ -206,6 +234,8 @@ def _check_args(x, Ws, gammas, betas, Wf, bf) -> List[int]:
     B, N, c_in = x.shape
     if not (len(Ws) == len(gammas) == len(betas) and Ws):
         raise ValueError("MLP kernels need one (W, gamma, beta) per hidden layer")
+    if len(Ws) + 2 > MAX_SEGMENTS:
+        raise ValueError(f"MLP kernels take at most {MAX_SEGMENTS - 2} hidden layers")
     dims = [c_in]
     for W, g, b in zip(Ws, gammas, betas):
         if W.dim() != 2 or W.shape[1] != dims[-1]:
@@ -214,12 +244,17 @@ def _check_args(x, Ws, gammas, betas, Wf, bf) -> List[int]:
         if g.shape != (dims[-1],) or b.shape != (dims[-1],):
             raise ValueError(f"norm affine {tuple(g.shape)}/{tuple(b.shape)} for width "
                              f"{dims[-1]}")
+        if dims[-1] % 8:
+            raise ValueError(f"MLP kernels take hidden widths that are multiples of 8, got "
+                             f"{dims[-1]}")
     if Wf.dim() != 2 or Wf.shape[1] != dims[-1] or (bf is not None and
                                                     bf.shape != (Wf.shape[0],)):
         raise ValueError(f"final weight {tuple(Wf.shape)} does not take width {dims[-1]}")
     dims.append(Wf.shape[0])
     if c_in > MAX_IN or dims[-1] > MAX_IN:
         raise ValueError(f"MLP kernels take C_in and out <= {MAX_IN}, got {c_in}, {dims[-1]}")
+    if dims[-2] > MAX_LAST:
+        raise ValueError(f"MLP kernels take a last hidden width <= {MAX_LAST}, got {dims[-2]}")
     params = [*Ws, *gammas, *betas, Wf] + ([bf] if bf is not None else [])
     for t in params:
         if t.dtype != _F32 or not t.is_contiguous():
@@ -229,34 +264,30 @@ def _check_args(x, Ws, gammas, betas, Wf, bf) -> List[int]:
     return dims
 
 
-def _forward_pass(run: _Launcher, x, Wb, gammas, betas, dims, slope, stash: bool):
-    """The hidden layers. Returns the last layer's output [B*N, C_L] bf16
-    and, with `stash`, the per-layer (x_in, xhat, inv) for the backward."""
-    B, N, c_in = x.shape
-    rows, cmax, dev = B * N, max(dims[1:-1]), x.device
-    cur = torch.empty((rows, c_in), dtype=_BF16, device=dev)
-    run("mlp_cast_bf16", x, cur, rows * c_in)
-    h = torch.empty(rows * cmax, dtype=_F32, device=dev)
-    mean, inv, scale, shift = torch.empty((4, B * cmax), dtype=_F32, device=dev)
-    ping = [] if stash else [torch.empty(rows * cmax, dtype=_BF16, device=dev)
-                             for _ in range(2)]
-    acts = []
-    for i, (W, gamma, beta) in enumerate(zip(Wb, gammas, betas)):
-        cin, cout = dims[i], dims[i + 1]
-        hv = h[: rows * cout].view(rows, cout)
-        run.gemm(cur, W, hv, rows, cout, cin, a_t=0, b_t=1)
-        if stash:
-            inv = torch.empty(B * cout, dtype=_F32, device=dev)
-            y = torch.empty((rows, cout), dtype=_BF16, device=dev)
-            xhat = torch.empty((rows, cout), dtype=_BF16, device=dev)
-        else:
-            y, xhat = ping[i % 2][: rows * cout].view(rows, cout), None
-        run("mlp_in_stats", hv, gamma, beta, mean, inv, scale, shift, B, N, cout)
-        run("mlp_in_apply", hv, mean, inv, scale, shift, y, xhat, B, N, cout, slope)
-        if stash:
-            acts.append((cur, xhat, inv))
-        cur = y
-    return cur, acts
+def _packed_shapes(dims) -> List[tuple]:
+    """[rows, cols] of the packed bf16 weights W_0 (padded), ..., Wf."""
+    cp = pad_k(dims[0])
+    shapes = [(dims[i + 1], cp if i == 0 else dims[i]) for i in range(len(dims) - 2)]
+    return shapes + [(dims[-1], dims[-2])]
+
+
+def _packed_bytes(dims) -> int:
+    return sum(-(-2 * r * c // 256) * 256 for r, c in _packed_shapes(dims))
+
+
+def _pack(run: _Launcher, x, Ws, Wf, dims, ws) -> List[int]:
+    """One launch: x and every weight cast to bf16 into the workspace, x and
+    W_0 padded to pad_k(C_in) columns. Returns the packed weights'
+    addresses [W_0, ..., W_{L-1}, Wf]."""
+    rows = x.shape[0] * x.shape[1]
+    segs, packed, addr = [x.data_ptr(), ws.xp, rows, dims[0], pad_k(dims[0])], [], ws.w
+    for W, (r, c) in zip([*Ws, Wf], _packed_shapes(dims)):
+        segs += [W.data_ptr(), addr, r, W.shape[1], c]
+        packed.append(addr)
+        addr += -(-2 * r * c // 256) * 256
+    table = (ctypes.c_longlong * len(segs))(*segs)
+    run("mlp_pack", ctypes.addressof(table), len(segs) // 5)
+    return packed
 
 
 def mlp_forward(x, Ws, gammas, betas, Wf, bf, slope: float = 0.01) -> torch.Tensor:
@@ -265,13 +296,30 @@ def mlp_forward(x, Ws, gammas, betas, Wf, bf, slope: float = 0.01) -> torch.Tens
     _require_cuda(x, [*Ws, *gammas, *betas, Wf, bf])
     dims = _check_args(x, Ws, gammas, betas, Wf, bf)
     B, N, _ = x.shape
-    rows, out_size = B * N, dims[-1]
+    rows, L, cp = B * N, len(Ws), pad_k(dims[0])
+    cmax, tiles, slots = max(dims[1:-1]), -(-rows // TILE), tile_slots(N, B)
     run = _Launcher(_load(), _stream(x))
-    Wb = [W.to(_BF16).contiguous() for W in Ws]
-    y, _ = _forward_pass(run, x, Wb, gammas, betas, dims, slope, stash=False)
-    out = torch.empty((B, N, out_size), dtype=_F32, device=x.device)
-    run.gemm(y, Wf.to(_BF16).contiguous(), out, rows, out_size, dims[-2], a_t=0, b_t=1,
-             bias=bf)
+    ws = _Workspace(x.device, [("xp", None, 2 * rows * cp), ("w", None, _packed_bytes(dims)),
+                               ("h", 2, 4 * rows * cmax), ("st", 2, 4 * B * cmax),
+                               ("part", 2, 4 * tiles * slots * cmax)])
+    Wp = _pack(run, x, Ws, Wf, dims, ws)
+    gp, bp = [t.data_ptr() for t in gammas], [t.data_ptr() for t in betas]
+    scale, shift = ws.st
+    prev = ws.xp
+    for i in range(L):
+        h = ws.h[i % 2]
+        if i == 0:
+            run("mlp_gemm_fwd", prev, None, None, None, None, None, None, Wp[0], h, *ws.part,
+                rows, dims[1], cp, N, slots, slope)
+        else:
+            run("mlp_gemm_fwd", prev, scale, shift, None, None, None, None, Wp[i], h, *ws.part,
+                rows, dims[i + 1], dims[i], N, slots, slope)
+        run("mlp_fold", 0, *ws.part, gp[i], bp[i], None, None, None, scale, shift, None,
+            B, N, dims[i + 1], slots, None, None, 0, 0, None, None, 0, 0)
+        prev = h
+    out = torch.empty((B, N, dims[-1]), dtype=_F32, device=x.device)
+    run("mlp_final_fwd", prev, scale, shift, Wp[L], bf.data_ptr(), out.data_ptr(), rows,
+        dims[-2], dims[-1], N, slope)
     mlp_forward.launches += 1
     return out
 
@@ -283,46 +331,76 @@ def mlp_backward(x, g, Ws, gammas, betas, Wf, slope: float = 0.01):
     _require_cuda(x, [g, *Ws, *gammas, *betas, Wf])
     dims = _check_args(x, Ws, gammas, betas, Wf, None)
     B, N, c_in = x.shape
-    rows, out_size, dev = B * N, dims[-1], x.device
+    rows, L, cp, out_size, dev = B * N, len(Ws), pad_k(c_in), dims[-1], x.device
     if g.shape != (B, N, out_size) or g.dtype != _F32 or not g.is_contiguous():
         raise ValueError(f"cotangent must be contiguous float32 {(B, N, out_size)}, got "
                          f"{tuple(g.shape)} {g.dtype}")
+    cmax, tiles, slots, c_last = max(dims[1:-1]), -(-rows // TILE), tile_slots(N, B), dims[-2]
+    splits = [dw_splits(rows, dims[i + 1], dims[i]) for i in range(L)]
+    gf_row = out_size * c_last + out_size  # a tile's Wf and bf gradient partials
     run = _Launcher(_load(), _stream(x))
-    Wb = [W.to(_BF16).contiguous() for W in Ws]
-    Wfb = Wf.to(_BF16).contiguous()
-    y, acts = _forward_pass(run, x, Wb, gammas, betas, dims, slope, stash=True)
+    ws = _Workspace(dev, [
+        ("xp", None, 2 * rows * cp), ("w", None, _packed_bytes(dims)),
+        ("h", 2, 4 * rows * cmax), ("st", 4 * L, 4 * B * cmax),
+        ("xin", L - 1, 2 * rows * cmax), ("xhat", L, 2 * rows * cmax),
+        ("dz", 2, 2 * rows * cmax), ("dh", None, 2 * rows * cmax),
+        ("part", 2, 4 * tiles * slots * cmax),
+        ("k", 3, 4 * B * cmax), ("rsum", 2, 8 * B * cmax),
+        ("dwp", None, 4 * max(n * dims[i + 1] * dims[i] for i, (_, n) in enumerate(splits))),
+        ("gfp", None, 4 * tiles * gf_row)])
+    Wp = _pack(run, x, Ws, Wf, dims, ws)
+    gp, bp = [t.data_ptr() for t in gammas], [t.data_ptr() for t in betas]
 
-    L, c_last, cmax = len(Ws), dims[-2], max(dims[1:-1])
-    gb = torch.empty((rows, out_size), dtype=_BF16, device=dev)
-    run("mlp_cast_bf16", g, gb, rows * out_size)
-    dWf = torch.empty((out_size, c_last), dtype=_F32, device=dev)
-    run.gemm(gb, y, dWf, out_size, c_last, rows, a_t=1, b_t=0)
-    dbf = torch.empty(out_size, dtype=_F32, device=dev)
-    run("mlp_colsum_bf16", gb, dbf, rows, out_size)
-    dy_buf = torch.empty(rows * cmax, dtype=_F32, device=dev)
-    dy = dy_buf[: rows * c_last].view(rows, c_last)
-    run.gemm(gb, Wfb, dy, rows, c_last, out_size, a_t=0, b_t=0)
+    # The forward again, stashing each layer's input y and its xhat.
+    prev = ws.xp
+    for i in range(L):
+        h, st = ws.h[i % 2], ws.st[4 * i:4 * i + 4]
+        if i == 0:
+            run("mlp_gemm_fwd", prev, None, None, None, None, None, None, Wp[0], h, *ws.part,
+                rows, dims[1], cp, N, slots, slope)
+        else:
+            mean, inv, scale, shift = ws.st[4 * i - 4:4 * i]
+            run("mlp_gemm_fwd", prev, scale, shift, mean, inv, ws.xin[i - 1], ws.xhat[i - 1],
+                Wp[i], h, *ws.part, rows, dims[i + 1], dims[i], N, slots, slope)
+        run("mlp_fold", 0, *ws.part, gp[i], bp[i], None, *st, None,
+            B, N, dims[i + 1], slots, None, None, 0, 0, None, None, 0, 0)
+        prev = h
 
-    r1, r2, ab, c1b, c2b = torch.empty((5, B * cmax), dtype=_F32, device=dev)
-    dh_buf = torch.empty(rows * cmax, dtype=_BF16, device=dev)
+    # Outputs: dbeta and dgamma of a layer side by side, as a fold job sums
+    # the item sums [items][2 C]; dWf and dbf side by side likewise.
     dx = torch.empty((B, N, c_in), dtype=_F32, device=dev)
-    dWs, dgammas, dbetas = [None] * L, [None] * L, [None] * L
+    dWs = [torch.empty((dims[i + 1], dims[i]), dtype=_F32, device=dev) for i in range(L)]
+    dbg = [torch.empty((2, dims[i + 1]), dtype=_F32, device=dev) for i in range(L)]
+    dgf = torch.empty(gf_row, dtype=_F32, device=dev)
+    inv_of = lambda i: ws.st[4 * i + 1]  # noqa: E731
+    dgfp = dgf.data_ptr()
+    run("mlp_final_bwd", prev, *ws.st[4 * L - 4:], gp[L - 1], bp[L - 1], g.data_ptr(), Wp[L],
+        ws.xhat[L - 1], ws.dz[0], *ws.part, ws.gfp, rows, c_last, out_size, N, slots, slope)
+    run("mlp_fold", 1, *ws.part, gp[L - 1], None, inv_of(L - 1), *ws.k, None, ws.rsum[0],
+        B, N, c_last, slots, ws.gfp, dgfp, gf_row, tiles, None, None, 0, 0)
     for i in range(L - 1, -1, -1):
-        cin, cout = dims[i], dims[i + 1]
-        x_in, xhat, inv = acts[i]
-        run("mlp_bwd_reduce", dy, xhat, gammas[i], betas[i], inv, r1, r2, ab, c1b, c2b,
-            B, N, cout, slope)
-        dgammas[i] = torch.empty(cout, dtype=_F32, device=dev)
-        dbetas[i] = torch.empty(cout, dtype=_F32, device=dev)
-        run("mlp_sum_items", r1, r2, dgammas[i], dbetas[i], B, cout)
-        dh = dh_buf[: rows * cout].view(rows, cout)
-        run("mlp_bwd_dh", dy, xhat, gammas[i], betas[i], ab, c1b, c2b, dh, B, N, cout, slope)
-        dWs[i] = torch.empty((cout, cin), dtype=_F32, device=dev)
-        run.gemm(dh, x_in, dWs[i], cout, cin, rows, a_t=1, b_t=0)
-        dy = dx if i == 0 else dy_buf[: rows * cin].view(rows, cin)
-        run.gemm(dh, Wb[i], dy, rows, cin, cout, a_t=0, b_t=0)
+        cout, cin, j = dims[i + 1], dims[i], L - 1 - i
+        dz, dz_next = ws.dz[j % 2], ws.dz[(j + 1) % 2]
+        rsum, rsum_next = ws.rsum[j % 2], ws.rsum[(j + 1) % 2]
+        x_in, ldx = (ws.xp, cp) if i == 0 else (ws.xin[i - 1], cin)
+        per, n = splits[i]
+        run("mlp_gemm_dw", dz, ws.xhat[i], *ws.k, ws.dh, x_in, ldx, ws.dwp, rows, cout, cin, N,
+            per, n)
+        if i > 0:
+            run("mlp_gemm_dy", ws.dh, Wp[i], cin, ws.xhat[i - 1], gp[i - 1], bp[i - 1], dz_next,
+                *ws.part, None, rows, cout, cin, N, slots, slope)
+            run("mlp_fold", 1, *ws.part, gp[i - 1], None, inv_of(i - 1), *ws.k, None,
+                rsum_next, B, N, cin, slots, ws.dwp, dWs[i].data_ptr(), cout * cin, n, rsum,
+                dbg[i].data_ptr(), 2 * cout, B)
+        else:
+            run("mlp_gemm_dy", ws.dh, Wp[0], cp, None, None, None, None, None, None,
+                dx.data_ptr(), rows, cout, c_in, N, slots, slope)
+            run("mlp_fold", -1, None, None, None, None, None, None, None, None, None, None,
+                B, N, cin, slots, ws.dwp, dWs[0].data_ptr(), cout * cin, n, rsum,
+                dbg[0].data_ptr(), 2 * cout, B)
     mlp_backward.launches += 1
-    return dx, dWs, dgammas, dbetas, dWf, dbf
+    dWf = dgf[:out_size * c_last].view(out_size, c_last)
+    return dx, dWs, [d[1] for d in dbg], [d[0] for d in dbg], dWf, dgf[out_size * c_last:]
 
 
 mlp_forward.launches = 0

@@ -31,6 +31,27 @@ def _imports(path):
             yield node.module
 
 
+def _module_level_imports(tree):
+    """Modules imported by the statements a module runs on import (its
+    body, and the bodies of top-level if/try blocks), not inside functions."""
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif isinstance(node, (ast.If, ast.Try)):
+            stack += [*node.body, *node.orelse, *getattr(node, "finalbody", []),
+                      *(s for h in getattr(node, "handlers", []) for s in h.body)]
+
+
+def _has_cuda_mark(tree):
+    return any(isinstance(n, ast.Attribute) and n.attr == "cuda"
+               and isinstance(n.value, ast.Attribute) and n.value.attr == "mark"
+               for n in ast.walk(tree))
+
+
 def _env_without_cuda():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""
@@ -43,7 +64,7 @@ def test_importing_the_port_loads_no_jax():
     for m in ("ops.conv", "ops.matcher", "frontend.pipeline", "frontend.sp_fused",
               "data.synthetic_images", "eval.frontend_eval", "train.joint", "loader",
               "utils.weights", "ops.epi_residual", "models.sample_fit",
-              "ops.conv_formulations", "tools.bench_conv_formulations"):
+              "ops.conv_formulations", "tools.bench_conv_formulations", "tools.profile_mlp"):
         assert f"deepfepe_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -62,6 +83,24 @@ def test_importing_the_port_loads_no_jax():
 def test_no_source_imports_jax(path):
     bad = [m for m in _imports(REPO / path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+CARD_TEST_FILES = sorted(str(p.relative_to(REPO)) for p in (REPO / "tests").glob("test_torch_*.py")
+                         if _has_cuda_mark(ast.parse(p.read_text())))
+
+
+def test_the_card_tests_are_found():
+    assert {"tests/test_torch_cuda_kernels.py", "tests/test_torch_eigh_card.py",
+            "tests/test_torch_matcher_card.py", "tests/test_torch_mlp_card.py"} <= set(CARD_TEST_FILES)
+
+
+@pytest.mark.parametrize("path", CARD_TEST_FILES)
+def test_card_tests_import_no_jax_at_module_level(path):
+    """The card's machine has no flax: a test file with `cuda` cases that
+    imported JAX or the JAX package on import would never collect there."""
+    bad = [m for m in _module_level_imports(ast.parse((REPO / path).read_text()))
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} has cuda cases and imports {bad} at module level"
 
 
 def test_entry_points_default_to_the_card_and_never_fall_back(monkeypatch):
@@ -135,7 +174,8 @@ def _chip_smoke():
     return module
 
 
-@pytest.mark.parametrize("fault", ["c1_next_item", "c2_next_item", "epi_unsafe_norm_grad",
+@pytest.mark.parametrize("fault", ["c1_next_item", "c2_next_item", "stats_straddle_next_item",
+                                   "epi_unsafe_norm_grad",
                                    "epi_tie_blocked", "xconv_tap_shift",
                                    "matcher_fold_last_index", "eigh9_warp_skip_rotation"])
 def test_chip_smoke_kernel_faults_name_one_source_line(fault):

@@ -18,8 +18,8 @@
   fallback.
 - K4's wrapper raises on what the kernel does not take, CPU tensors
   included. K4 itself against the plain version on the card is in
-  tests/test_torch_cuda_kernels.py, which imports no JAX, and in this
-  file's `cuda` tests: K = 1, 65 and 1000, exact ties straddling the
+  tests/test_torch_cuda_kernels.py and tests/test_torch_matcher_card.py,
+  which import no JAX: K = 1, 65 and 1000, exact ties straddling the
   kernel's tiles, every keypoint invalid.
 """
 
@@ -149,53 +149,6 @@ def test_k4_launch_rejects_what_it_does_not_take(case):
     with pytest.raises(ValueError, match=match):
         matcher.launch(*args)
     assert matcher.mutual_nn_kernel.launches == before
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("K", [1, 65, 1000])
-def test_k4_matches_plain_at_ragged_sizes_on_card(cuda, K):
-    """Sign vectors / 16: every similarity exact in any summation order, so
-    the kernel equals the plain version bit for bit, ties included."""
-    args = [torch.from_numpy(a).to(cuda) for a in _signs(np.random.RandomState(K), 2, K)]
-    got = matcher.mutual_nn_kernel(*args)
-    want = matcher.mutual_nn_plain(*args)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-
-
-@pytest.mark.cuda
-def test_k4_ties_across_tiles_go_to_the_lowest_index_on_card(cuda):
-    """Duplicated columns (60, 70, 130) and rows (5, 64, 190) straddle the
-    kernel's 64-wide tiles: each duplicate's similarity is the same FMA
-    chain, so the ties are exact and the lowest index wins both ways."""
-    d1, d2, _, _ = _noisy(np.random.RandomState(11), 2, 200)
-    d2[:, [70, 130]] = d2[:, [60]]
-    d1[:, [5, 64, 190]] = d2[:, [60]]
-    v = np.ones((2, 200), bool)
-    nn12, nn21, _, mutual = matcher.mutual_nn_kernel(
-        *(torch.from_numpy(a).to(cuda) for a in (d1, d2, v, v)))
-    assert (nn12[:, [5, 64, 190]] == 60).all()
-    assert (nn21[:, [60, 70, 130]] == 5).all()
-    assert mutual[:, 5].all() and not mutual[:, [64, 190]].any()
-
-
-@pytest.mark.cuda
-def test_k4_all_invalid_pairs_on_card(cuda):
-    """Every masked similarity rounds to -1e9: index 0 both ways, no mutual
-    match, dist12 as the plain version's."""
-    d1, d2, _, _ = _noisy(np.random.RandomState(13), 2, 300)
-    v = np.zeros((2, 300), bool)
-    args = [torch.from_numpy(a).to(cuda) for a in (d1, d2, v, v)]
-    nn12, nn21, dist12, mutual = matcher.mutual_nn_kernel(*args)
-    assert (nn12 == 0).all() and (nn21 == 0).all() and not mutual.any()
-    assert torch.equal(dist12, matcher.mutual_nn_plain(*args)[2])
 
 
 def test_kernel_route_keeps_the_scores_differentiable():
