@@ -89,7 +89,8 @@ and for the conv-formulation slice:
            1240, 64] -> 64 in bf16 with non-trivial s and t: every kind of
            the port's tools/bench_conv_formulations.py against its plain
            version and float64 (the top rows of the first image and the
-           bottom rows of the last), timed beside the plain version, cuDNN's
+           bottom rows of the last), X1's and X2's kinds also called twice
+           and held bit-identical, timed beside the plain version, cuDNN's
            fused bf16 conv + bias + ReLU and the bound (s2d's own 2x floor
            beside it);
   conv_formulations  that tool's entry point on all nine kinds at the same
@@ -113,7 +114,8 @@ line changed, conv_formulations.cu built with taps9's centre tap read
 one column off, matcher.cu's fold keeping the higher index on equal
 values, eigh9.cu's warp kernel skipping rotation (7, 8), conv3x3.cu's
 tensor-core kernel reading the centre tap one column off, or its fold of
-K5b's gradients dropping the last pixel group) and runs only
+K5b's gradients dropping the last pixel group, X1's halo box one row low,
+X2's ky = 0 weights streamed from ky = 1's rows) and runs only
 that kernel's checks, printing their readings; it exits 1 when a check
 caught the fault. `--plant none` runs every set and gives the sound
 readings the bars are set against.
@@ -206,7 +208,7 @@ F64_FACTOR, F64_FLOOR = 1.3, 1e-3
 FAULTS = ("none", "dx_zero", "dgamma_dbeta_swapped", "c1_next_item", "c2_next_item",
           "stats_straddle_next_item", "epi_unsafe_norm_grad", "epi_tie_blocked", "xconv_tap_shift",
           "matcher_fold_last_index", "eigh9_warp_skip_rotation", "conv_mma_tap_shift",
-          "conv_fold_drop_group")
+          "conv_fold_drop_group", "xconv_halo_top_row", "xconv_s2d_next_ky")
 # Kernel faults, each planted into one source line: (module under
 # deepfepe_tpu_torch.ops, the line, its faulty form). c1/c2_next_item build
 # K2b's dh with the next item's coefficient; stats_straddle_next_item
@@ -221,7 +223,10 @@ FAULTS = ("none", "dx_zero", "dgamma_dbeta_swapped", "c1_next_item", "c2_next_it
 # (7, 8) in the warp kernel; conv_mma_tap_shift reads the centre tap's A
 # fragments one column to the right in conv3x3.cu's tensor-core kernel (K5
 # for Cin >= 2, K5b's dx); conv_fold_drop_group leaves the last pixel group
-# out of the fold of K5b's weight and affine gradients.
+# out of the fold of K5b's weight and affine gradients; xconv_halo_top_row
+# brings X1's halo box from row r0 instead of r0 - 1 (the top zero row
+# lost, every row one off); xconv_s2d_next_ky streams X2's ky = 0 weight
+# slices from ky = 1's rows.
 SOURCE_FAULTS = {
     "c1_next_item": ("mlp", "load8(p.c1b + pi, k.c1);  // c1 of the row's item",
                      "load8(p.c1b + (pi + p.pch) % (static_cast<long long>((p.prow + p.Nn - 1) "
@@ -250,6 +255,13 @@ SOURCE_FAULTS = {
     "conv_fold_drop_group": (
         "conv", "for (int g = 0; g < G; ++g) s += part[g * E + e];  // every group, in order",
         "for (int g = 0; g < G - 1; ++g) s += part[g * E + e];"),
+    "xconv_halo_top_row": (
+        "conv_formulations",
+        "const int hr0 = it.r0 - 1;  // the halo's top row: one above the item's rows",
+        "const int hr0 = it.r0 - (CIN == 2 * C);"),
+    "xconv_s2d_next_ky": (
+        "conv_formulations", "const int krow = 64 * s;  // the slice's rows of the packed weights",
+        "const int krow = 64 * (s < 6 ? s + 6 : s);"),
 }
 
 
@@ -2824,9 +2836,13 @@ def xconv_case(spec: str, x, w, s, t, y64, library_ms: float) -> dict:
 
     f = tool.build(spec)
     plain_fn = cf.PLAIN[spec.split("_")[0].split("-")[-1]]
+    # X1 and X2 (the wgmma kernels): a second call must repeat the first
+    # bit for bit (no atomics; a fixed order of sums).
+    repeat = tool.ROUTES[spec.split("_")[0]][0] in cf.WGMMA_FAMILIES
     R = XCONV_F64_ROWS
     with torch.no_grad():
         y = f(x, w, s, t)
+        same = bool(torch.equal(y, f(x, w, s, t))) if repeat else None
         plain = plain_fn(x, w, s, t)
         torch.cuda.synchronize()
         yf, pf = y.float(), plain.float()
@@ -2845,7 +2861,7 @@ def xconv_case(spec: str, x, w, s, t, y64, library_ms: float) -> dict:
                 "kernel_vs_f64": k64, "kernel_vs_f64_over_bar": k64_over, "plain_vs_f64": p64,
                 "plain_vs_f64_over_bar": p64_over, "max_abs_y": pf.abs().max().item(),
                 "relu_zero_share": (plain == 0).float().mean().item(),
-                "finite": bool(torch.isfinite(yf).all())}
+                "finite": bool(torch.isfinite(yf).all()), "repeat_bit_identical": same}
         del y, plain, yf, pf
         torch.cuda.empty_cache()
         kind = spec.split("_")[0]
@@ -2855,7 +2871,7 @@ def xconv_case(spec: str, x, w, s, t, y64, library_ms: float) -> dict:
                   "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by}
     if kind.startswith("s2d"):
         timing["own_floor_ms"] = xconv_bound_ms(*x.shape, flop_factor=2)[0]
-    ok = errs["finite"] and ratio <= 1.0 and k64_over <= 1.0
+    ok = errs["finite"] and ratio <= 1.0 and k64_over <= 1.0 and same is not False
     return {"spec": spec, "errors": errs, "within_bars": ok, **timing}
 
 

@@ -6,10 +6,10 @@
 // bf16, w packed bf16, s and t [64] float32,
 //     y[b, i, j, c] = bf16(relu(s[c] * sum_{ky, kx, ci} x[b, i+ky-1, j+kx-1, ci]
 //                                             * w[ky, kx, ci, c] + t[c]))
-// with zero padding outside each image. Products run through nvcuda::wmma
-// bf16 16x16x16 fragments with float32 accumulators; the epilogue computes
-// acc * s, then + t (two roundings, no FMA, as the plain versions in
-// ops/conv_formulations.py do), the ReLU, and rounds once to bf16.
+// with zero padding outside each image. Products take bf16 operands with
+// float32 accumulators; the epilogue computes acc * s, then + t (two
+// roundings, no FMA, as the plain versions in ops/conv_formulations.py do),
+// the ReLU, and rounds once to bf16.
 //
 // They replace the TPU kernels of tools/bench_conv_formulations.py:
 //   X4 conv_strip        `_k_taps9`, `_k_ky3`, `_k_im2col` (make_fn): a block per
@@ -19,44 +19,85 @@
 //                        stages a [th, tw+2, 192] ky-stacked patch (3 products of
 //                        K = 192, ldm 192); im2col a [th*tw, 576] patch (one
 //                        product of K = 576, ldm 576).
-//   X1 conv_strip_async  `_k_dma` (make_dma_fn): X4's ky3 and im2col with the
-//                        next chunk's halo copied by cp.async (zero-filling at
-//                        the image's edges) into a second buffer while the
-//                        current chunk computes: the counterpart of
-//                        make_async_copy with two semaphores.
 //   X3 conv_tile2d       `_k_t4` (make_t4_fn): one block per th x tw output tile
 //                        with its halo, no loop inside the block; the grid
 //                        (B x H/th x W/tw blocks) fills the 132 SMs.
-//   X2 conv_s2d          `_k_s2d` (make_s2d_fn): on the free space-to-depth view
-//                        [B, H, W/2, 128] of x, a block per th x tg group tile
-//                        with 128-wide output rows (two pixels), from
-//                        pack_w_s2d (s2dc: a [th+2, tg, 384] patch, 3 products
-//                        of K = 384) or pack_w_s2d9 (s2d9: 9 products of K = 128
-//                        straight from the halo). Half of the packed weights are
-//                        structural zeros, so s2d does 2x the useful FLOPs by
-//                        construction (the tool's "1.5x" comment is wrong).
+//   X1 conv_strip_async  `_k_dma` (make_dma_fn): ky3 and im2col, th x tw = 128
+//                        pixel tiles, the halo brought by TMA into a ring of
+//                        mbarrier stages: the counterpart of make_async_copy
+//                        with two semaphores.
+//   X2 conv_s2d          `_k_s2d` (make_s2d_fn): the same kernel on the free
+//                        space-to-depth view [B, H, W/2, 128] of x, th x tg =
+//                        128 group tiles with 128-wide output rows (two
+//                        pixels), from pack_w_s2d (s2dc: K = 3 x 384 through a
+//                        patch) or pack_w_s2d9 (s2d9: 9 products of K = 128
+//                        straight from the halo). Half of the packed weights
+//                        are structural zeros, so s2d does 2x the useful FLOPs
+//                        by construction (the tool's "1.5x" comment is wrong).
 //
 // Every block reads its halo from the unpadded x and writes zeros outside
 // the image: the TPU needs `_fold_rows` / `_fold_groups` only because a
 // BlockSpec cannot express overlapping windows, and on the card they would
 // add a full read and write of x. Only the weights are packed, by the
-// wrapper; the kernels read them through L1 from device memory (s2d's are
-// 288 KB, more than a block's shared memory).
+// wrapper.
 //
 // What bounds them. At SuperPointNetGauss2's inc.conv1 (B = 8, 376 x 1240,
 // 64 -> 64) the useful work is 2.750e11 FLOP, 0.278 ms at 989 TFLOP/s bf16,
 // and x and y are 954.9 MB, 0.285 ms at 3.35 TB/s: the function is bound by
-// bytes, just. s2d's own floor is 0.556 ms (2x the FLOPs). These kernels are
-// the simple first version: legacy mma.sync through wmma (not wgmma), B
-// fragments from L1, A fragments from unpadded shared rows (bank
-// conflicts), one 16-pixel M tile a warp at a time and an epilogue through
-// a 1 KB shared scratch per warp. What they are for is the measured
-// comparison of the formulations' staging on Hopper; wgmma, TMA and a
-// persistent, warp-specialised pipeline are later work.
+// bytes, just. s2d's own floor is 0.556 ms (2x the FLOPs).
+//
+// X3 and X4 are the first, simple version: legacy mma.sync through wmma, B
+// fragments from L1, A fragments from unpadded shared rows, one 16-pixel M
+// tile a warp at a time and an epilogue through a 1 KB shared scratch per
+// warp.
+//
+// X1 and X2 (`conv_wgmma_kernel`) are built for Hopper:
+//   * Persistent blocks, one an SM, each walking (image, strip, chunk) work
+//     items of th x tw = 128 output pixels (X1) or groups (X2).
+//   * A producer warp: one thread issues, per item, one TMA load of the
+//     4-D box [1, th+2, tw+2, 64] of x (two, one per 64-channel half, for
+//     X2's 128-channel groups) at (b, r0-1, c0-1); TMA's zero fill outside
+//     the tensor gives the SAME padding. The box lands under the 128-byte
+//     swizzle (one pixel's 64 channels a 128-byte row) in a ring of 2-4
+//     stages, each with a full and an empty mbarrier.
+//   * Weights by TMA in wgmma's MN-major layout ([64 k][64 n] boxes, 128-byte
+//     swizzle): X1's 73,728 bytes once a block, resident; X2's 294,912 bytes
+//     (more than a block's shared memory) streamed per K slice of 64 rows
+//     (16 KB) through their own ring of full and empty mbarriers.
+//   * Two consumer warpgroups, each one 64-row M tile of the item, run
+//     `wgmma.m64n64k16` (two of them a k step for X2's N = 128) with float32
+//     accumulators in registers, over K slices of 64 (9 for X1: one a tap;
+//     18 for X2: a tap's two channel halves). A comes either
+//       - from registers, by `ldmatrix` on the swizzled halo (ky3, s2d9): any
+//         8 consecutive pixels at one 16-byte chunk fall in 8 distinct bank
+//         groups at any kx shift, so the reads are free of conflicts; or
+//       - from a patch (im2col, s2dc), built per K slice into a two-slot ring
+//         of swizzled [64][64] tiles, each warp its own 16 rows, and read by
+//         descriptor; building slice k+1 overlaps slice k's products.
+//     A ring slot, a patch slot or a weight stage is reused only after every
+//     consumer's last `wgmma` on it has completed: each consumer thread
+//     arrives on the empty barrier after its `wgmma.wait_group`.
+//   * The epilogue from registers: the affine, the ReLU, bf16 packing, a
+//     transpose within each quad of lanes by shuffles, 16-byte stores of
+//     the rows inside the image.
+// ky3 and im2col (s2d9 and s2dc) differ in their K order, their packed
+// weights and their A route; the function is the same. A warpgroup waits
+// for each slice's products (wait_group 0) once the next slice's A is
+// issued; keeping a slice in flight (wait_group 1) measured no faster.
+//
+// Where the time goes (NVIDIA H100 80GB HBM3, 700 W; variants of this file
+// with parts cut out): ky3 takes about 0.72 ms, of which the halo's TMA
+// stream alone is 0.35 and the ldmatrix reads add 0.18 that the products
+// do not hide; s2d9 about 1.18 ms, of which 0.78 is the stream of the halo
+// and the 18 weight slices an item, bound by their round trips through the
+// ring rather than their bytes (half the weight bytes saved 2%).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <mma.h>
+#include <stdint.h>
 
 namespace {
 
@@ -78,6 +119,16 @@ using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
+// X1 and X2 (conv_wgmma_kernel).
+constexpr int TILE_ROWS = 128;           // output pixels (X1) or groups (X2) of an item
+constexpr int XTHREADS = 288;            // two consumer warpgroups and a producer warp
+constexpr int CONSUMERS = 256;
+constexpr int BOX = 8192;                // a [64][64] bf16 tile: 64 rows of 128 bytes
+constexpr int MAX_HALO_STAGES = 4;
+constexpr int MAX_W_STAGES = 6;
+constexpr int TAIL_BYTES = 768;        // the barriers (256 bytes), then s and t
+constexpr int ERR_TENSOR_MAP = 9001;     // cuTensorMapEncodeTiled missing or refused
+
 __host__ __device__ inline long long halo_bytes(int th, int tw) {
   return 2LL * (th + 2) * (tw + 2) * C;
 }
@@ -85,26 +136,62 @@ __host__ __device__ inline long long halo_bytes(int th, int tw) {
 __host__ __device__ inline long long patch_bytes(int kind, int th, int tw) {
   if (kind == KY3) return 2LL * th * (tw + 2) * 3 * C;
   if (kind == IM2COL) return 2LL * th * tw * 9 * C;
-  if (kind == S2DC) return 2LL * (th + 2) * tw * 3 * 2 * C;
   return 0;
+}
+
+// The shared memory of a conv_wgmma_kernel block, in bytes from the block's
+// 1024-aligned base: the halo ring, the weights (X1 resident, X2 a ring of
+// K slices), the patch slots, the barriers with s and t. total = -1: no
+// kernel takes the tile.
+struct Layout {
+  long long halo_stage;   // one stage: HALVES boxes, each rounded up to 1024 bytes
+  int halo_stages, w_stages;
+  long long weights, patch, total;
+};
+
+__host__ __device__ inline long long round1024(long long v) { return (v + 1023) / 1024 * 1024; }
+
+// cin 64 (X1) or 128 (X2); patch: im2col or s2dc. X1 keeps up to 4 halo
+// stages beside its resident weights; X2 keeps 2 and fills the rest with
+// up to 6 weight stages of 16 KB.
+Layout wgmma_layout(int cin, bool patch, int th, int tw) {
+  Layout l{0, 0, 0, 0, 0, -1};
+  if (th < 1 || tw < 1 || th * tw != TILE_ROWS) return l;
+  l.halo_stage = (cin / 64) * round1024(128LL * (th + 2) * (tw + 2));
+  l.patch = patch ? 2LL * 2 * BOX : 0;  // two slots a warpgroup
+  const long long room = SMEM_MAX - 1024 - TAIL_BYTES - l.patch;
+  if (cin == C) {
+    l.weights = 9LL * BOX;
+    const long long n = (room - l.weights) / l.halo_stage;
+    l.halo_stages = static_cast<int>(n < MAX_HALO_STAGES ? n : MAX_HALO_STAGES);
+  } else {
+    l.halo_stages = 2;
+    const long long n = (room - 2 * l.halo_stage) / (2 * BOX);
+    l.w_stages = static_cast<int>(n < MAX_W_STAGES ? n : MAX_W_STAGES);
+    l.weights = 2LL * BOX * l.w_stages;
+    if (l.w_stages < 2) return l;
+  }
+  if (l.halo_stages < 2) return l;
+  l.total = 1024 + l.halo_stages * l.halo_stage + l.weights + l.patch + TAIL_BYTES;
+  return l;
 }
 
 // Shared memory a block of `family` takes at tile th x tw (tw: groups for
 // s2d), or -1 for a combination the kernels do not take.
 long long smem_bytes(int family, int kind, int th, int tw) {
+  if (family == STRIP_ASYNC)
+    return kind == KY3 || kind == IM2COL ? wgmma_layout(C, kind == IM2COL, th, tw).total : -1;
+  if (family == S2D)
+    return kind == S2DC || kind == S2D9 ? wgmma_layout(2 * C, kind == S2DC, th, tw).total : -1;
   if (th < 1 || tw < 16 || tw % 16 != 0) return -1;
   const long long epi = 4LL * WARPS * EPI_FLOATS;
   switch (family) {
     case STRIP:
       if (kind != TAPS9 && kind != KY3 && kind != IM2COL) return -1;
       return halo_bytes(th, tw) + patch_bytes(kind, th, tw) + epi;
-    case STRIP_ASYNC:
     case TILE2D:
       if (kind != KY3 && kind != IM2COL) return -1;
-      return (family == STRIP_ASYNC ? 2 : 1) * halo_bytes(th, tw) + patch_bytes(kind, th, tw) + epi;
-    case S2D:
-      if (kind != S2DC && kind != S2D9) return -1;
-      return 2 * halo_bytes(th, tw) + patch_bytes(kind, th, tw) + epi;
+      return halo_bytes(th, tw) + patch_bytes(kind, th, tw) + epi;
   }
   return -1;
 }
@@ -127,32 +214,6 @@ __device__ void stage_halo(bf16* halo, const bf16* __restrict__ x, int b, int r0
     if (row >= 0 && row < H && col >= 0 && col < W)
       v = *reinterpret_cast<const uint4*>(x + pixel(b, row, col, H, W) * C + piece * 8);
     reinterpret_cast<uint4*>(halo)[idx] = v;
-  }
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int bytes = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// stage_halo's layout, copied by cp.async; the caller commits and waits.
-__device__ void issue_halo(bf16* halo, const bf16* __restrict__ x, int b, int r0, int c0,
-                           int th, int tw, int H, int W) {
-  const int hc = tw + 2;
-  const int n = (th + 2) * hc * PIECES;
-  for (int idx = threadIdx.x; idx < n; idx += THREADS) {
-    const int piece = idx % PIECES, p = idx / PIECES;
-    const int row = r0 - 1 + p / hc, col = c0 - 1 + p % hc;
-    const bool in = row >= 0 && row < H && col >= 0 && col < W;
-    cp_async16(halo + idx * 8, in ? x + pixel(b, row, col, H, W) * C + piece * 8 : x, in);
   }
 }
 
@@ -306,40 +367,6 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// X1: X4's ky3 and im2col with the next chunk's halo in flight (cp.async
-// into the other buffer) while the current chunk builds its patch and
-// computes. A buffer is refilled only after the barrier that follows the
-// patch build which last read it.
-template <int KIND>
-__global__ void __launch_bounds__(THREADS)
-    conv_strip_async_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                            const float* __restrict__ s, const float* __restrict__ t,
-                            bf16* __restrict__ y, int H, int W, int th, int tw) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const long long hb = halo_bytes(th, tw);
-  bf16* halos[2] = {reinterpret_cast<bf16*>(smem), reinterpret_cast<bf16*>(smem + hb)};
-  bf16* patch = reinterpret_cast<bf16*>(smem + 2 * hb);
-  float* scratch = reinterpret_cast<float*>(smem + 2 * hb + patch_bytes(KIND, th, tw)) +
-                   (threadIdx.x >> 5) * EPI_FLOATS;
-  const int b = blockIdx.y, r0 = blockIdx.x * th;
-  const int chunks = (W + tw - 1) / tw;
-  issue_halo(halos[0], x, b, r0, 0, th, tw, H, W);
-  cp_async_commit();
-  for (int j = 0; j < chunks; ++j) {
-    if (j + 1 < chunks) {
-      issue_halo(halos[(j + 1) & 1], x, b, r0, (j + 1) * tw, th, tw, H, W);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    build_patch<KIND>(halos[j & 1], patch, th, tw);
-    __syncthreads();
-    compute_chunk<KIND>(halos[j & 1], patch, w, s, t, y, scratch, b, r0, j * tw, th, tw, H, W);
-  }
-}
-
 // X3: grid (ceil(W / tw), ceil(H / th), B), one output tile a block.
 template <int KIND>
 __global__ void __launch_bounds__(THREADS)
@@ -360,87 +387,407 @@ __global__ void __launch_bounds__(THREADS)
   compute_chunk<KIND>(halo, patch, w, s, t, y, scratch, b, r0, cb, th, tw, H, W);
 }
 
-// X2: grid (ceil(G / tg), ceil(H / th), B) over the groups G = W / 2 of the
-// view [B, H, G, 128]. The halo holds (th + 2) x (tg + 2) groups (one group,
-// two pixels, of zeros or neighbours on each side); s2dc also stages the
-// patch p[(r tg + g) 384 + k 128 + ch] = halo[(r (tg+2) + g + k) 128 + ch]
-// for r in [0, th + 2). w is pack_w_s2d's [3, 384, 128], whose memory is
-// pack_w_s2d9's [3, 3, 128, 128] as well.
-template <bool CONCAT>
-__global__ void __launch_bounds__(THREADS)
-    conv_s2d_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                    const float* __restrict__ s, const float* __restrict__ t,
-                    bf16* __restrict__ y, int H, int W, int th, int tg) {
-  constexpr int CL = 2 * C, GP = 2 * PIECES;  // a group's channels and 16-byte pieces
-  extern __shared__ __align__(128) unsigned char smem[];
-  const long long hb = 2 * halo_bytes(th, tg);
-  bf16* halo = reinterpret_cast<bf16*>(smem);
-  bf16* patch = reinterpret_cast<bf16*>(smem + hb);
-  float* scratch = reinterpret_cast<float*>(smem + hb + patch_bytes(CONCAT ? S2DC : S2D9, th, tg)) +
-                   (threadIdx.x >> 5) * EPI_FLOATS;
-  const int G = W / 2, hc = tg + 2;
-  const int g0 = blockIdx.x * tg, r0 = blockIdx.y * th, b = blockIdx.z;
-  const int n = (th + 2) * hc * GP;
-  for (int idx = threadIdx.x; idx < n; idx += THREADS) {
-    const int piece = idx % GP, p = idx / GP;
-    const int row = r0 - 1 + p / hc, g = g0 - 1 + p % hc;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row >= 0 && row < H && g >= 0 && g < G)
-      v = *reinterpret_cast<const uint4*>(x + pixel(b, row, 2 * g, H, W) * C + piece * 8);
-    reinterpret_cast<uint4*>(halo)[idx] = v;
+// --- X1 and X2: wgmma fed by TMA ---------------------------------------------
+// Hopper primitives (PTX), as in csrc/mlp.cu.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Waits for phase `parity` of a barrier. A load that never lands traps
+// after about 4 s instead of hanging the stream; the clock is read only
+// once the first try has failed. The loop lives in one asm statement:
+// written in C++ (csrc/mlp.cu's form), its branches made ptxas serialise
+// the wgmmas of a kernel that waits between them (C7520).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t.reg .u64 t0, t1;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+      "@p bra DONE_%=;\n\t"
+      "mov.u64 t0, %%globaltimer;\n\t"
+      "WAIT_%=:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+      "@p bra DONE_%=;\n\t"
+      "mov.u64 t1, %%globaltimer;\n\t"
+      "sub.u64 t1, t1, t0;\n\t"
+      "setp.gt.u64 p, t1, 4000000000;\n\t"
+      "@p trap;\n\t"
+      "bra WAIT_%=;\n\t"
+      "DONE_%=:\n\t}" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a 2-D tensor map into shared memory; completion is counted
+// on `bar` in bytes. c0 is the column (innermost) coordinate.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// One box of a 4-D tensor map (coordinates innermost first; negative and
+// past-the-end coordinates read as zero).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (in 16-byte units), layout 1.
+__device__ __forceinline__ uint64_t sdesc(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+#define XCONV_D32                                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),          \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// D[64x64] += A[64x16] B[16x64], bf16, f32 in registers; A K-major from
+// shared memory by descriptor, B MN-major ([k][n] rows) by descriptor.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n\t}"
+      : XCONV_D32
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The same with A from registers: the warp's 16 x 16 fragment as ldmatrix
+// x4 gives it (rows g, g + 8; k 2t, 2t + 8).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %37, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n\t}"
+      : XCONV_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef XCONV_D32
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+template <int NJ>
+__device__ __forceinline__ void keep(float (&acc)[NJ][32]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int q = 0; q < 32; ++q) asm volatile("" : "+f"(acc[j][q])::"memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// The barrier of one consumer warpgroup (ids 1 and 2; 0 is __syncthreads).
+__device__ __forceinline__ void wg_barrier(int wg) {
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+}
+
+// Byte offset of the 16-byte chunk `chunk` of 128-byte row r in a tile
+// written by TMA with the 128-byte swizzle (the tile 1024-aligned).
+__device__ __forceinline__ int swz(int r, int chunk) { return r * 128 + ((chunk ^ (r & 7)) << 4); }
+
+struct XParams {
+  const float* s;
+  const float* t;
+  bf16* y;
+  int H, Wc;                 // rows and columns (pixels, or groups for X2) of the view
+  int th, tw;                // the item's tile
+  int n_chunks, per_image, n_items;
+  int halo_box;              // bytes of one [th+2, tw+2, 64] box
+  int halo_stage, halo_stages, w_stages;
+  int weights_off, patch_off, bar_off;  // from the block's 1024-aligned base
+};
+
+// Work item `item`: image b, output rows [r0, r0 + th), columns [c0, c0 + tw).
+struct Item {
+  int b, r0, c0;
+};
+
+__device__ __forceinline__ Item item_at(const XParams& p, int item) {
+  const int rem = item % p.per_image;
+  return {item / p.per_image, (rem / p.n_chunks) * p.th, (rem % p.n_chunks) * p.tw};
+}
+
+// K slice s (64 rows of the packed weights, rows [64 s, 64 s + 64)) reads
+// the halo at tap (ky, kx), channel half h. ky3: [3(kx), 3(ky) 64, 64];
+// im2col: [9 (ky, kx) 64, 64]; s2dc and s2d9: [3(ky), 3(k), 2(h) 64, 128],
+// kx the group offset k.
+template <int CIN, bool PATCH>
+__device__ __forceinline__ void slice_tap(int s, int& ky, int& kx, int& h) {
+  if (CIN == 2 * C) {
+    h = s & 1;
+    ky = (s >> 1) / 3;
+    kx = (s >> 1) % 3;
+  } else if (PATCH) {  // im2col
+    h = 0;
+    ky = s / 3;
+    kx = s % 3;
+  } else {  // ky3
+    h = 0;
+    ky = s % 3;
+    kx = s / 3;
+  }
+}
+
+__device__ __forceinline__ float affine_relu(float v, float s, float t) {
+  return fmaxf(__fadd_rn(__fmul_rn(v, s), t), 0.f);
+}
+
+// A quad of lanes holds one row's four 16-byte chunks, lane j word j of
+// each (in[c]: its two columns of chunk c). Returns chunk t of the row to
+// lane t: word j from lane j's in[t].
+__device__ __forceinline__ uint4 quad_transpose(const uint32_t (&in)[4], int lane) {
+  const int t = lane & 3;
+  uint32_t out[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int si = (t - r) & 3, src = (t + r) & 3;
+    const uint32_t send = si == 0 ? in[0] : si == 1 ? in[1] : si == 2 ? in[2] : in[3];
+    const uint32_t got = __shfl_sync(0xffffffffu, send, (lane & ~3) | src);
+    out[0] = src == 0 ? got : out[0];
+    out[1] = src == 1 ? got : out[1];
+    out[2] = src == 2 ? got : out[2];
+    out[3] = src == 3 ? got : out[3];
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+// X1 (CIN 64: x [B, H, W, 64], N = 64) and X2 (CIN 128: the view [B, H,
+// W/2, 128], N = 128). Grid: one block an SM (at most the items); block:
+// warps 0-3 and 4-7 the consumer warpgroups (M tiles: the item's pixels
+// 64 wg .. 64 wg + 63, row-major over th x tw), warp 8 the producer. PATCH:
+// im2col or s2dc (A from the patch slots), else ky3 or s2d9 (A by ldmatrix
+// from the halo).
+template <int CIN, bool PATCH>
+__global__ void __launch_bounds__(XTHREADS, 1)
+    conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap wmap, const XParams p) {
+  constexpr int NS = CIN == C ? 9 : 18;  // K slices of 64
+  constexpr int NJ = CIN / 64;            // 64-column halves of N = CIN; halo halves
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* halo = smem;
+  unsigned char* wsm = smem + p.weights_off;
+  unsigned char* patch = smem + p.patch_off;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + p.bar_off);
+  uint64_t* empty = full + MAX_HALO_STAGES;
+  uint64_t* wfull = empty + MAX_HALO_STAGES;
+  uint64_t* wempty = wfull + MAX_W_STAGES;
+  uint64_t* wres = wempty + MAX_W_STAGES;
+  float* sst = reinterpret_cast<float*>(smem + p.bar_off + 256);  // s[64], then t[64]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int half_bytes = p.halo_stage / NJ;
+  if (tid < C) {
+    sst[tid] = p.s[tid];
+    sst[C + tid] = p.t[tid];
+  }
+  if (tid == 0) {
+    for (int i = 0; i < p.halo_stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], CONSUMERS);
+    }
+    for (int i = 0; i < p.w_stages; ++i) {
+      mbar_init(&wfull[i], 1);
+      mbar_init(&wempty[i], CONSUMERS);
+    }
+    mbar_init(wres, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (CONCAT) {
-    const uint4* src = reinterpret_cast<const uint4*>(halo);
-    uint4* dst = reinterpret_cast<uint4*>(patch);
-    const int m = (th + 2) * tg * 3 * GP;
-    for (int idx = threadIdx.x; idx < m; idx += THREADS) {
-      const int piece = idx % GP, q = idx / GP;
-      const int k = q % 3, pg = q / 3;
-      dst[idx] = src[(pg + 2 * (pg / tg) + k) * GP + piece];
+
+  if (warp == 8) {  // the producer
+    if (lane != 0) return;
+    if (CIN == C) {  // X1's weights, resident: nine [64 k][64 n] boxes
+      mbar_expect(wres, NS * BOX);
+      for (int s = 0; s < NS; ++s) tma_load(wsm + s * BOX, &wmap, wres, 0, 64 * s);
     }
-    __syncthreads();
-  }
-  const int warp = threadIdx.x >> 5, segs = tg / 16;
-  for (int mt = warp; mt < th * segs; mt += WARPS) {
-    const int r = mt / segs, gl = (mt % segs) * 16;
-    if (r0 + r >= H || g0 + gl >= G) continue;
-    FragC acc[8];
-#pragma unroll
-    for (int nf = 0; nf < 8; ++nf) wmma::fill_fragment(acc[nf], 0.f);
-    FragA a;
-    FragB bw;
-    for (int ky = 0; ky < 3; ++ky) {
-      if (CONCAT) {
-        const bf16* ap = patch + ((r + ky) * tg + gl) * (3 * CL);
-        const bf16* bp = w + ky * 3 * CL * CL;
-#pragma unroll 2
-        for (int k0 = 0; k0 < 3 * CL; k0 += 16) {
-          wmma::load_matrix_sync(a, ap + k0, 3 * CL);
-#pragma unroll
-          for (int nf = 0; nf < 8; ++nf) {
-            wmma::load_matrix_sync(bw, bp + k0 * CL + nf * 16, CL);
-            wmma::mma_sync(acc[nf], a, bw, acc[nf]);
-          }
-        }
-      } else {
-        for (int k = 0; k < 3; ++k) {
-          const bf16* ap = halo + ((r + ky) * hc + gl + k) * CL;
-          const bf16* bp = w + (ky * 3 + k) * CL * CL;
-#pragma unroll 2
-          for (int k0 = 0; k0 < CL; k0 += 16) {
-            wmma::load_matrix_sync(a, ap + k0, CL);
-#pragma unroll
-            for (int nf = 0; nf < 8; ++nf) {
-              wmma::load_matrix_sync(bw, bp + k0 * CL + nf * 16, CL);
-              wmma::mma_sync(acc[nf], a, bw, acc[nf]);
-            }
-          }
+    int u = 0;  // X2's weight slices issued
+    for (int i = 0, item = blockIdx.x; item < p.n_items; ++i, item += gridDim.x) {
+      const Item it = item_at(p, item);
+      const int hs = i % p.halo_stages;
+      if (i >= p.halo_stages) mbar_wait(&empty[hs], ((i / p.halo_stages) + 1) & 1);
+      mbar_expect(&full[hs], NJ * p.halo_box);  // the boxes' bytes, zero fill included
+      const int hr0 = it.r0 - 1;  // the halo's top row: one above the item's rows
+      for (int h = 0; h < NJ; ++h)
+        tma_load_4d(halo + hs * p.halo_stage + h * half_bytes, &xmap, &full[hs], 64 * h,
+                    it.c0 - 1, hr0, it.b);
+      if (CIN == 2 * C) {
+        for (int s = 0; s < NS; ++s, ++u) {
+          const int ws = u % p.w_stages;
+          if (u >= p.w_stages) mbar_wait(&wempty[ws], ((u / p.w_stages) + 1) & 1);
+          mbar_expect(&wfull[ws], 2 * BOX);
+          const int krow = 64 * s;  // the slice's rows of the packed weights
+          tma_load(wsm + ws * 2 * BOX, &wmap, &wfull[ws], 0, krow);
+          tma_load(wsm + ws * 2 * BOX + BOX, &wmap, &wfull[ws], 64, krow);
         }
       }
     }
-    const int valid = min(16, G - (g0 + gl));
-    store_tile<8>(acc, scratch, s, t, y + pixel(b, r0 + r, 2 * (g0 + gl), H, W) * C, CL, valid);
+    return;
+  }
+
+  // The consumers: warpgroup wg, warp q in it; accumulator rows g, g + 8
+  // of the warp's 16, columns 8 c + 2 t and + 1 of each 64-column half.
+  const int wg = warp >> 2, q = warp & 3, g = lane >> 2, t4 = lane & 3;
+  // The halo row (pixel, or group) at tap (0, 0) of this lane's A row:
+  // ldmatrix's rows (lanes 8 m .. 8 m + 7 address matrix m: rows 0-7, 8-15,
+  // then the same at k + 8), or the patch row the lane copies.
+  const int hc = p.tw + 2;
+  const int arow = PATCH ? 16 * q + (lane >> 1) : 16 * q + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int apx = 64 * wg + arow;
+  const int hr0 = (apx / p.tw) * hc + apx % p.tw;
+  const int kc = lane >> 4;  // ldmatrix: the lane's 8-column half of a k step
+
+  if (CIN == C) mbar_wait(wres, 0);
+  int u = 0;  // X2's weight slices consumed
+  for (int i = 0, item = blockIdx.x; item < p.n_items; ++i, item += gridDim.x) {
+    const Item it = item_at(p, item);
+    const int hs = i % p.halo_stages;
+    mbar_wait(&full[hs], (i / p.halo_stages) & 1);
+    const unsigned char* hb = halo + hs * p.halo_stage;
+    // Opaque copies of the item-invariant bases: without them the compiler
+    // hoists every slice's addresses and descriptors out of the item loop
+    // and spills.
+    int hrb = hr0;
+    const unsigned char* wbase = wsm;
+    asm volatile("" : "+r"(hrb), "+l"(wbase));
+    float acc[NJ][32];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[j][e] = 0.f;
+    // A of slice s into register set s & 1 (ky3, s2d9: ldmatrix from the
+    // halo) or patch slot s & 1 (im2col, s2dc: this warp's 16 rows, four
+    // 16-byte chunks a lane, then the warpgroup's barrier).
+    uint32_t a[2][4][4];
+    auto prepare = [&](int s) {
+      int ky, kx, h;
+      slice_tap<CIN, PATCH>(s, ky, kx, h);
+      const int hr = hrb + ky * hc + kx;
+      const unsigned char* src = hb + h * half_bytes;
+      if (PATCH) {
+        unsigned char* pb = patch + (2 * wg + (s & 1)) * BOX;
+        const int j0 = (lane & 1) * 4;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          *reinterpret_cast<uint4*>(pb + swz(arow, j0 + jj)) =
+              *reinterpret_cast<const uint4*>(src + swz(hr, j0 + jj));
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        wg_barrier(wg);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          ldmatrix_x4(a[s & 1][kk], smem_addr(src + swz(hr, 2 * kk + kc)));
+      }
+    };
+    prepare(0);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const unsigned char* wb;
+      if (CIN == C) {
+        wb = wbase + s * BOX;
+      } else {  // no products are in flight across this wait
+        const int ws = (u + s) % p.w_stages;
+        mbar_wait(&wfull[ws], ((u + s) / p.w_stages) & 1);
+        wb = wbase + ws * 2 * BOX;
+      }
+      const unsigned char* pb = patch + (2 * wg + (s & 1)) * BOX;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const uint64_t db = sdesc(wb + j * BOX + 2048 * kk, BOX, 1024);
+          if (PATCH)
+            wgmma_ss(acc[j], sdesc(pb + 32 * kk, 16, 1024), db);
+          else
+            wgmma_rs(acc[j], a[s & 1][kk], db);
+        }
+      wg_commit();
+      // Slice s + 1's A while slice s's products run: its slot (registers)
+      // last served slice s - 1, whose products are done.
+      if (s + 1 < NS) prepare(s + 1);
+      wg_wait<0>();
+      if (CIN == 2 * C) mbar_arrive(&wempty[(u + s) % p.w_stages]);  // slice s is done
+    }
+    keep(acc);
+    u += NS;
+    mbar_arrive(&empty[hs]);  // this thread's products on the halo are done
+
+    // Epilogue: rows g and g + 8 of the warp, each 64-column half in two
+    // blocks of four 16-byte chunks; a quad's transpose gives lane t chunk
+    // t of each block.
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int px = 64 * wg + 16 * q + g + 8 * hh;
+      const int row = it.r0 + px / p.tw, col = it.c0 + px % p.tw;
+      const bool inside = row < p.H && col < p.Wc;
+      bf16* dst = p.y + ((static_cast<long long>(it.b) * p.H + row) * p.Wc + col) * CIN;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int blk = 0; blk < 2; ++blk) {
+          uint32_t in[4];
+#pragma unroll
+          for (int qq = 0; qq < 4; ++qq) {
+            const int c = 4 * blk + qq;
+            const float2 sc = *reinterpret_cast<const float2*>(sst + 8 * c + 2 * t4);
+            const float2 sh = *reinterpret_cast<const float2*>(sst + C + 8 * c + 2 * t4);
+            __nv_bfloat162 v =
+                __floats2bfloat162_rn(affine_relu(acc[j][4 * c + 2 * hh], sc.x, sh.x),
+                                      affine_relu(acc[j][4 * c + 2 * hh + 1], sc.y, sh.y));
+            in[qq] = *reinterpret_cast<uint32_t*>(&v);
+          }
+          const uint4 o = quad_transpose(in, lane);
+          if (inside) *reinterpret_cast<uint4*>(dst + 64 * j + 8 * (4 * blk + t4)) = o;
+        }
+    }
   }
 }
 
@@ -457,6 +804,87 @@ int launch(Kernel kernel, dim3 grid, long long smem, void* stream, const void* x
 }
 
 bool shapes_ok(int B, int H, int W) { return B >= 1 && B <= 65535 && H >= 1 && W >= 1; }
+
+// --- Host side of X1 and X2 ----------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda.so.1, which the process has loaded
+// (no link against libcuda).
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// A map of the bf16 tensor [dims[n-1]]...[dims[0]] (dims innermost first,
+// contiguous) in boxes `box`, 128-byte swizzle; out-of-bounds elements,
+// negative coordinates included, read as zero.
+bool tensor_map(CUtensorMap* m, const void* base, int rank, const cuuint64_t* dims,
+                const cuuint32_t* box) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  cuuint64_t strides[3];
+  cuuint64_t s = 2;
+  for (int i = 0; i + 1 < rank; ++i) strides[i] = s *= dims[i];
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// X1 (CIN 64) or X2 (CIN 128) on the view x [B, H, Wc, CIN] with the
+// packed weights w [9 CIN][CIN].
+template <int CIN, bool PATCH>
+int launch_wgmma(const void* x, const void* w, const float* s, const float* t, void* y, int B,
+                 int H, int Wc, int th, int tw, void* stream) {
+  const Layout l = wgmma_layout(CIN, PATCH, th, tw);
+  const long long per_image = static_cast<long long>((H + th - 1) / th) * ((Wc + tw - 1) / tw);
+  if (l.total < 0 || per_image * B > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xm, wm;
+  const cuuint64_t xdims[4] = {CIN, static_cast<cuuint64_t>(Wc), static_cast<cuuint64_t>(H),
+                               static_cast<cuuint64_t>(B)};
+  const cuuint32_t xbox[4] = {64, static_cast<cuuint32_t>(tw + 2),
+                              static_cast<cuuint32_t>(th + 2), 1};
+  const cuuint64_t wdims[2] = {CIN, 9 * CIN};
+  const cuuint32_t wbox[2] = {64, 64};
+  if (!tensor_map(&xm, x, 4, xdims, xbox) || !tensor_map(&wm, w, 2, wdims, wbox))
+    return ERR_TENSOR_MAP;
+  XParams p{};
+  p.s = s;
+  p.t = t;
+  p.y = static_cast<bf16*>(y);
+  p.H = H;
+  p.Wc = Wc;
+  p.th = th;
+  p.tw = tw;
+  p.n_chunks = (Wc + tw - 1) / tw;
+  p.per_image = static_cast<int>(per_image);
+  p.n_items = static_cast<int>(per_image * B);
+  p.halo_box = 128 * (th + 2) * (tw + 2);
+  p.halo_stage = static_cast<int>(l.halo_stage);
+  p.halo_stages = l.halo_stages;
+  p.w_stages = l.w_stages;
+  p.weights_off = static_cast<int>(l.halo_stages * l.halo_stage);
+  p.patch_off = static_cast<int>(p.weights_off + l.weights);
+  p.bar_off = static_cast<int>(p.patch_off + l.patch);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      conv_wgmma_kernel<CIN, PATCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(SMEM_MAX));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int grid = p.n_items < sms ? p.n_items : sms;
+  conv_wgmma_kernel<CIN, PATCH><<<grid, XTHREADS, static_cast<size_t>(l.total),
+                                  static_cast<cudaStream_t>(stream)>>>(xm, wm, p);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -484,19 +912,17 @@ extern "C" int conv_strip_bf16(const void* x, const void* w, const float* s, con
   return launch(conv_strip_kernel<IM2COL>, grid, smem, stream, x, w, s, t, y, H, W, th, tw);
 }
 
-// X1. As conv_strip_bf16, kind ky3 or im2col.
+// X1. x [B, H, W, 64] bf16, 16-byte aligned; w bf16 packed for `kind`
+// (ky3 [3, 192, 64], im2col [576, 64]), 16-byte aligned; th x tw = 128.
+// Otherwise as conv_strip_bf16; 9001 when a tensor map could not be made.
 extern "C" int conv_strip_async_bf16(const void* x, const void* w, const float* s,
                                      const float* t, void* y, int B, int H, int W, int kind,
                                      int th, int tw, void* stream) {
   const long long smem = smem_bytes(STRIP_ASYNC, kind, th, tw);
   if (!shapes_ok(B, H, W) || smem < 0 || smem > SMEM_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((H + th - 1) / th, B);
-  if (kind == KY3)
-    return launch(conv_strip_async_kernel<KY3>, grid, smem, stream, x, w, s, t, y, H, W, th,
-                  tw);
-  return launch(conv_strip_async_kernel<IM2COL>, grid, smem, stream, x, w, s, t, y, H, W, th,
-                tw);
+  if (kind == KY3) return launch_wgmma<C, false>(x, w, s, t, y, B, H, W, th, tw, stream);
+  return launch_wgmma<C, true>(x, w, s, t, y, B, H, W, th, tw, stream);
 }
 
 // X3. As conv_strip_bf16, kind ky3 or im2col.
@@ -513,15 +939,14 @@ extern "C" int conv_tile2d_bf16(const void* x, const void* w, const float* s, co
 }
 
 // X2. W even; w bf16 pack_w_s2d [3, 384, 128] (s2dc) or pack_w_s2d9
-// [3, 3, 128, 128] (s2d9); tg groups of two pixels a tile.
+// [3, 3, 128, 128] (s2d9), the same memory; tg groups of two pixels a
+// tile, th x tg = 128. Otherwise as conv_strip_async_bf16.
 extern "C" int conv_s2d_bf16(const void* x, const void* w, const float* s, const float* t,
                              void* y, int B, int H, int W, int kind, int th, int tg,
                              void* stream) {
   const long long smem = smem_bytes(S2D, kind, th, tg);
   if (!shapes_ok(B, H, W) || W % 2 != 0 || smem < 0 || smem > SMEM_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((W / 2 + tg - 1) / tg, (H + th - 1) / th, B);
-  if (kind == S2DC)
-    return launch(conv_s2d_kernel<true>, grid, smem, stream, x, w, s, t, y, H, W, th, tg);
-  return launch(conv_s2d_kernel<false>, grid, smem, stream, x, w, s, t, y, H, W, th, tg);
+  if (kind == S2DC) return launch_wgmma<2 * C, true>(x, w, s, t, y, B, H, W / 2, th, tg, stream);
+  return launch_wgmma<2 * C, false>(x, w, s, t, y, B, H, W / 2, th, tg, stream);
 }

@@ -9,12 +9,16 @@ s and t [64] float32, float32 sums, and one rounding to bf16 at the end:
 
 - `conv_strip` (X4; kinds taps9, ky3, im2col): a block per (image, th-row
   strip) that walks the strip tw columns at a time;
-- `conv_strip_async` (X1; ky3, im2col): the same, with the next chunk's halo
-  copied by cp.async while the current one computes;
+- `conv_strip_async` (X1; ky3, im2col): persistent blocks walking th x tw =
+  128-pixel work items, the halo brought by TMA into a ring of mbarrier
+  stages, the products on `wgmma` (ky3's A by ldmatrix from the halo,
+  im2col's from a patch built per K slice);
 - `conv_tile2d` (X3; ky3, im2col): one block per th x tw output tile;
-- `conv_s2d` (X2; s2dc, s2d9): on the free view [B, H, W/2, 128], a block per
-  th x tg group tile, with the weights of `pack_w_s2d` or `pack_w_s2d9`.
-  Half of those weights are structural zeros: s2d does 2x the useful FLOPs.
+- `conv_s2d` (X2; s2dc, s2d9): X1's kernel on the free view [B, H, W/2,
+  128], th x tg = 128-group items, with the weights of `pack_w_s2d` or
+  `pack_w_s2d9` streamed through their own ring (s2dc's A from a patch,
+  s2d9's from the halo). Half of those weights are structural zeros: s2d
+  does 2x the useful FLOPs.
 
 Each wrapper runs its formulation's plain version for a tensor on the CPU
 (`PLAIN`: taps9, ky3 and im2col; the dma-* and t4-* kinds share the ky3
@@ -42,9 +46,16 @@ from ..utils import build
 SOURCE = "conv_formulations.cu"
 C = 64
 SMEM_LIMIT = 232_448  # a block's shared memory on Hopper (227 KB)
-WARPS = 8  # warps a block; each has a 16 x 16 float32 epilogue scratch
+WARPS = 8  # warps of an X3 or X4 block; each has a 16 x 16 float32 epilogue scratch
 EPILOGUE_BYTES = WARPS * 16 * 16 * 4
 MAX_B = 65535
+# X1 and X2 (`wgmma_layout`, csrc/conv_formulations.cu's conv_wgmma_kernel).
+TILE_ROWS = 128  # output pixels (X1) or groups (X2) of a work item: two 64-row M tiles
+BOX = 8192  # a [64][64] bf16 tile
+MAX_HALO_STAGES, MAX_W_STAGES = 4, 6
+TAIL_BYTES = 768  # the barriers (256 bytes), then s and t
+WGMMA_FAMILIES = {"strip_async": C, "s2d": 2 * C}  # family -> channels of a halo element
+PATCH_KINDS = ("im2col", "s2dc")  # A from a patch; ky3 and s2d9 read the halo in place
 # The C interface's codes (csrc/conv_formulations.cu).
 KINDS = {"taps9": 0, "ky3": 1, "im2col": 2, "s2dc": 3, "s2d9": 4}
 FAMILIES = {"strip": (0, ("taps9", "ky3", "im2col")),
@@ -221,16 +232,53 @@ def _even(x):
 
 
 # ------------------------------------------------------------- the kernels
+def _round1024(v: int) -> int:
+    return (v + 1023) // 1024 * 1024
+
+
+def wgmma_layout(family: str, kind: str, th: int, tw: int) -> dict | None:
+    """The shared memory of an X1 or X2 block (the C source's
+    `wgmma_layout`): the halo ring (`halo_stages` of `halo_stage` bytes, one
+    1024-aligned [th+2, tw+2, 64] box a 64-channel half), the weights (X1's
+    nine [64][64] boxes resident, X2's `w_stages` K slices of two boxes),
+    the patch slots (two a warpgroup for im2col and s2dc), the barriers
+    with s and t, after up to 1024 bytes of alignment. None for a tile no kernel takes."""
+    cin = WGMMA_FAMILIES[family]
+    if th < 1 or tw < 1 or th * tw != TILE_ROWS:
+        return None
+    halo_stage = cin // 64 * _round1024(128 * (th + 2) * (tw + 2))
+    patch = 2 * 2 * BOX if kind in PATCH_KINDS else 0
+    room = SMEM_LIMIT - 1024 - TAIL_BYTES - patch
+    if cin == C:
+        weights, w_stages = 9 * BOX, 0
+        halo_stages = min(MAX_HALO_STAGES, (room - weights) // halo_stage)
+    else:
+        halo_stages = 2
+        w_stages = min(MAX_W_STAGES, (room - 2 * halo_stage) // (2 * BOX))
+        weights = 2 * BOX * w_stages
+        if w_stages < 2:
+            return None
+    if halo_stages < 2:
+        return None
+    total = 1024 + halo_stages * halo_stage + weights + patch + TAIL_BYTES
+    return {"halo_stage": halo_stage, "halo_stages": halo_stages, "w_stages": w_stages,
+            "weights": weights, "patch": patch, "total": total}
+
+
 def smem_bytes(family: str, kind: str, th: int, tw: int) -> int:
     """Shared memory a block of `family` takes for `kind` at tile th x tw
-    (tw in groups of two pixels for s2d): the halo (two for strip_async),
-    the patch, and the warps' epilogue scratch."""
+    (tw in groups of two pixels for s2d), or -1 for a tile no kernel takes
+    (`conv_formulations_smem_bytes`). X3, X4: the halo, the patch and the
+    warps' epilogue scratch; X1, X2: `wgmma_layout`'s total."""
+    if family in WGMMA_FAMILIES:
+        layout = wgmma_layout(family, kind, th, tw)
+        return -1 if layout is None else layout["total"]
+    if th < 1 or tw < 16 or tw % 16:
+        return -1
     px = 2 * C  # bytes of one pixel's channels
     halo = (th + 2) * (tw + 2) * px
-    if family == "s2d":
-        return 2 * halo + ((th + 2) * tw * 6 * px if kind == "s2dc" else 0) + EPILOGUE_BYTES
     patch = {"taps9": 0, "ky3": th * (tw + 2) * 3 * px, "im2col": th * tw * 9 * px}[kind]
-    return (2 if family == "strip_async" else 1) * halo + patch + EPILOGUE_BYTES
+    return halo + patch + EPILOGUE_BYTES
 
 
 def check_tile(family: str, kind: str, th: int, tw: int) -> int:
@@ -238,12 +286,16 @@ def check_tile(family: str, kind: str, th: int, tw: int) -> int:
     the block's shared memory."""
     if family not in FAMILIES or kind not in FAMILIES[family][1]:
         raise ValueError(f"{family} takes kinds {FAMILIES.get(family, (0, ()))[1]}, got {kind!r}")
-    if th < 1 or tw < 16 or tw % 16:
+    if family in WGMMA_FAMILIES:
+        if th < 1 or tw < 1 or th * tw != TILE_ROWS:
+            raise ValueError(f"{family} takes tiles of th x tw = {TILE_ROWS} (two 64-row wgmma "
+                             f"tiles), got {th} x {tw}")
+    elif th < 1 or tw < 16 or tw % 16:
         raise ValueError(f"tiles need th >= 1 and a multiple of 16 for tw, got {th} x {tw}")
     smem = smem_bytes(family, kind, th, tw)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{family} {kind} at {th} x {tw} stages {smem} bytes, more than a "
-                         f"block's {SMEM_LIMIT} of shared memory")
+    if smem < 0 or smem > SMEM_LIMIT:
+        raise ValueError(f"{family} {kind} at {th} x {tw} does not fit its staging in a "
+                         f"block's {SMEM_LIMIT} bytes of shared memory")
     return smem
 
 
@@ -318,7 +370,7 @@ def conv_strip(x, w, s, t, kind: str = "taps9", th: int = 4, tw: int = 64):
 
 
 def conv_strip_async(x, w, s, t, kind: str = "ky3", th: int = 4, tw: int = 32):
-    """X1: X4's ky3 / im2col with the next chunk's halo in flight (cp.async)."""
+    """X1: ky3 / im2col on `wgmma`, th x tw = 128-pixel items, the halo by TMA."""
     return _launch(conv_strip_async, "strip_async", x, w, s, t, kind, th, tw)
 
 
@@ -328,7 +380,7 @@ def conv_tile2d(x, w, s, t, kind: str = "ky3", th: int = 8, tw: int = 16):
 
 
 def conv_s2d(x, w, s, t, kind: str = "s2dc", th: int = 8, tg: int = 16):
-    """X2: th x tg tiles of the [B, H, W/2, 128] view (W even)."""
+    """X2: th x tg = 128-group items of the [B, H, W/2, 128] view (W even)."""
     return _launch(conv_s2d, "s2d", x, w, s, t, kind, th, tg)
 
 

@@ -8,19 +8,22 @@ kernel in `ops/conv_formulations.py`:
 
   taps9, ky3, im2col    X4 `conv_strip`: a block per (image, th-row strip)
                         that walks it tw columns at a time
-  dma-ky3, dma-im2col   X1 `conv_strip_async`: the same with the next
-                        chunk's halo copied by cp.async during compute
+  dma-ky3, dma-im2col   X1 `conv_strip_async`: persistent blocks over th x tw
+                        = 128-pixel items, the halo by TMA into a ring of
+                        mbarrier stages, the products on wgmma
   t4-ky3, t4-im2col     X3 `conv_tile2d`: one block per th x tw tile
-  s2dc, s2d9            X2 `conv_s2d`: th x tg group tiles of the s2d view
-                        (2x the useful FLOPs: half the packed weights are 0)
+  s2dc, s2d9            X2 `conv_s2d`: X1's kernel on th x tg = 128-group items
+                        of the s2d view, the weights streamed by TMA (2x the
+                        useful FLOPs: half the packed weights are 0)
 
 Spec grammar as the JAX tool's: kind_th[_tw], tw defaulting to 256, and
 for taps9 to the full width padded to 16, as the JAX tool's taps9 strip.
 A tile whose shared-memory staging exceeds a block's 227 KB raises
-ValueError, as an unknown kind does. The JAX defaults (taps9_4 at full
-width, s2dc_16_64, s2d9_32_128) do not fit; DEFAULT_KINDS keeps their
-three families at tiles that do: taps9_4_64, s2dc_8_16, s2d9_8_32.
-ALL_KINDS has one spec a kind.
+ValueError, as an unknown kind does, and so does an X1 or X2 tile other
+than th x tw = 128. The JAX defaults (taps9_4 at full width, s2dc_16_64,
+s2d9_32_128) are not taken; DEFAULT_KINDS keeps their three families at
+tiles that are: taps9_4_64, s2dc_8_16, s2d9_8_16. ALL_KINDS has one spec
+a kind.
 
 The first line is the yardstick, the port's `conv3x3_affine_relu_ref` on
 bf16 (cuDNN's bf16 conv, then the affine and ReLU in float32; "cudnn" on
@@ -54,9 +57,9 @@ B, H, W, C = 8, 376, 1240, 64
 FLOP = B * H * W * 9 * 2 * C * C
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
 
-DEFAULT_KINDS = ("taps9_4_64", "s2dc_8_16", "s2d9_8_32")
+DEFAULT_KINDS = ("taps9_4_64", "s2dc_8_16", "s2d9_8_16")
 ALL_KINDS = ("taps9_4_64", "ky3_4_32", "im2col_4_32", "dma-ky3_4_32", "dma-im2col_4_32",
-             "t4-ky3_8_16", "t4-im2col_8_16", "s2dc_8_16", "s2d9_8_32")
+             "t4-ky3_8_16", "t4-im2col_8_16", "s2dc_8_16", "s2d9_8_16")
 # Each kind's (family, wrapper) in ops/conv_formulations.py.
 ROUTES = {"taps9": ("strip", cf.conv_strip), "ky3": ("strip", cf.conv_strip),
           "im2col": ("strip", cf.conv_strip),

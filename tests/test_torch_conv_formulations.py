@@ -1,6 +1,7 @@
 """Port parity: the conv-formulation shootout (X1-X4) and its tool.
 
-At a small size (B <= 2, H = 12, W = 40, C = 64; th 4, tw/tg 16):
+At a small size (B <= 2, H = 12, W = 40, C = 64; X3 and X4 at th 4, tw
+16, X1 and X2 at tiles of th x tw = 128):
 
 - Each of the nine kinds of `tools/bench_conv_formulations.py`, run through
   the JAX tool's own `build(spec)` in Pallas interpret mode (its module
@@ -50,16 +51,19 @@ tool = importlib.import_module("deepfepe_tpu_torch.tools.bench_conv_formulations
 
 REPO = Path(__file__).resolve().parents[1]
 SMALL = {"B": 2, "H": 12, "W": 40, "C": 64}
-SPECS = ["taps9_4_16", "ky3_4_16", "im2col_4_16", "dma-ky3_4_16", "dma-im2col_4_16",
-         "t4-ky3_4_16", "t4-im2col_4_16", "s2dc_4_16", "s2d9_4_16"]
+SPECS = ["taps9_4_16", "ky3_4_16", "im2col_4_16", "dma-ky3_4_32", "dma-im2col_8_16",
+         "t4-ky3_4_16", "t4-im2col_4_16", "s2dc_4_32", "s2d9_8_16"]
 PLAIN_OF = {"taps9": "taps9", "ky3": "ky3", "im2col": "im2col", "dma-ky3": "ky3",
             "dma-im2col": "im2col", "t4-ky3": "ky3", "t4-im2col": "im2col", "s2dc": "s2dc",
             "s2d9": "s2d9"}
 WRAPPERS = [(cf.conv_strip, "taps9", {"tw": 16}), (cf.conv_strip, "ky3", {"tw": 16}),
-            (cf.conv_strip, "im2col", {"tw": 16}), (cf.conv_strip_async, "ky3", {"tw": 16}),
-            (cf.conv_strip_async, "im2col", {"tw": 16}), (cf.conv_tile2d, "ky3", {"tw": 16}),
-            (cf.conv_tile2d, "im2col", {"tw": 16}), (cf.conv_s2d, "s2dc", {"tg": 16}),
-            (cf.conv_s2d, "s2d9", {"tg": 16})]
+            (cf.conv_strip, "im2col", {"tw": 16}), (cf.conv_strip_async, "ky3", {"tw": 32}),
+            (cf.conv_strip_async, "im2col", {"tw": 32}), (cf.conv_tile2d, "ky3", {"tw": 16}),
+            (cf.conv_tile2d, "im2col", {"tw": 16}), (cf.conv_s2d, "s2dc", {"tg": 32}),
+            (cf.conv_s2d, "s2d9", {"tg": 32})]
+# What a tile no kernel takes raises: X3 and X4 run out of shared memory, X1
+# and X2 take only th x tw = 128.
+TILE_REFUSED = "shared memory|th x tw = 128"
 WRAPPER_IDS = ["strip-taps9", "strip-ky3", "strip-im2col", "async-ky3", "async-im2col",
                "tile2d-ky3", "tile2d-im2col", "s2d-s2dc", "s2d-s2d9"]
 
@@ -190,24 +194,48 @@ def test_plain_versions_against_float64(kind):
 
 
 def test_smem_follows_the_tile_sizes():
-    """The block's halo and patch staging plus 8 KB of epilogue scratch."""
+    """X3, X4: the block's halo and patch staging plus 8 KB of epilogue
+    scratch. X1, X2: 1024 bytes of alignment, the halo ring (a stage is one
+    1024-aligned [th+2, tw+2, 64] bf16 box a 64-channel half), the weights
+    (X1's 72 KB resident, X2's 16 KB K slices), two 8 KB patch slots a
+    warpgroup for im2col and s2dc, 768 bytes of barriers, s and t."""
     epi = cf.EPILOGUE_BYTES
     assert epi == 8192
     assert cf.smem_bytes("strip", "taps9", 4, 64) == 6 * 66 * 128 + epi
     assert cf.smem_bytes("strip", "ky3", 4, 32) == 6 * 34 * 128 + 4 * 34 * 384 + epi
     assert cf.smem_bytes("strip", "im2col", 4, 32) == 6 * 34 * 128 + 4 * 32 * 1152 + epi
-    assert cf.smem_bytes("strip_async", "ky3", 4, 32) == 2 * 6 * 34 * 128 + 4 * 34 * 384 + epi
-    assert cf.smem_bytes("s2d", "s2dc", 8, 16) == 10 * 18 * 256 + 10 * 16 * 768 + epi
-    assert cf.smem_bytes("s2d", "s2d9", 8, 32) == 10 * 34 * 256 + epi
+    assert cf.smem_bytes("tile2d", "ky3", 8, 16) == 10 * 18 * 128 + 8 * 18 * 384 + epi
+    # X1 at 4 x 32: a stage 6 * 34 * 128 = 26,112 -> 26,624 bytes; four of them.
+    assert cf.smem_bytes("strip_async", "ky3", 4, 32) == 1024 + 4 * 26_624 + 73_728 + 768
+    assert cf.smem_bytes("strip_async", "im2col", 4, 32) == \
+        1024 + 4 * 26_624 + 73_728 + 32_768 + 768
+    # At 1 x 128 a stage is 3 * 130 * 128 -> 50,176 bytes: im2col keeps two.
+    assert cf.wgmma_layout("strip_async", "im2col", 1, 128)["halo_stages"] == 2
+    # X2 at 8 x 16: a stage 2 * (10 * 18 * 128 -> 23,552); two, and six
+    # weight stages of 16 KB.
+    lay = cf.wgmma_layout("s2d", "s2dc", 8, 16)
+    assert (lay["halo_stages"], lay["w_stages"]) == (2, 6)
+    assert cf.smem_bytes("s2d", "s2dc", 8, 16) == 1024 + 2 * 47_104 + 6 * 16_384 + 32_768 + 768
+    assert cf.smem_bytes("s2d", "s2d9", 2, 64) == 1024 + 2 * 67_584 + 5 * 16_384 + 768
+    assert cf.wgmma_layout("s2d", "s2dc", 2, 64)["w_stages"] == 3
+    # Two halo stages of 1 x 128 groups leave room for one weight stage.
+    assert cf.smem_bytes("s2d", "s2d9", 1, 128) == -1
+    assert cf.smem_bytes("strip_async", "ky3", 4, 16) == -1 == cf.smem_bytes("s2d", "s2dc", 8, 32)
+    assert cf.smem_bytes("strip", "ky3", 4, 24) == -1
+    for family in cf.WGMMA_FAMILIES:  # every tile they take fits
+        for kind in cf.FAMILIES[family][1]:
+            for th, tw in ((1, 128), (2, 64), (4, 32), (8, 16), (16, 8), (128, 1), (4, 64)):
+                assert cf.smem_bytes(family, kind, th, tw) <= cf.SMEM_LIMIT
     for spec in (*tool.ALL_KINDS, *tool.DEFAULT_KINDS):
         tool.build(spec)  # every shipped tile fits
 
 
 @pytest.mark.parametrize("spec,match", [
     ("nope_4", "unknown kind"), ("conv_4_16", "unknown kind"),
-    ("taps9_4", "shared memory"), ("s2dc_16_64", "shared memory"),
-    ("s2d9_32_128", "shared memory"), ("im2col_8_64", "shared memory"),
-    ("ky3_4_24", "multiple of 16")])
+    ("taps9_4", "shared memory"), ("s2dc_16_64", "th x tw = 128"),
+    ("s2d9_32_128", "th x tw = 128"), ("im2col_8_64", "shared memory"),
+    ("ky3_4_24", "multiple of 16"), ("dma-ky3_4_16", "th x tw = 128"),
+    ("s2d9_1_128", "shared memory")])
 def test_build_raises(spec, match):
     with pytest.raises(ValueError, match=match):
         tool.build(spec)
@@ -216,7 +244,7 @@ def test_build_raises(spec, match):
 def test_build_refuses_an_odd_width_for_s2d(monkeypatch):
     monkeypatch.setattr(tool, "W", 41)
     with pytest.raises(ValueError, match="even"):
-        tool.build("s2dc_4_16")
+        tool.build("s2dc_4_32")
     tool.build("ky3_4_16")
 
 
@@ -239,7 +267,7 @@ def test_tool_main_prints_a_failed_spec_and_exits_1(monkeypatch, capsys):
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert [ln["kind"] for ln in lines] == ["ref", "ky3_4_16", "nope_4", "s2dc_16_64"]
     assert "error" not in lines[1]
-    assert "unknown kind" in lines[2]["error"] and "shared memory" in lines[3]["error"]
+    assert "unknown kind" in lines[2]["error"] and "th x tw = 128" in lines[3]["error"]
 
 
 def test_tool_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
@@ -254,7 +282,7 @@ def test_wrappers_on_the_cpu_are_the_plain_versions(fn, kind, tile):
     before = fn.launches
     assert torch.equal(fn(x, w, s, t, kind=kind, th=4, **tile), cf.PLAIN[kind](x, w, s, t))
     assert fn.launches == before
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match=TILE_REFUSED):
         fn(x, w, s, t, kind=kind, th=64, **{k: 256 for k in tile})
 
 
@@ -323,7 +351,8 @@ def test_kernel_smem_sizes_match_the_module(cuda):
     lib = cf._load()
     for family, (code, kinds) in cf.FAMILIES.items():
         for kind in kinds:
-            for th, tw in ((1, 16), (4, 16), (4, 64), (8, 32), (16, 64)):
+            for th, tw in ((1, 16), (4, 16), (4, 64), (8, 32), (16, 64), (1, 128), (2, 64),
+                           (4, 32), (8, 16), (16, 8), (128, 1)):
                 assert lib.conv_formulations_smem_bytes(code, cf.KINDS[kind], th, tw) == \
                     cf.smem_bytes(family, kind, th, tw)
     assert lib.conv_formulations_smem_bytes(0, 0, 4, 24) == -1
@@ -346,7 +375,7 @@ def test_wrappers_raise_on_the_card(cuda, fn, kind, tile):
         fn(x, w, s.double(), t, **kw)
     with pytest.raises(ValueError, match="one device"):
         fn(x, w.cpu(), s, t, **kw)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match=TILE_REFUSED):
         fn(x, w, s, t, kind=kind, th=64, **{k: 256 for k in tile})
     if fn is cf.conv_s2d:
         with pytest.raises(ValueError, match="even"):

@@ -64,7 +64,8 @@ def test_importing_the_port_loads_no_jax():
     for m in ("ops.conv", "ops.matcher", "frontend.pipeline", "frontend.sp_fused",
               "data.synthetic_images", "eval.frontend_eval", "train.joint", "loader",
               "utils.weights", "ops.epi_residual", "models.sample_fit",
-              "ops.conv_formulations", "tools.bench_conv_formulations", "tools.profile_mlp"):
+              "ops.conv_formulations", "tools.bench_conv_formulations", "tools.profile_mlp",
+              "tools.xconv_variants"):
         assert f"deepfepe_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -177,7 +178,8 @@ def _chip_smoke():
 @pytest.mark.parametrize("fault", ["c1_next_item", "c2_next_item", "stats_straddle_next_item",
                                    "epi_unsafe_norm_grad",
                                    "epi_tie_blocked", "xconv_tap_shift",
-                                   "matcher_fold_last_index", "eigh9_warp_skip_rotation"])
+                                   "matcher_fold_last_index", "eigh9_warp_skip_rotation",
+                                   "xconv_halo_top_row", "xconv_s2d_next_ky"])
 def test_chip_smoke_kernel_faults_name_one_source_line(fault):
     """Each `--plant` kernel fault changes a line that occurs once in its
     module's CUDA source, and the module can bind the faulty build."""
