@@ -89,8 +89,8 @@ and for the conv-formulation slice:
            1240, 64] -> 64 in bf16 with non-trivial s and t: every kind of
            the port's tools/bench_conv_formulations.py against its plain
            version and float64 (the top rows of the first image and the
-           bottom rows of the last), X1's and X2's kinds also called twice
-           and held bit-identical, timed beside the plain version, cuDNN's
+           bottom rows of the last), every kind also called twice and
+           held bit-identical, timed beside the plain version, cuDNN's
            fused bf16 conv + bias + ReLU and the bound (s2d's own 2x floor
            beside it);
   conv_formulations  that tool's entry point on all nine kinds at the same
@@ -114,8 +114,10 @@ line changed, conv_formulations.cu built with taps9's centre tap read
 one column off, matcher.cu's fold keeping the higher index on equal
 values, eigh9.cu's warp kernel skipping rotation (7, 8), conv3x3.cu's
 tensor-core kernel reading the centre tap one column off, or its fold of
-K5b's gradients dropping the last pixel group, X1's halo box one row low,
-X2's ky = 0 weights streamed from ky = 1's rows) and runs only
+K5b's gradients dropping the last pixel group, the 64-channel kinds'
+halo box one row low (X1, X3, X4), X2's ky = 0 weights streamed from
+ky = 1's rows, X4's chunk halo one column to the right, an X3 block
+bringing the next tile's halo) and runs only
 that kernel's checks, printing their readings; it exits 1 when a check
 caught the fault. `--plant none` runs every set and gives the sound
 readings the bars are set against.
@@ -208,7 +210,8 @@ F64_FACTOR, F64_FLOOR = 1.3, 1e-3
 FAULTS = ("none", "dx_zero", "dgamma_dbeta_swapped", "c1_next_item", "c2_next_item",
           "stats_straddle_next_item", "epi_unsafe_norm_grad", "epi_tie_blocked", "xconv_tap_shift",
           "matcher_fold_last_index", "eigh9_warp_skip_rotation", "conv_mma_tap_shift",
-          "conv_fold_drop_group", "xconv_halo_top_row", "xconv_s2d_next_ky")
+          "conv_fold_drop_group", "xconv_halo_top_row", "xconv_s2d_next_ky",
+          "xconv_strip_halo_column", "xconv_tile_next_halo")
 # Kernel faults, each planted into one source line: (module under
 # deepfepe_tpu_torch.ops, the line, its faulty form). c1/c2_next_item build
 # K2b's dh with the next item's coefficient; stats_straddle_next_item
@@ -224,9 +227,12 @@ FAULTS = ("none", "dx_zero", "dgamma_dbeta_swapped", "c1_next_item", "c2_next_it
 # fragments one column to the right in conv3x3.cu's tensor-core kernel (K5
 # for Cin >= 2, K5b's dx); conv_fold_drop_group leaves the last pixel group
 # out of the fold of K5b's weight and affine gradients; xconv_halo_top_row
-# brings X1's halo box from row r0 instead of r0 - 1 (the top zero row
-# lost, every row one off); xconv_s2d_next_ky streams X2's ky = 0 weight
-# slices from ky = 1's rows.
+# brings the halo box of the 64-channel kinds (X1, X3, X4) from row r0
+# instead of r0 - 1 (the top zero row lost, every row one off);
+# xconv_s2d_next_ky streams X2's ky = 0 weight slices from ky = 1's rows;
+# xconv_strip_halo_column brings X4's chunk halo from column c0 instead of
+# c0 - 1; xconv_tile_next_halo has each X3 block bring the halo of the
+# next tile (the last block the first tile's) while it writes its own.
 SOURCE_FAULTS = {
     "c1_next_item": ("mlp", "load8(p.c1b + pi, k.c1);  // c1 of the row's item",
                      "load8(p.c1b + (pi + p.pch) % (static_cast<long long>((p.prow + p.Nn - 1) "
@@ -242,8 +248,8 @@ SOURCE_FAULTS = {
     "epi_tie_blocked": ("epi_residual", "const float gd = t.d <= clamp_at ? g : 0.f;",
                         "const float gd = t.d < clamp_at ? g : 0.f;"),
     "xconv_tap_shift": (
-        "conv_formulations", "const bf16* ap = halo + ((r + ky) * hc + c0 + kx) * C;",
-        "const bf16* ap = halo + ((r + ky) * hc + c0 + kx + (tap == 4)) * C;"),
+        "conv_formulations", "const int hr = hrb + ky * hc + kx;",
+        "const int hr = hrb + ky * hc + kx + (KIND == TAPS9 && s == 4);"),
     "matcher_fold_last_index": ("matcher", "if (v > best) {  // a later tile wins only by a "
                                 "larger value", "if (v >= best) {"),
     "eigh9_warp_skip_rotation": ("eigh9", "const float apq = __shfl_sync(FULL, g[q], p);",
@@ -262,6 +268,14 @@ SOURCE_FAULTS = {
     "xconv_s2d_next_ky": (
         "conv_formulations", "const int krow = 64 * s;  // the slice's rows of the packed weights",
         "const int krow = 64 * (s < 6 ? s + 6 : s);"),
+    "xconv_strip_halo_column": (
+        "conv_formulations",
+        "const int hc0 = it.c0 - 1;  // the halo's left column: one left of the item's",
+        "const int hc0 = it.c0 - (FAMILY == STRIP ? 0 : 1);"),
+    "xconv_tile_next_halo": (
+        "conv_formulations",
+        "const int item = wk.first + i * wk.step;  // the item whose halo this stage takes",
+        "const int item = FAMILY == TILE2D ? (wk.first + 1) % p.n_items : wk.first + i * wk.step;"),
 }
 
 
@@ -353,24 +367,32 @@ EIGH9_CASES = ((1, 1000), (4, 1000), (8, 1000), (800, 20), (4096, 8), (4097, 8))
 EIGH9_TIMED = ((4, 1000), (8, 1000), (800, 20), (2048, 8), (3072, 8), (4096, 8))
 
 
-def device_ops(fn) -> list:
+def device_ops(fn, tries: int = 3) -> tuple:
     """Names of the device operations (kernels, copies, sets) that one call
-    of fn runs, from a torch.profiler trace."""
+    of fn runs, from a torch.profiler trace, and the number of traces
+    taken. A trace without any device operation is taken again, up to
+    `tries` traces: the profiler on the card's machine has once dropped a
+    whole call's device events, while a call that launches nothing reads
+    empty every time. The count shows when that recurs."""
     import tempfile
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for n in range(1, tries + 1):
         torch.cuda.synchronize()
-    path = os.path.join(tempfile.mkdtemp(prefix="device_ops_"), "trace.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    return [e["name"] for e in events if e.get("ph") == "X"
-            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        path = os.path.join(tempfile.mkdtemp(prefix="device_ops_"), "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        ops = [e["name"] for e in events if e.get("ph") == "X"
+               and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        if ops:
+            break
+    return ops, n
 
 
 def phase_kernels(ph: Phases) -> dict:
@@ -441,10 +463,10 @@ def phase_kernels(ph: Phases) -> dict:
               f"{nan_rows[kernel]}")
     ph.emit("kernels", kernel="eigh9", nan_matrix=nan_rows)
 
-    ops = {}
+    ops, traces = {}, {}
     for B, A_B in ((8, A), (4096, gram_batch(4096, 8, gen))):
-        ops[B] = device_ops(lambda: eigh9_mod.eigh9(A_B))
-    ph.emit("kernels", kernel="eigh9", device_ops_a_call=ops)
+        ops[B], traces[B] = device_ops(lambda: eigh9_mod.eigh9(A_B))
+    ph.emit("kernels", kernel="eigh9", device_ops_a_call=ops, traces_taken=traces)
     check(all(len(v) == 1 and "eigh9_" in v[0] for v in ops.values()),
           f"an eigh9 call is not one kernel launch: {ops}")
 
@@ -2836,13 +2858,12 @@ def xconv_case(spec: str, x, w, s, t, y64, library_ms: float) -> dict:
 
     f = tool.build(spec)
     plain_fn = cf.PLAIN[spec.split("_")[0].split("-")[-1]]
-    # X1 and X2 (the wgmma kernels): a second call must repeat the first
-    # bit for bit (no atomics; a fixed order of sums).
-    repeat = tool.ROUTES[spec.split("_")[0]][0] in cf.WGMMA_FAMILIES
     R = XCONV_F64_ROWS
     with torch.no_grad():
         y = f(x, w, s, t)
-        same = bool(torch.equal(y, f(x, w, s, t))) if repeat else None
+        # A second call must repeat the first bit for bit (no atomics; a
+        # fixed order of sums).
+        same = bool(torch.equal(y, f(x, w, s, t)))
         plain = plain_fn(x, w, s, t)
         torch.cuda.synchronize()
         yf, pf = y.float(), plain.float()
@@ -2871,7 +2892,7 @@ def xconv_case(spec: str, x, w, s, t, y64, library_ms: float) -> dict:
                   "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by}
     if kind.startswith("s2d"):
         timing["own_floor_ms"] = xconv_bound_ms(*x.shape, flop_factor=2)[0]
-    ok = errs["finite"] and ratio <= 1.0 and k64_over <= 1.0 and same is not False
+    ok = errs["finite"] and ratio <= 1.0 and k64_over <= 1.0 and same
     return {"spec": spec, "errors": errs, "within_bars": ok, **timing}
 
 

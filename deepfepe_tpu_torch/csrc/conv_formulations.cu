@@ -13,22 +13,17 @@
 //
 // They replace the TPU kernels of tools/bench_conv_formulations.py:
 //   X4 conv_strip        `_k_taps9`, `_k_ky3`, `_k_im2col` (make_fn): a block per
-//                        (image, th-row strip) that walks the strip tw columns at
-//                        a time with synchronous loads. taps9 reads A straight
-//                        from the halo tile at 9 shifted offsets (ldm 64); ky3
-//                        stages a [th, tw+2, 192] ky-stacked patch (3 products of
-//                        K = 192, ldm 192); im2col a [th*tw, 576] patch (one
-//                        product of K = 576, ldm 576).
-//   X3 conv_tile2d       `_k_t4` (make_t4_fn): one block per th x tw output tile
-//                        with its halo, no loop inside the block; the grid
-//                        (B x H/th x W/tw blocks) fills the 132 SMs.
-//   X1 conv_strip_async  `_k_dma` (make_dma_fn): ky3 and im2col, th x tw = 128
-//                        pixel tiles, the halo brought by TMA into a ring of
-//                        mbarrier stages: the counterpart of make_async_copy
-//                        with two semaphores.
-//   X2 conv_s2d          `_k_s2d` (make_s2d_fn): the same kernel on the free
+//                        (image, th-row strip) that walks the strip's chunks of
+//                        th x tw = 128 or 256 pixels left to right.
+//   X3 conv_tile2d       `_k_t4` (make_t4_fn): one block per th x tw = 128
+//                        output tile with its halo, no loop inside the block.
+//   X1 conv_strip_async  `_k_dma` (make_dma_fn): ky3 and im2col, persistent
+//                        blocks over th x tw = 128-pixel items: the halo by
+//                        TMA into a ring of mbarrier stages, the counterpart
+//                        of make_async_copy with two semaphores.
+//   X2 conv_s2d          `_k_s2d` (make_s2d_fn): X1 on the free
 //                        space-to-depth view [B, H, W/2, 128] of x, th x tg =
-//                        128 group tiles with 128-wide output rows (two
+//                        128 group items with 128-wide output rows (two
 //                        pixels), from pack_w_s2d (s2dc: K = 3 x 384 through a
 //                        patch) or pack_w_s2d9 (s2d9: 9 products of K = 128
 //                        straight from the halo). Half of the packed weights
@@ -46,124 +41,146 @@
 // and x and y are 954.9 MB, 0.285 ms at 3.35 TB/s: the function is bound by
 // bytes, just. s2d's own floor is 0.556 ms (2x the FLOPs).
 //
-// X3 and X4 are the first, simple version: legacy mma.sync through wmma, B
-// fragments from L1, A fragments from unpadded shared rows, one 16-pixel M
-// tile a warp at a time and an epilogue through a 1 KB shared scratch per
-// warp.
-//
-// X1 and X2 (`conv_wgmma_kernel`) are built for Hopper:
-//   * Persistent blocks, one an SM, each walking (image, strip, chunk) work
-//     items of th x tw = 128 output pixels (X1) or groups (X2).
+// All four run one kernel, `conv_wgmma_kernel`, built for Hopper:
+//   * Work items of th x tw output pixels (X2: groups), 64 nwg of them for
+//     nwg consumer warpgroups: 128, or 256 for X4. The formulations differ
+//     in how blocks take items (the kernel's FAMILY): X1 and X2 persistent,
+//     one block an SM walking items k, k + grid, ...; X4 a block per strip
+//     walking its chunks in order; X3 a block per item.
 //   * A producer warp: one thread issues, per item, one TMA load of the
 //     4-D box [1, th+2, tw+2, 64] of x (two, one per 64-channel half, for
 //     X2's 128-channel groups) at (b, r0-1, c0-1); TMA's zero fill outside
 //     the tensor gives the SAME padding. The box lands under the 128-byte
 //     swizzle (one pixel's 64 channels a 128-byte row) in a ring of 2-4
-//     stages, each with a full and an empty mbarrier.
+//     stages (X3: one), each with a full and an empty mbarrier. X4's
+//     producer so brings the strip's next chunks while the consumers run
+//     this one.
 //   * Weights by TMA in wgmma's MN-major layout ([64 k][64 n] boxes, 128-byte
-//     swizzle): X1's 73,728 bytes once a block, resident; X2's 294,912 bytes
-//     (more than a block's shared memory) streamed per K slice of 64 rows
-//     (16 KB) through their own ring of full and empty mbarriers.
-//   * Two consumer warpgroups, each one 64-row M tile of the item, run
+//     swizzle): for 64 channels 73,728 bytes once a block, resident; X2's
+//     294,912 bytes (more than a block's shared memory) streamed per K slice
+//     of 64 rows (16 KB) through their own ring of full and empty mbarriers.
+//     X3's blocks each load all nine boxes for one item of 128 pixels, 3.2x
+//     the item's x and y. Clusters of 2 blocks along W sharing them by TMA
+//     multicast (half the L2 reads) took 4-19% longer than no clusters,
+//     and 4 longer still: the blocks are bound by their own fill and round
+//     trips, not by L2, and a cluster adds its barriers and co-scheduling
+//     (PERF.md).
+//   * nwg consumer warpgroups, each one 64-row M tile of the item, run
 //     `wgmma.m64n64k16` (two of them a k step for X2's N = 128) with float32
-//     accumulators in registers, over K slices of 64 (9 for X1: one a tap;
-//     18 for X2: a tap's two channel halves). A comes either
-//       - from registers, by `ldmatrix` on the swizzled halo (ky3, s2d9): any
-//         8 consecutive pixels at one 16-byte chunk fall in 8 distinct bank
-//         groups at any kx shift, so the reads are free of conflicts; or
+//     accumulators in registers, over K slices of 64 (9: one a tap, for 64
+//     channels; 18 for X2: a tap's two channel halves). A comes either
+//       - from registers, by `ldmatrix` on the swizzled halo (taps9, ky3,
+//         s2d9): any 8 consecutive pixels at one 16-byte chunk fall in 8
+//         distinct bank groups at any kx shift, so the reads are free of
+//         conflicts; taps9 and ky3 differ only in the order of their K
+//         slices (tap-major, as pack_w's [3, 3, 64, 64]; kx-major); or
 //       - from a patch (im2col, s2dc), built per K slice into a two-slot ring
 //         of swizzled [64][64] tiles, each warp its own 16 rows, and read by
-//         descriptor; building slice k+1 overlaps slice k's products.
+//         descriptor; building slice k+1 overlaps slice k's products (X3:
+//         one slot, `patch_slots`, rebuilt after them).
 //     A ring slot, a patch slot or a weight stage is reused only after every
 //     consumer's last `wgmma` on it has completed: each consumer thread
 //     arrives on the empty barrier after its `wgmma.wait_group`.
 //   * The epilogue from registers: the affine, the ReLU, bf16 packing, a
 //     transpose within each quad of lanes by shuffles, 16-byte stores of
 //     the rows inside the image.
-// ky3 and im2col (s2d9 and s2dc) differ in their K order, their packed
-// weights and their A route; the function is the same. A warpgroup waits
-// for each slice's products (wait_group 0) once the next slice's A is
-// issued; keeping a slice in flight (wait_group 1) measured no faster.
+// A warpgroup waits for each slice's products (wait_group 0) once the next
+// slice's A is issued; keeping a slice in flight (wait_group 1) measured no
+// faster. Occupancy: X1, X2 and X4 fill a block's shared memory (one an
+// SM; X4's 752 blocks at th = 4 are 5.7 waves); X3's blocks (ky3 99 KB,
+// im2col 115 KB with its one patch slot a warpgroup; at most 112
+// registers a thread) fit two an SM, so one block's prologue and weight
+// wait overlap the other's products.
 //
 // Where the time goes (NVIDIA H100 80GB HBM3, 700 W; variants of this file
-// with parts cut out): ky3 takes about 0.72 ms, of which the halo's TMA
-// stream alone is 0.35 and the ldmatrix reads add 0.18 that the products
-// do not hide; s2d9 about 1.18 ms, of which 0.78 is the stream of the halo
-// and the 18 weight slices an item, bound by their round trips through the
-// ring rather than their bytes (half the weight bytes saved 2%).
+// with parts cut out, tools/xconv_variants.py): X1's ky3 takes about 0.72
+// ms, of which the halo's TMA stream alone is 0.36 and the ldmatrix reads
+// add 0.18 that the products do not hide; X4 the same work in 0.63 ms
+// (taps9 at 4 x 64: four warpgroups, the halo stream alone 0.28) to 0.80
+// (ky3 at 4 x 32); s2d9 about 1.2 ms, of which 0.72 is the stream of the
+// halo and the 18 weight slices an item, bound by their round trips
+// through the ring rather than their bytes (half the weight bytes saved
+// 2-4%). X3 (0.80 ms ky3, 1.03 im2col) splits as X1 does: its blocks'
+// weight and halo fills alone take 0.38-0.39 ms (every block fills 72 KB
+// of weights for 128 pixels), the A reads 0.21 more (im2col's patch
+// 0.33), the products 0.15-0.27.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <dlfcn.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
 constexpr int C = 64;                    // channels in and out
-constexpr int PIECES = C * 2 / 16;       // 16-byte pieces of one pixel's channels
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int EPI_FLOATS = 16 * 16;      // epilogue scratch per warp
 constexpr long long SMEM_MAX = 232448;   // a block's shared memory on Hopper
 
-// Formulation codes of the C interface (ops/conv_formulations.py).
+// Formulation and family codes of the C interface (ops/conv_formulations.py).
 constexpr int TAPS9 = 0, KY3 = 1, IM2COL = 2, S2DC = 3, S2D9 = 4;
 constexpr int STRIP = 0, STRIP_ASYNC = 1, TILE2D = 2, S2D = 3;
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// X1 and X2 (conv_wgmma_kernel).
-constexpr int TILE_ROWS = 128;           // output pixels (X1) or groups (X2) of an item
-constexpr int XTHREADS = 288;            // two consumer warpgroups and a producer warp
-constexpr int CONSUMERS = 256;
+constexpr int TILE_ROWS = 128;           // output pixels (groups for X2) of a two-warpgroup item
 constexpr int BOX = 8192;                // a [64][64] bf16 tile: 64 rows of 128 bytes
 constexpr int MAX_HALO_STAGES = 4;
 constexpr int MAX_W_STAGES = 6;
-constexpr int TAIL_BYTES = 768;        // the barriers (256 bytes), then s and t
+constexpr int TAIL_BYTES = 768;          // the barriers (256 bytes), then s and t
 constexpr int ERR_TENSOR_MAP = 9001;     // cuTensorMapEncodeTiled missing or refused
 
-__host__ __device__ inline long long halo_bytes(int th, int tw) {
-  return 2LL * (th + 2) * (tw + 2) * C;
-}
-
-__host__ __device__ inline long long patch_bytes(int kind, int th, int tw) {
-  if (kind == KY3) return 2LL * th * (tw + 2) * 3 * C;
-  if (kind == IM2COL) return 2LL * th * tw * 9 * C;
-  return 0;
-}
-
-// The shared memory of a conv_wgmma_kernel block, in bytes from the block's
-// 1024-aligned base: the halo ring, the weights (X1 resident, X2 a ring of
-// K slices), the patch slots, the barriers with s and t. total = -1: no
-// kernel takes the tile.
+// The shared memory of a block, in bytes from its 1024-aligned base: the
+// halo ring, the weights (resident for 64 channels, X2's ring of K slices),
+// the patch slots, the barriers with s and t. nwg consumer warpgroups take
+// an item of 64 nwg pixels (groups): total = -1 where no kernel takes the
+// tile.
 struct Layout {
-  long long halo_stage;   // one stage: HALVES boxes, each rounded up to 1024 bytes
-  int halo_stages, w_stages;
+  long long halo_stage;   // one stage: a box a 64-channel half, each rounded up to 1024 bytes
+  int halo_stages, w_stages, nwg;
   long long weights, patch, total;
 };
 
-__host__ __device__ inline long long round1024(long long v) { return (v + 1023) / 1024 * 1024; }
+inline long long round1024(long long v) { return (v + 1023) / 1024 * 1024; }
 
-// cin 64 (X1) or 128 (X2); patch: im2col or s2dc. X1 keeps up to 4 halo
-// stages beside its resident weights; X2 keeps 2 and fills the rest with
-// up to 6 weight stages of 16 KB.
-Layout wgmma_layout(int cin, bool patch, int th, int tw) {
-  Layout l{0, 0, 0, 0, 0, -1};
-  if (th < 1 || tw < 1 || th * tw != TILE_ROWS) return l;
+// A consumer warpgroup's 8 KB patch slots (im2col, s2dc): two, slice s + 1
+// built while slice s's products run; one for X3, whose block so fits two
+// an SM.
+__host__ __device__ constexpr int patch_slots(int family) { return family == TILE2D ? 1 : 2; }
+
+bool takes(int family, int kind) {
+  switch (family) {
+    case STRIP:
+      return kind == TAPS9 || kind == KY3 || kind == IM2COL;
+    case STRIP_ASYNC:
+    case TILE2D:
+      return kind == KY3 || kind == IM2COL;
+    case S2D:
+      return kind == S2DC || kind == S2D9;
+  }
+  return false;
+}
+
+// Items of th x tw = 128 pixels (groups), or 256 for X4. Patch kinds
+// (im2col, s2dc) take `patch_slots` of 8 KB a warpgroup. 64 channels: the weights
+// resident beside up to 4 halo stages (at least 2; X3's one item a block
+// takes 1). X2: 2 halo stages and the rest up to 6 weight stages of 16 KB.
+Layout wgmma_layout(int family, int kind, int th, int tw) {
+  Layout l{0, 0, 0, 0, 0, 0, -1};
+  const long long rows = static_cast<long long>(th) * tw;
+  if (th < 1 || tw < 1 || (rows != TILE_ROWS && !(family == STRIP && rows == 2 * TILE_ROWS)))
+    return l;
+  const int cin = family == S2D ? 2 * C : C;
+  l.nwg = static_cast<int>(rows / 64);
   l.halo_stage = (cin / 64) * round1024(128LL * (th + 2) * (tw + 2));
-  l.patch = patch ? 2LL * 2 * BOX : 0;  // two slots a warpgroup
+  l.patch = kind == IM2COL || kind == S2DC ? 1LL * patch_slots(family) * l.nwg * BOX : 0;
   const long long room = SMEM_MAX - 1024 - TAIL_BYTES - l.patch;
+  int least = 2;
   if (cin == C) {
+    const long long cap = family == TILE2D ? 1 : MAX_HALO_STAGES;
+    if (family == TILE2D) least = 1;
     l.weights = 9LL * BOX;
     const long long n = (room - l.weights) / l.halo_stage;
-    l.halo_stages = static_cast<int>(n < MAX_HALO_STAGES ? n : MAX_HALO_STAGES);
+    l.halo_stages = static_cast<int>(n < cap ? n : cap);
   } else {
     l.halo_stages = 2;
     const long long n = (room - 2 * l.halo_stage) / (2 * BOX);
@@ -171,7 +188,7 @@ Layout wgmma_layout(int cin, bool patch, int th, int tw) {
     l.weights = 2LL * BOX * l.w_stages;
     if (l.w_stages < 2) return l;
   }
-  if (l.halo_stages < 2) return l;
+  if (l.halo_stages < least) return l;
   l.total = 1024 + l.halo_stages * l.halo_stage + l.weights + l.patch + TAIL_BYTES;
   return l;
 }
@@ -179,216 +196,10 @@ Layout wgmma_layout(int cin, bool patch, int th, int tw) {
 // Shared memory a block of `family` takes at tile th x tw (tw: groups for
 // s2d), or -1 for a combination the kernels do not take.
 long long smem_bytes(int family, int kind, int th, int tw) {
-  if (family == STRIP_ASYNC)
-    return kind == KY3 || kind == IM2COL ? wgmma_layout(C, kind == IM2COL, th, tw).total : -1;
-  if (family == S2D)
-    return kind == S2DC || kind == S2D9 ? wgmma_layout(2 * C, kind == S2DC, th, tw).total : -1;
-  if (th < 1 || tw < 16 || tw % 16 != 0) return -1;
-  const long long epi = 4LL * WARPS * EPI_FLOATS;
-  switch (family) {
-    case STRIP:
-      if (kind != TAPS9 && kind != KY3 && kind != IM2COL) return -1;
-      return halo_bytes(th, tw) + patch_bytes(kind, th, tw) + epi;
-    case TILE2D:
-      if (kind != KY3 && kind != IM2COL) return -1;
-      return halo_bytes(th, tw) + patch_bytes(kind, th, tw) + epi;
-  }
-  return -1;
+  return takes(family, kind) ? wgmma_layout(family, kind, th, tw).total : -1;
 }
 
-__device__ __forceinline__ long long pixel(int b, int row, int col, int H, int W) {
-  return (static_cast<long long>(b) * H + row) * W + col;
-}
-
-// The (th + 2) x (tw + 2) halo of output rows [r0, r0 + th) and columns
-// [c0, c0 + tw) of image b: halo[(i (tw + 2) + j) C + ch] = x[b, r0-1+i,
-// c0-1+j, ch], zero outside the image. Synchronous 16-byte loads.
-__device__ void stage_halo(bf16* halo, const bf16* __restrict__ x, int b, int r0, int c0,
-                           int th, int tw, int H, int W) {
-  const int hc = tw + 2;
-  const int n = (th + 2) * hc * PIECES;
-  for (int idx = threadIdx.x; idx < n; idx += THREADS) {
-    const int piece = idx % PIECES, p = idx / PIECES;
-    const int row = r0 - 1 + p / hc, col = c0 - 1 + p % hc;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row >= 0 && row < H && col >= 0 && col < W)
-      v = *reinterpret_cast<const uint4*>(x + pixel(b, row, col, H, W) * C + piece * 8);
-    reinterpret_cast<uint4*>(halo)[idx] = v;
-  }
-}
-
-// ky3: patch[(r (tw+2) + c) 3C + ky C + ch] = halo[((r+ky) (tw+2) + c) C + ch].
-// im2col: patch[(r tw + c) 9C + (3 ky + kx) C + ch] = halo[((r+ky) (tw+2) + c+kx) C + ch].
-template <int KIND>
-__device__ void build_patch(const bf16* halo, bf16* patch, int th, int tw) {
-  const int hc = tw + 2;
-  const uint4* src = reinterpret_cast<const uint4*>(halo);
-  uint4* dst = reinterpret_cast<uint4*>(patch);
-  if (KIND == KY3) {
-    const int n = th * hc * 3 * PIECES;
-    for (int idx = threadIdx.x; idx < n; idx += THREADS) {
-      const int piece = idx % PIECES, q = idx / PIECES;
-      const int ky = q % 3, pc = q / 3;
-      dst[idx] = src[(pc + ky * hc) * PIECES + piece];
-    }
-  } else if (KIND == IM2COL) {
-    const int n = th * tw * 9 * PIECES;
-    for (int idx = threadIdx.x; idx < n; idx += THREADS) {
-      const int piece = idx % PIECES, q = idx / PIECES;
-      const int tap = q % 9, m = q / 9;
-      const int r = m / tw, c = m % tw;
-      dst[idx] = src[((r + tap / 3) * hc + c + tap % 3) * PIECES + piece];
-    }
-  }
-}
-
-__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&h);
-}
-
-// Epilogue of one warp's 16-row M tile: NF accumulator fragments of 16
-// columns, through the warp's 16 x 16 float scratch. Row i of the tile goes
-// to dst + i * row_stride; column col takes s and t of channel col % C.
-// Rows at or past `valid` are not written.
-template <int NF>
-__device__ void store_tile(FragC (&acc)[NF], float* scratch, const float* __restrict__ s,
-                           const float* __restrict__ t, bf16* dst, int row_stride, int valid) {
-  const int lane = threadIdx.x & 31;
-  const int i = lane >> 1, half = lane & 1;
-#pragma unroll
-  for (int n = 0; n < NF; ++n) {
-    wmma::store_matrix_sync(scratch, acc[n], 16, wmma::mem_row_major);
-    __syncwarp();
-    if (i < valid) {
-      const int col = n * 16 + half * 8;
-      const float* v = scratch + i * 16 + half * 8;
-      float f[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int ch = (col + e) % C;
-        f[e] = fmaxf(__fadd_rn(__fmul_rn(v[e], s[ch]), t[ch]), 0.f);
-      }
-      const uint4 out = make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
-                                   pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
-      *reinterpret_cast<uint4*>(dst + static_cast<long long>(i) * row_stride + col) = out;
-    }
-    __syncwarp();
-  }
-}
-
-// The products and epilogue of one staged chunk: output rows [r0, r0 + th)
-// and columns [cb, cb + tw) of image b, from the halo (taps9) or the patch
-// (ky3, im2col). A warp takes one 16-pixel row segment x 64 channels at a
-// time; segments wholly outside the image are skipped.
-template <int KIND>
-__device__ void compute_chunk(const bf16* halo, const bf16* patch, const bf16* __restrict__ w,
-                              const float* __restrict__ s, const float* __restrict__ t,
-                              bf16* __restrict__ y, float* scratch, int b, int r0, int cb,
-                              int th, int tw, int H, int W) {
-  const int warp = threadIdx.x >> 5;
-  const int hc = tw + 2, segs = tw / 16;
-  for (int mt = warp; mt < th * segs; mt += WARPS) {
-    const int r = mt / segs, c0 = (mt % segs) * 16;
-    if (r0 + r >= H || cb + c0 >= W) continue;
-    FragC acc[4];
-#pragma unroll
-    for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[n], 0.f);
-    FragA a;
-    FragB bw;
-    if (KIND == TAPS9) {
-      for (int tap = 0; tap < 9; ++tap) {
-        const int ky = tap / 3, kx = tap % 3;
-        const bf16* ap = halo + ((r + ky) * hc + c0 + kx) * C;
-        const bf16* bp = w + tap * C * C;
-#pragma unroll
-        for (int k0 = 0; k0 < C; k0 += 16) {
-          wmma::load_matrix_sync(a, ap + k0, C);
-#pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            wmma::load_matrix_sync(bw, bp + k0 * C + n * 16, C);
-            wmma::mma_sync(acc[n], a, bw, acc[n]);
-          }
-        }
-      }
-    } else if (KIND == KY3) {
-      for (int kx = 0; kx < 3; ++kx) {
-        const bf16* ap = patch + (r * hc + c0 + kx) * (3 * C);
-        const bf16* bp = w + kx * 3 * C * C;
-#pragma unroll 4
-        for (int k0 = 0; k0 < 3 * C; k0 += 16) {
-          wmma::load_matrix_sync(a, ap + k0, 3 * C);
-#pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            wmma::load_matrix_sync(bw, bp + k0 * C + n * 16, C);
-            wmma::mma_sync(acc[n], a, bw, acc[n]);
-          }
-        }
-      }
-    } else {
-      const bf16* ap = patch + (r * tw + c0) * (9 * C);
-#pragma unroll 4
-      for (int k0 = 0; k0 < 9 * C; k0 += 16) {
-        wmma::load_matrix_sync(a, ap + k0, 9 * C);
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          wmma::load_matrix_sync(bw, w + k0 * C + n * 16, C);
-          wmma::mma_sync(acc[n], a, bw, acc[n]);
-        }
-      }
-    }
-    const int valid = min(16, W - (cb + c0));
-    store_tile<4>(acc, scratch, s, t, y + pixel(b, r0 + r, cb + c0, H, W) * C, C, valid);
-  }
-}
-
-// X4: grid (ceil(H / th), B); the block walks its strip tw columns at a time.
-template <int KIND>
-__global__ void __launch_bounds__(THREADS)
-    conv_strip_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                      const float* __restrict__ s, const float* __restrict__ t,
-                      bf16* __restrict__ y, int H, int W, int th, int tw) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* halo = reinterpret_cast<bf16*>(smem);
-  bf16* patch = reinterpret_cast<bf16*>(smem + halo_bytes(th, tw));
-  float* scratch = reinterpret_cast<float*>(smem + halo_bytes(th, tw) +
-                                            patch_bytes(KIND, th, tw)) +
-                   (threadIdx.x >> 5) * EPI_FLOATS;
-  const int b = blockIdx.y, r0 = blockIdx.x * th;
-  for (int cb = 0; cb < W; cb += tw) {
-    stage_halo(halo, x, b, r0, cb, th, tw, H, W);
-    __syncthreads();
-    if (KIND != TAPS9) {
-      build_patch<KIND>(halo, patch, th, tw);
-      __syncthreads();
-    }
-    compute_chunk<KIND>(halo, patch, w, s, t, y, scratch, b, r0, cb, th, tw, H, W);
-    __syncthreads();
-  }
-}
-
-// X3: grid (ceil(W / tw), ceil(H / th), B), one output tile a block.
-template <int KIND>
-__global__ void __launch_bounds__(THREADS)
-    conv_tile2d_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                       const float* __restrict__ s, const float* __restrict__ t,
-                       bf16* __restrict__ y, int H, int W, int th, int tw) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* halo = reinterpret_cast<bf16*>(smem);
-  bf16* patch = reinterpret_cast<bf16*>(smem + halo_bytes(th, tw));
-  float* scratch = reinterpret_cast<float*>(smem + halo_bytes(th, tw) +
-                                            patch_bytes(KIND, th, tw)) +
-                   (threadIdx.x >> 5) * EPI_FLOATS;
-  const int cb = blockIdx.x * tw, r0 = blockIdx.y * th, b = blockIdx.z;
-  stage_halo(halo, x, b, r0, cb, th, tw, H, W);
-  __syncthreads();
-  build_patch<KIND>(halo, patch, th, tw);
-  __syncthreads();
-  compute_chunk<KIND>(halo, patch, w, s, t, y, scratch, b, r0, cb, th, tw, H, W);
-}
-
-// --- X1 and X2: wgmma fed by TMA ---------------------------------------------
-// Hopper primitives (PTX), as in csrc/mlp.cu.
+// --- Hopper primitives (PTX), as in csrc/mlp.cu ------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -499,7 +310,9 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 
 #undef XCONV_D32
 
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
 }
@@ -523,7 +336,7 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
                : "memory");
 }
 
-// The barrier of one consumer warpgroup (ids 1 and 2; 0 is __syncthreads).
+// The barrier of one consumer warpgroup (ids 1 to 4; 0 is __syncthreads).
 __device__ __forceinline__ void wg_barrier(int wg) {
   asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
 }
@@ -538,7 +351,7 @@ struct XParams {
   bf16* y;
   int H, Wc;                 // rows and columns (pixels, or groups for X2) of the view
   int th, tw;                // the item's tile
-  int n_chunks, per_image, n_items;
+  int n_chunks, n_strips, per_image, n_items;
   int halo_box;              // bytes of one [th+2, tw+2, 64] box
   int halo_stage, halo_stages, w_stages;
   int weights_off, patch_off, bar_off;  // from the block's 1024-aligned base
@@ -554,24 +367,42 @@ __device__ __forceinline__ Item item_at(const XParams& p, int item) {
   return {item / p.per_image, (rem / p.n_chunks) * p.th, (rem % p.n_chunks) * p.tw};
 }
 
+// The block's items: first + i step for i < count. Items run image-major,
+// then strip, then chunk.
+struct Walk {
+  int first, step, count;
+};
+
+template <int FAMILY>
+__device__ __forceinline__ Walk block_walk(const XParams& p) {
+  const int bx = blockIdx.x;
+  if (FAMILY == STRIP)  // X4: strip bx (image-major), its chunks left to right
+    return {bx * p.n_chunks, 1, p.n_chunks};
+  if (FAMILY == TILE2D)  // X3: chunk bx, strip, image
+    return {(static_cast<int>(blockIdx.z) * p.n_strips + static_cast<int>(blockIdx.y)) *
+                    p.n_chunks + bx, 1, 1};
+  const int g = gridDim.x;  // X1, X2: items bx, bx + g, ...
+  return {bx, g, (p.n_items - bx + g - 1) / g};
+}
+
 // K slice s (64 rows of the packed weights, rows [64 s, 64 s + 64)) reads
-// the halo at tap (ky, kx), channel half h. ky3: [3(kx), 3(ky) 64, 64];
-// im2col: [9 (ky, kx) 64, 64]; s2dc and s2d9: [3(ky), 3(k), 2(h) 64, 128],
-// kx the group offset k.
-template <int CIN, bool PATCH>
+// the halo at tap (ky, kx), channel half h. taps9 and im2col: [9 (ky, kx)
+// 64, 64]; ky3: [3(kx), 3(ky) 64, 64]; s2dc and s2d9: [3(ky), 3(k), 2(h)
+// 64, 128], kx the group offset k.
+template <int KIND>
 __device__ __forceinline__ void slice_tap(int s, int& ky, int& kx, int& h) {
-  if (CIN == 2 * C) {
+  if (KIND == S2DC || KIND == S2D9) {
     h = s & 1;
     ky = (s >> 1) / 3;
     kx = (s >> 1) % 3;
-  } else if (PATCH) {  // im2col
-    h = 0;
-    ky = s / 3;
-    kx = s % 3;
-  } else {  // ky3
+  } else if (KIND == KY3) {
     h = 0;
     ky = s % 3;
     kx = s / 3;
+  } else {  // taps9, im2col
+    h = 0;
+    ky = s / 3;
+    kx = s % 3;
   }
 }
 
@@ -598,18 +429,22 @@ __device__ __forceinline__ uint4 quad_transpose(const uint32_t (&in)[4], int lan
   return make_uint4(out[0], out[1], out[2], out[3]);
 }
 
-// X1 (CIN 64: x [B, H, W, 64], N = 64) and X2 (CIN 128: the view [B, H,
-// W/2, 128], N = 128). Grid: one block an SM (at most the items); block:
-// warps 0-3 and 4-7 the consumer warpgroups (M tiles: the item's pixels
-// 64 wg .. 64 wg + 63, row-major over th x tw), warp 8 the producer. PATCH:
-// im2col or s2dc (A from the patch slots), else ky3 or s2d9 (A by ldmatrix
-// from the halo).
-template <int CIN, bool PATCH>
-__global__ void __launch_bounds__(XTHREADS, 1)
+// KIND: the formulation (s2dc and s2d9: X2's view [B, H, W/2, 128], N =
+// 128; else x [B, H, W, 64], N = 64). Block: warps 0 .. 4 NWG - 1 the
+// consumer warpgroups (M tiles: the item's pixels 64 wg .. 64 wg + 63,
+// row-major over th x tw), warp 4 NWG the producer. A from the patch slots
+// for im2col and s2dc, else by ldmatrix from the halo. FAMILY: how the
+// blocks take items; X3's registers must allow two blocks an SM.
+template <int KIND, int NWG, int FAMILY>
+__global__ void __launch_bounds__(128 * NWG + 32, FAMILY == TILE2D ? 2 : 1)
     conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                       const __grid_constant__ CUtensorMap wmap, const XParams p) {
+  constexpr int CIN = KIND == S2DC || KIND == S2D9 ? 2 * C : C;
+  constexpr bool PATCH = KIND == IM2COL || KIND == S2DC;
   constexpr int NS = CIN == C ? 9 : 18;  // K slices of 64
   constexpr int NJ = CIN / 64;            // 64-column halves of N = CIN; halo halves
+  constexpr int CONSUMERS = 128 * NWG;
+  constexpr int SLOTS = patch_slots(FAMILY);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -624,6 +459,7 @@ __global__ void __launch_bounds__(XTHREADS, 1)
   float* sst = reinterpret_cast<float*>(smem + p.bar_off + 256);  // s[64], then t[64]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int half_bytes = p.halo_stage / NJ;
+  const Walk wk = block_walk<FAMILY>(p);
   if (tid < C) {
     sst[tid] = p.s[tid];
     sst[C + tid] = p.t[tid];
@@ -642,30 +478,33 @@ __global__ void __launch_bounds__(XTHREADS, 1)
   }
   __syncthreads();
 
-  if (warp == 8) {  // the producer
-    if (lane != 0) return;
-    if (CIN == C) {  // X1's weights, resident: nine [64 k][64 n] boxes
-      mbar_expect(wres, NS * BOX);
-      for (int s = 0; s < NS; ++s) tma_load(wsm + s * BOX, &wmap, wres, 0, 64 * s);
-    }
-    int u = 0;  // X2's weight slices issued
-    for (int i = 0, item = blockIdx.x; item < p.n_items; ++i, item += gridDim.x) {
-      const Item it = item_at(p, item);
-      const int hs = i % p.halo_stages;
-      if (i >= p.halo_stages) mbar_wait(&empty[hs], ((i / p.halo_stages) + 1) & 1);
-      mbar_expect(&full[hs], NJ * p.halo_box);  // the boxes' bytes, zero fill included
-      const int hr0 = it.r0 - 1;  // the halo's top row: one above the item's rows
-      for (int h = 0; h < NJ; ++h)
-        tma_load_4d(halo + hs * p.halo_stage + h * half_bytes, &xmap, &full[hs], 64 * h,
-                    it.c0 - 1, hr0, it.b);
-      if (CIN == 2 * C) {
-        for (int s = 0; s < NS; ++s, ++u) {
-          const int ws = u % p.w_stages;
-          if (u >= p.w_stages) mbar_wait(&wempty[ws], ((u / p.w_stages) + 1) & 1);
-          mbar_expect(&wfull[ws], 2 * BOX);
-          const int krow = 64 * s;  // the slice's rows of the packed weights
-          tma_load(wsm + ws * 2 * BOX, &wmap, &wfull[ws], 0, krow);
-          tma_load(wsm + ws * 2 * BOX + BOX, &wmap, &wfull[ws], 64, krow);
+  if (warp == 4 * NWG) {  // the producer
+    if (lane == 0) {
+      if (CIN == C) {  // the resident weights: nine [64 k][64 n] boxes
+        mbar_expect(wres, NS * BOX);
+        for (int s = 0; s < NS; ++s) tma_load(wsm + s * BOX, &wmap, wres, 0, 64 * s);
+      }
+      int u = 0;  // X2's weight slices issued
+      for (int i = 0; i < wk.count; ++i) {
+        const int item = wk.first + i * wk.step;  // the item whose halo this stage takes
+        const Item it = item_at(p, item);
+        const int hs = i % p.halo_stages;
+        if (i >= p.halo_stages) mbar_wait(&empty[hs], ((i / p.halo_stages) + 1) & 1);
+        mbar_expect(&full[hs], NJ * p.halo_box);  // the boxes' bytes, zero fill included
+        const int hr0 = it.r0 - 1;  // the halo's top row: one above the item's rows
+        const int hc0 = it.c0 - 1;  // the halo's left column: one left of the item's
+        for (int h = 0; h < NJ; ++h)
+          tma_load_4d(halo + hs * p.halo_stage + h * half_bytes, &xmap, &full[hs], 64 * h, hc0,
+                      hr0, it.b);
+        if (CIN == 2 * C) {
+          for (int s = 0; s < NS; ++s, ++u) {
+            const int ws = u % p.w_stages;
+            if (u >= p.w_stages) mbar_wait(&wempty[ws], ((u / p.w_stages) + 1) & 1);
+            mbar_expect(&wfull[ws], 2 * BOX);
+            const int krow = 64 * s;  // the slice's rows of the packed weights
+            tma_load(wsm + ws * 2 * BOX, &wmap, &wfull[ws], 0, krow);
+            tma_load(wsm + ws * 2 * BOX + BOX, &wmap, &wfull[ws], 64, krow);
+          }
         }
       }
     }
@@ -686,8 +525,8 @@ __global__ void __launch_bounds__(XTHREADS, 1)
 
   if (CIN == C) mbar_wait(wres, 0);
   int u = 0;  // X2's weight slices consumed
-  for (int i = 0, item = blockIdx.x; item < p.n_items; ++i, item += gridDim.x) {
-    const Item it = item_at(p, item);
+  for (int i = 0; i < wk.count; ++i) {
+    const Item it = item_at(p, wk.first + i * wk.step);
     const int hs = i % p.halo_stages;
     mbar_wait(&full[hs], (i / p.halo_stages) & 1);
     const unsigned char* hb = halo + hs * p.halo_stage;
@@ -702,17 +541,17 @@ __global__ void __launch_bounds__(XTHREADS, 1)
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 32; ++e) acc[j][e] = 0.f;
-    // A of slice s into register set s & 1 (ky3, s2d9: ldmatrix from the
-    // halo) or patch slot s & 1 (im2col, s2dc: this warp's 16 rows, four
-    // 16-byte chunks a lane, then the warpgroup's barrier).
+    // A of slice s into register set s & 1 (taps9, ky3, s2d9: ldmatrix from
+    // the halo) or patch slot s % SLOTS (im2col, s2dc: this warp's 16 rows,
+    // four 16-byte chunks a lane, then the warpgroup's barrier).
     uint32_t a[2][4][4];
     auto prepare = [&](int s) {
       int ky, kx, h;
-      slice_tap<CIN, PATCH>(s, ky, kx, h);
+      slice_tap<KIND>(s, ky, kx, h);
       const int hr = hrb + ky * hc + kx;
       const unsigned char* src = hb + h * half_bytes;
       if (PATCH) {
-        unsigned char* pb = patch + (2 * wg + (s & 1)) * BOX;
+        unsigned char* pb = patch + (SLOTS * wg + s % SLOTS) * BOX;
         const int j0 = (lane & 1) * 4;
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj)
@@ -737,7 +576,7 @@ __global__ void __launch_bounds__(XTHREADS, 1)
         mbar_wait(&wfull[ws], ((u + s) / p.w_stages) & 1);
         wb = wbase + ws * 2 * BOX;
       }
-      const unsigned char* pb = patch + (2 * wg + (s & 1)) * BOX;
+      const unsigned char* pb = patch + (SLOTS * wg + s % SLOTS) * BOX;
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
@@ -750,10 +589,12 @@ __global__ void __launch_bounds__(XTHREADS, 1)
             wgmma_rs(acc[j], a[s & 1][kk], db);
         }
       wg_commit();
-      // Slice s + 1's A while slice s's products run: its slot (registers)
-      // last served slice s - 1, whose products are done.
-      if (s + 1 < NS) prepare(s + 1);
+      // Slice s + 1's A while slice s's products run: its registers or
+      // slot last served slice s - 1, whose products are done. A single
+      // slot is rebuilt once slice s's products are.
+      if (s + 1 < NS && SLOTS == 2) prepare(s + 1);
       wg_wait<0>();
+      if (s + 1 < NS && SLOTS == 1) prepare(s + 1);
       if (CIN == 2 * C) mbar_arrive(&wempty[(u + s) % p.w_stages]);  // slice s is done
     }
     keep(acc);
@@ -791,21 +632,9 @@ __global__ void __launch_bounds__(XTHREADS, 1)
   }
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, dim3 grid, long long smem, void* stream, const void* x, const void* w,
-           const float* s, const float* t, void* y, int H, int W, int th, int tw) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, THREADS, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), s, t, static_cast<bf16*>(y), H,
-      W, th, tw);
-  return static_cast<int>(cudaGetLastError());
-}
-
 bool shapes_ok(int B, int H, int W) { return B >= 1 && B <= 65535 && H >= 1 && W >= 1; }
 
-// --- Host side of X1 and X2 ----------------------------------------------------
+// --- Host side -----------------------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -838,14 +667,18 @@ bool tensor_map(CUtensorMap* m, const void* base, int rank, const cuuint64_t* di
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// X1 (CIN 64) or X2 (CIN 128) on the view x [B, H, Wc, CIN] with the
-// packed weights w [9 CIN][CIN].
-template <int CIN, bool PATCH>
+// A block of FAMILY on the view x [B, H, Wc, CIN] with the packed
+// weights w [9 CIN][CIN].
+template <int KIND, int NWG, int FAMILY>
 int launch_wgmma(const void* x, const void* w, const float* s, const float* t, void* y, int B,
                  int H, int Wc, int th, int tw, void* stream) {
-  const Layout l = wgmma_layout(CIN, PATCH, th, tw);
-  const long long per_image = static_cast<long long>((H + th - 1) / th) * ((Wc + tw - 1) / tw);
-  if (l.total < 0 || per_image * B > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int CIN = KIND == S2DC || KIND == S2D9 ? 2 * C : C;
+  const Layout l = wgmma_layout(FAMILY, KIND, th, tw);
+  const long long n_strips = (H + th - 1) / th, n_chunks = (Wc + tw - 1) / tw;
+  const long long per_image = n_strips * n_chunks;
+  if (l.total < 0 || l.nwg != NWG || per_image * B > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (FAMILY == TILE2D && n_strips > 65535) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap xm, wm;
   const cuuint64_t xdims[4] = {CIN, static_cast<cuuint64_t>(Wc), static_cast<cuuint64_t>(H),
                                static_cast<cuuint64_t>(B)};
@@ -863,7 +696,8 @@ int launch_wgmma(const void* x, const void* w, const float* s, const float* t, v
   p.Wc = Wc;
   p.th = th;
   p.tw = tw;
-  p.n_chunks = (Wc + tw - 1) / tw;
+  p.n_chunks = static_cast<int>(n_chunks);
+  p.n_strips = static_cast<int>(n_strips);
   p.per_image = static_cast<int>(per_image);
   p.n_items = static_cast<int>(per_image * B);
   p.halo_box = 128 * (th + 2) * (tw + 2);
@@ -873,17 +707,40 @@ int launch_wgmma(const void* x, const void* w, const float* s, const float* t, v
   p.weights_off = static_cast<int>(l.halo_stages * l.halo_stage);
   p.patch_off = static_cast<int>(p.weights_off + l.weights);
   p.bar_off = static_cast<int>(p.patch_off + l.patch);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      conv_wgmma_kernel<CIN, PATCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(SMEM_MAX));
+  auto kernel = conv_wgmma_kernel<KIND, NWG, FAMILY>;
+  static const cudaError_t attr = [kernel] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(SMEM_MAX));
+    if (e != cudaSuccess) return e;
+    // All of the SM's 228 KB as shared memory: X3's ky3 blocks fit two an SM.
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                static_cast<int>(cudaSharedmemCarveoutMaxShared));
+  }();
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int grid = p.n_items < sms ? p.n_items : sms;
-  conv_wgmma_kernel<CIN, PATCH><<<grid, XTHREADS, static_cast<size_t>(l.total),
-                                  static_cast<cudaStream_t>(stream)>>>(xm, wm, p);
+  dim3 grid;
+  if (FAMILY == STRIP) {
+    grid = dim3(static_cast<unsigned>(n_strips * B));
+  } else if (FAMILY == TILE2D) {
+    grid = dim3(static_cast<unsigned>(n_chunks), static_cast<unsigned>(n_strips),
+                static_cast<unsigned>(B));
+  } else {  // X1, X2: one block an SM, at most one an item
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    grid = dim3(p.n_items < sms ? p.n_items : sms);
+  }
+  kernel<<<grid, 128 * NWG + 32, static_cast<size_t>(l.total),
+           static_cast<cudaStream_t>(stream)>>>(xm, wm, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// X4 at 128-pixel chunks (two warpgroups) or 256 (four).
+template <int KIND>
+int launch_strip(const void* x, const void* w, const float* s, const float* t, void* y, int B,
+                 int H, int W, int th, int tw, void* stream) {
+  if (static_cast<long long>(th) * tw == 2 * TILE_ROWS)
+    return launch_wgmma<KIND, 4, STRIP>(x, w, s, t, y, B, H, W, th, tw, stream);
+  return launch_wgmma<KIND, 2, STRIP>(x, w, s, t, y, B, H, W, th, tw, stream);
 }
 
 }  // namespace
@@ -895,47 +752,40 @@ extern "C" long long conv_formulations_smem_bytes(int family, int kind, int th, 
   return smem_bytes(family, kind, th, tw);
 }
 
-// X4. x [B, H, W, 64] bf16; w bf16 packed for `kind` (taps9 [3, 3, 64, 64],
-// ky3 [3, 192, 64], im2col [576, 64]); s, t [64] float32; y [B, H, W, 64]
-// bf16. Launches on `stream`; returns the launch's cudaError, else 0.
+// X4. x [B, H, W, 64] bf16, 16-byte aligned; w bf16 packed for `kind`
+// (taps9 [3, 3, 64, 64], ky3 [3, 192, 64], im2col [576, 64]), 16-byte
+// aligned; s, t [64] float32; y [B, H, W, 64] bf16; th x tw = 128 or 256.
+// Launches on `stream`; returns the launch's cudaError, else 0, and 9001
+// when a tensor map could not be made.
 extern "C" int conv_strip_bf16(const void* x, const void* w, const float* s, const float* t,
                                void* y, int B, int H, int W, int kind, int th, int tw,
                                void* stream) {
-  const long long smem = smem_bytes(STRIP, kind, th, tw);
-  if (!shapes_ok(B, H, W) || smem < 0 || smem > SMEM_MAX)
+  if (!shapes_ok(B, H, W) || smem_bytes(STRIP, kind, th, tw) < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((H + th - 1) / th, B);
-  if (kind == TAPS9)
-    return launch(conv_strip_kernel<TAPS9>, grid, smem, stream, x, w, s, t, y, H, W, th, tw);
-  if (kind == KY3)
-    return launch(conv_strip_kernel<KY3>, grid, smem, stream, x, w, s, t, y, H, W, th, tw);
-  return launch(conv_strip_kernel<IM2COL>, grid, smem, stream, x, w, s, t, y, H, W, th, tw);
+  if (kind == TAPS9) return launch_strip<TAPS9>(x, w, s, t, y, B, H, W, th, tw, stream);
+  if (kind == KY3) return launch_strip<KY3>(x, w, s, t, y, B, H, W, th, tw, stream);
+  return launch_strip<IM2COL>(x, w, s, t, y, B, H, W, th, tw, stream);
 }
 
-// X1. x [B, H, W, 64] bf16, 16-byte aligned; w bf16 packed for `kind`
-// (ky3 [3, 192, 64], im2col [576, 64]), 16-byte aligned; th x tw = 128.
-// Otherwise as conv_strip_bf16; 9001 when a tensor map could not be made.
+// X1. As conv_strip_bf16, kind ky3 or im2col, th x tw = 128.
 extern "C" int conv_strip_async_bf16(const void* x, const void* w, const float* s,
                                      const float* t, void* y, int B, int H, int W, int kind,
                                      int th, int tw, void* stream) {
-  const long long smem = smem_bytes(STRIP_ASYNC, kind, th, tw);
-  if (!shapes_ok(B, H, W) || smem < 0 || smem > SMEM_MAX)
+  if (!shapes_ok(B, H, W) || smem_bytes(STRIP_ASYNC, kind, th, tw) < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (kind == KY3) return launch_wgmma<C, false>(x, w, s, t, y, B, H, W, th, tw, stream);
-  return launch_wgmma<C, true>(x, w, s, t, y, B, H, W, th, tw, stream);
+  if (kind == KY3)
+    return launch_wgmma<KY3, 2, STRIP_ASYNC>(x, w, s, t, y, B, H, W, th, tw, stream);
+  return launch_wgmma<IM2COL, 2, STRIP_ASYNC>(x, w, s, t, y, B, H, W, th, tw, stream);
 }
 
-// X3. As conv_strip_bf16, kind ky3 or im2col.
+// X3. As conv_strip_async_bf16.
 extern "C" int conv_tile2d_bf16(const void* x, const void* w, const float* s, const float* t,
                                 void* y, int B, int H, int W, int kind, int th, int tw,
                                 void* stream) {
-  const long long smem = smem_bytes(TILE2D, kind, th, tw);
-  if (!shapes_ok(B, H, W) || smem < 0 || smem > SMEM_MAX)
+  if (!shapes_ok(B, H, W) || smem_bytes(TILE2D, kind, th, tw) < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((W + tw - 1) / tw, (H + th - 1) / th, B);
-  if (kind == KY3)
-    return launch(conv_tile2d_kernel<KY3>, grid, smem, stream, x, w, s, t, y, H, W, th, tw);
-  return launch(conv_tile2d_kernel<IM2COL>, grid, smem, stream, x, w, s, t, y, H, W, th, tw);
+  if (kind == KY3) return launch_wgmma<KY3, 2, TILE2D>(x, w, s, t, y, B, H, W, th, tw, stream);
+  return launch_wgmma<IM2COL, 2, TILE2D>(x, w, s, t, y, B, H, W, th, tw, stream);
 }
 
 // X2. W even; w bf16 pack_w_s2d [3, 384, 128] (s2dc) or pack_w_s2d9
@@ -944,9 +794,9 @@ extern "C" int conv_tile2d_bf16(const void* x, const void* w, const float* s, co
 extern "C" int conv_s2d_bf16(const void* x, const void* w, const float* s, const float* t,
                              void* y, int B, int H, int W, int kind, int th, int tg,
                              void* stream) {
-  const long long smem = smem_bytes(S2D, kind, th, tg);
-  if (!shapes_ok(B, H, W) || W % 2 != 0 || smem < 0 || smem > SMEM_MAX)
+  if (!shapes_ok(B, H, W) || W % 2 != 0 || smem_bytes(S2D, kind, th, tg) < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (kind == S2DC) return launch_wgmma<2 * C, true>(x, w, s, t, y, B, H, W / 2, th, tg, stream);
-  return launch_wgmma<2 * C, false>(x, w, s, t, y, B, H, W / 2, th, tg, stream);
+  if (kind == S2DC)
+    return launch_wgmma<S2DC, 2, S2D>(x, w, s, t, y, B, H, W / 2, th, tg, stream);
+  return launch_wgmma<S2D9, 2, S2D>(x, w, s, t, y, B, H, W / 2, th, tg, stream);
 }

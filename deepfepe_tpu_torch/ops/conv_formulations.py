@@ -5,20 +5,26 @@ Replaces the TPU kernels of `tools/bench_conv_formulations.py` (its
 `make_fn`, `make_dma_fn`, `make_t4_fn` and `make_s2d_fn`). Every
 formulation computes K5's function, y = relu(conv3x3_same(x, w) * s + t)
 in NHWC, with x [B, H, W, 64] bf16, w [3, 3, 64, 64] cast to x's dtype,
-s and t [64] float32, float32 sums, and one rounding to bf16 at the end:
+s and t [64] float32, float32 sums, and one rounding to bf16 at the end.
 
-- `conv_strip` (X4; kinds taps9, ky3, im2col): a block per (image, th-row
-  strip) that walks the strip tw columns at a time;
+All four run one kernel on `wgmma` fed by TMA (`conv_wgmma_kernel`):
+work items of th x tw output pixels (X2: groups), a producer warp
+bringing each item's halo by TMA into a ring of mbarrier stages, one
+64-row M tile a consumer warpgroup (A by ldmatrix from the halo for
+taps9, ky3 and s2d9, from a patch built per K slice for im2col and s2dc).
+They differ in how blocks take items:
+
+- `conv_strip` (X4; kinds taps9, ky3, im2col): a block per (image,
+  th-row strip) that walks the strip's chunks of th x tw = 128 or 256
+  pixels left to right;
 - `conv_strip_async` (X1; ky3, im2col): persistent blocks walking th x tw =
-  128-pixel work items, the halo brought by TMA into a ring of mbarrier
-  stages, the products on `wgmma` (ky3's A by ldmatrix from the halo,
-  im2col's from a patch built per K slice);
-- `conv_tile2d` (X3; ky3, im2col): one block per th x tw output tile;
-- `conv_s2d` (X2; s2dc, s2d9): X1's kernel on the free view [B, H, W/2,
+  128-pixel items;
+- `conv_tile2d` (X3; ky3, im2col): one block per th x tw = 128 output tile,
+  each loading all nine weight boxes, two blocks an SM;
+- `conv_s2d` (X2; s2dc, s2d9): X1's walk on the free view [B, H, W/2,
   128], th x tg = 128-group items, with the weights of `pack_w_s2d` or
-  `pack_w_s2d9` streamed through their own ring (s2dc's A from a patch,
-  s2d9's from the halo). Half of those weights are structural zeros: s2d
-  does 2x the useful FLOPs.
+  `pack_w_s2d9` streamed through their own ring. Half of those weights are
+  structural zeros: s2d does 2x the useful FLOPs.
 
 Each wrapper runs its formulation's plain version for a tensor on the CPU
 (`PLAIN`: taps9, ky3 and im2col; the dma-* and t4-* kinds share the ky3
@@ -46,16 +52,18 @@ from ..utils import build
 SOURCE = "conv_formulations.cu"
 C = 64
 SMEM_LIMIT = 232_448  # a block's shared memory on Hopper (227 KB)
-WARPS = 8  # warps of an X3 or X4 block; each has a 16 x 16 float32 epilogue scratch
-EPILOGUE_BYTES = WARPS * 16 * 16 * 4
 MAX_B = 65535
-# X1 and X2 (`wgmma_layout`, csrc/conv_formulations.cu's conv_wgmma_kernel).
-TILE_ROWS = 128  # output pixels (X1) or groups (X2) of a work item: two 64-row M tiles
+# csrc/conv_formulations.cu's `wgmma_layout`.
 BOX = 8192  # a [64][64] bf16 tile
 MAX_HALO_STAGES, MAX_W_STAGES = 4, 6
 TAIL_BYTES = 768  # the barriers (256 bytes), then s and t
-WGMMA_FAMILIES = {"strip_async": C, "s2d": 2 * C}  # family -> channels of a halo element
-PATCH_KINDS = ("im2col", "s2dc")  # A from a patch; ky3 and s2d9 read the halo in place
+CHANNELS = {"strip": C, "strip_async": C, "tile2d": C, "s2d": 2 * C}  # of a halo element
+# Pixels (X2: groups) of a work item, 64 a consumer warpgroup.
+ITEM_ROWS = {"strip": (128, 256), "strip_async": (128,), "tile2d": (128,), "s2d": (128,)}
+PATCH_KINDS = ("im2col", "s2dc")  # A from a patch; taps9, ky3 and s2d9 read the halo in place
+# A warpgroup's 8 KB patch slots where not 2 (`patch_slots`): X3 fits two blocks an SM.
+PATCH_SLOTS = {"tile2d": 1}
+ERR_TENSOR_MAP = 9001  # the C interface's code for a refused TMA tensor map
 # The C interface's codes (csrc/conv_formulations.cu).
 KINDS = {"taps9": 0, "ky3": 1, "im2col": 2, "s2dc": 3, "s2d9": 4}
 FAMILIES = {"strip": (0, ("taps9", "ky3", "im2col")),
@@ -237,48 +245,47 @@ def _round1024(v: int) -> int:
 
 
 def wgmma_layout(family: str, kind: str, th: int, tw: int) -> dict | None:
-    """The shared memory of an X1 or X2 block (the C source's
-    `wgmma_layout`): the halo ring (`halo_stages` of `halo_stage` bytes, one
-    1024-aligned [th+2, tw+2, 64] box a 64-channel half), the weights (X1's
-    nine [64][64] boxes resident, X2's `w_stages` K slices of two boxes),
-    the patch slots (two a warpgroup for im2col and s2dc), the barriers
-    with s and t, after up to 1024 bytes of alignment. None for a tile no kernel takes."""
-    cin = WGMMA_FAMILIES[family]
-    if th < 1 or tw < 1 or th * tw != TILE_ROWS:
+    """The shared memory of a block (the C source's `wgmma_layout`): the
+    halo ring (`halo_stages` of `halo_stage` bytes, one 1024-aligned [th+2,
+    tw+2, 64] box a 64-channel half), the weights (nine [64][64] boxes
+    resident for 64 channels, X2's `w_stages` K slices of two boxes), the
+    patch slots (for im2col and s2dc, two a warpgroup or PATCH_SLOTS'), the
+    barriers with s and t, after up to 1024 bytes of alignment. `nwg`
+    warpgroups take an item of 64 nwg pixels. Up to 4 halo stages and at
+    least 2, but X3's one item a block takes 1. None for a tile no kernel
+    takes."""
+    cin = CHANNELS[family]
+    if th < 1 or tw < 1 or th * tw not in ITEM_ROWS[family]:
         return None
+    nwg = th * tw // 64
     halo_stage = cin // 64 * _round1024(128 * (th + 2) * (tw + 2))
-    patch = 2 * 2 * BOX if kind in PATCH_KINDS else 0
+    patch = PATCH_SLOTS.get(family, 2) * nwg * BOX if kind in PATCH_KINDS else 0
     room = SMEM_LIMIT - 1024 - TAIL_BYTES - patch
+    cap, least = (1, 1) if family == "tile2d" else (MAX_HALO_STAGES, 2)
     if cin == C:
         weights, w_stages = 9 * BOX, 0
-        halo_stages = min(MAX_HALO_STAGES, (room - weights) // halo_stage)
+        halo_stages = min(cap, (room - weights) // halo_stage)
     else:
         halo_stages = 2
         w_stages = min(MAX_W_STAGES, (room - 2 * halo_stage) // (2 * BOX))
         weights = 2 * BOX * w_stages
         if w_stages < 2:
             return None
-    if halo_stages < 2:
+    if halo_stages < least:
         return None
     total = 1024 + halo_stages * halo_stage + weights + patch + TAIL_BYTES
     return {"halo_stage": halo_stage, "halo_stages": halo_stages, "w_stages": w_stages,
-            "weights": weights, "patch": patch, "total": total}
+            "nwg": nwg, "weights": weights, "patch": patch, "total": total}
 
 
 def smem_bytes(family: str, kind: str, th: int, tw: int) -> int:
     """Shared memory a block of `family` takes for `kind` at tile th x tw
     (tw in groups of two pixels for s2d), or -1 for a tile no kernel takes
-    (`conv_formulations_smem_bytes`). X3, X4: the halo, the patch and the
-    warps' epilogue scratch; X1, X2: `wgmma_layout`'s total."""
-    if family in WGMMA_FAMILIES:
-        layout = wgmma_layout(family, kind, th, tw)
-        return -1 if layout is None else layout["total"]
-    if th < 1 or tw < 16 or tw % 16:
+    (`conv_formulations_smem_bytes`): `wgmma_layout`'s total."""
+    if kind not in FAMILIES[family][1]:
         return -1
-    px = 2 * C  # bytes of one pixel's channels
-    halo = (th + 2) * (tw + 2) * px
-    patch = {"taps9": 0, "ky3": th * (tw + 2) * 3 * px, "im2col": th * tw * 9 * px}[kind]
-    return halo + patch + EPILOGUE_BYTES
+    layout = wgmma_layout(family, kind, th, tw)
+    return -1 if layout is None else layout["total"]
 
 
 def check_tile(family: str, kind: str, th: int, tw: int) -> int:
@@ -286,14 +293,12 @@ def check_tile(family: str, kind: str, th: int, tw: int) -> int:
     the block's shared memory."""
     if family not in FAMILIES or kind not in FAMILIES[family][1]:
         raise ValueError(f"{family} takes kinds {FAMILIES.get(family, (0, ()))[1]}, got {kind!r}")
-    if family in WGMMA_FAMILIES:
-        if th < 1 or tw < 1 or th * tw != TILE_ROWS:
-            raise ValueError(f"{family} takes tiles of th x tw = {TILE_ROWS} (two 64-row wgmma "
-                             f"tiles), got {th} x {tw}")
-    elif th < 1 or tw < 16 or tw % 16:
-        raise ValueError(f"tiles need th >= 1 and a multiple of 16 for tw, got {th} x {tw}")
+    rows = ITEM_ROWS[family]
+    if th < 1 or tw < 1 or th * tw not in rows:
+        raise ValueError(f"{family} takes tiles of th x tw = {' or '.join(map(str, rows))} "
+                         f"(64-row wgmma tiles, one a warpgroup), got {th} x {tw}")
     smem = smem_bytes(family, kind, th, tw)
-    if smem < 0 or smem > SMEM_LIMIT:
+    if smem < 0:
         raise ValueError(f"{family} {kind} at {th} x {tw} does not fit its staging in a "
                          f"block's {SMEM_LIMIT} bytes of shared memory")
     return smem
@@ -358,6 +363,8 @@ def _launch(wrapper, family: str, x, w, s, t, kind: str, th: int, tw: int):
         y = torch.empty_like(x)
         rc = getattr(lib, entry)(x.data_ptr(), wp.data_ptr(), s.data_ptr(), t.data_ptr(),
                                  y.data_ptr(), B, H, W, KINDS[kind], th, tw, _stream(x))
+    if rc == ERR_TENSOR_MAP:
+        raise RuntimeError(f"{entry} ({kind}, {th} x {tw}): the TMA tensor maps were refused")
     if rc != 0:
         raise RuntimeError(f"{entry} ({kind}, {th} x {tw}) launch failed: cudaError {rc}")
     wrapper.launches += 1
@@ -365,7 +372,8 @@ def _launch(wrapper, family: str, x, w, s, t, kind: str, th: int, tw: int):
 
 
 def conv_strip(x, w, s, t, kind: str = "taps9", th: int = 4, tw: int = 64):
-    """X4: a block per (image, th-row strip), tw columns at a time."""
+    """X4: a block per (image, th-row strip), chunks of th x tw = 128 or 256
+    pixels at a time."""
     return _launch(conv_strip, "strip", x, w, s, t, kind, th, tw)
 
 
@@ -375,7 +383,7 @@ def conv_strip_async(x, w, s, t, kind: str = "ky3", th: int = 4, tw: int = 32):
 
 
 def conv_tile2d(x, w, s, t, kind: str = "ky3", th: int = 8, tw: int = 16):
-    """X3: one block per th x tw output tile with its halo."""
+    """X3: one block per th x tw = 128 output tile with its halo."""
     return _launch(conv_tile2d, "tile2d", x, w, s, t, kind, th, tw)
 
 

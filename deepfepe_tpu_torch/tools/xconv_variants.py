@@ -1,10 +1,11 @@
-"""Where X1's and X2's time goes: variants of `csrc/conv_formulations.cu`
+"""Where X1-X4's time goes: variants of `csrc/conv_formulations.cu`
 with parts of `conv_wgmma_kernel` cut out or changed, timed on the card.
 
 Without a hardware profiler's counters, the split comes from builds of
 the kernel source with one line replaced at a time (VARIANTS),
 each timed at the tool's full size (inc.conv1, [8, 376, 1240, 64] -> 64,
-bf16) with CUDA events:
+bf16) with CUDA events. The four formulations share the kernel, so each
+variant applies to every kind (X3 and X4 included) unless it says:
 
   base          the source as it is
   no_mma        no wgmma (the A registers still read, so ldmatrix stays)
@@ -14,9 +15,11 @@ bf16) with CUDA events:
                 slices) and release it: the TMA streams alone
   halo_store    halo_only with the epilogue's stores of zeros
   half_w        X2 streams one of each weight slice's two boxes
-  ring2         at most 2 halo stages (X1 keeps 4)
+  ring2         at most 2 halo stages (X1 and X4 keep 3-4)
   split_acc     X1 sums alternate k steps into two accumulators
   pipe1         one slice's products stay in flight (wait_group 1)
+  two_slots     X3's im2col with two patch slots a warpgroup, as the
+                other patch kinds: its block (132 KB) fits one an SM
 
 Only `base` computes the function; the others are timings. Each variant
 is built by its own nvcc, all started together, and the variants are
@@ -54,8 +57,9 @@ _WAIT_ONLY = ("    if (CIN == 2 * C)\n      for (int s = 0; s < NS; ++s) {\n"
               "        mbar_wait(&wfull[ws], ((u + s) / p.w_stages) & 1);\n"
               "        mbar_arrive(&wempty[ws]);\n      }\n"
               "#pragma unroll\n    for (int s = 0; s < 0; ++s) {")
-_PIPE0 = """      if (s + 1 < NS) prepare(s + 1);
+_PIPE0 = """      if (s + 1 < NS && SLOTS == 2) prepare(s + 1);
       wg_wait<0>();
+      if (s + 1 < NS && SLOTS == 1) prepare(s + 1);
       if (CIN == 2 * C) mbar_arrive(&wempty[(u + s) % p.w_stages]);  // slice s is done
 """
 _PIPE1 = """      if (s + 1 < NS) {
@@ -92,8 +96,10 @@ VARIANTS = {
         ("    keep(acc);\n", "    keep(acc);\n    if (NJ == 1)\n#pragma unroll\n"
          "      for (int e = 0; e < 32; ++e) acc[0][e] += acc[1][e];\n")],
     "pipe1": [(_PIPE0, _PIPE1)],
+    "two_slots": [("{ return family == TILE2D ? 1 : 2; }", "{ return 2; }")],
 }
-DEFAULT_KINDS = ("dma-ky3_4_32", "dma-im2col_4_32", "s2dc_8_16", "s2d9_8_16")
+DEFAULT_KINDS = ("taps9_4_64", "ky3_4_32", "im2col_4_32", "dma-ky3_4_32", "dma-im2col_4_32",
+                 "t4-ky3_8_16", "t4-im2col_8_16", "s2dc_8_16", "s2d9_8_16")
 
 
 def source(name: str) -> str:

@@ -1,7 +1,7 @@
 """Port parity: the conv-formulation shootout (X1-X4) and its tool.
 
-At a small size (B <= 2, H = 12, W = 40, C = 64; X3 and X4 at th 4, tw
-16, X1 and X2 at tiles of th x tw = 128):
+At a small size (B <= 2, H = 12, W = 40, C = 64; every kind at tiles of
+th x tw = 128 pixels (X2: groups), X4's taps9 also at 256):
 
 - Each of the nine kinds of `tools/bench_conv_formulations.py`, run through
   the JAX tool's own `build(spec)` in Pallas interpret mode (its module
@@ -25,8 +25,9 @@ At a small size (B <= 2, H = 12, W = 40, C = 64; X3 and X4 at th 4, tw
   t, the sums' rounding, ~1e-7 of the sum of |terms|, is left as an
   absolute error: one output of 710,400 read 3.8e-6 at y = 2.9e-4 on an
   H100), and against float64 at the bar above; exact launch counts, the
-  kernels' shared-memory sizes against the module's, and each wrapper's
-  raises.
+  kernels' shared-memory sizes against the module's, each wrapper's
+  raises, a second call bit-identical for every family, and a refused
+  launch and a refused tensor map reported.
 
 Importing the JAX tool sets `jax_compilation_cache_dir`; the fixture that
 imports it restores both cache settings. JAX is imported only there, so
@@ -51,18 +52,18 @@ tool = importlib.import_module("deepfepe_tpu_torch.tools.bench_conv_formulations
 
 REPO = Path(__file__).resolve().parents[1]
 SMALL = {"B": 2, "H": 12, "W": 40, "C": 64}
-SPECS = ["taps9_4_16", "ky3_4_16", "im2col_4_16", "dma-ky3_4_32", "dma-im2col_8_16",
-         "t4-ky3_4_16", "t4-im2col_4_16", "s2dc_4_32", "s2d9_8_16"]
+SPECS = ["taps9_4_64", "ky3_4_32", "im2col_8_16", "dma-ky3_4_32", "dma-im2col_8_16",
+         "t4-ky3_8_16", "t4-im2col_4_32", "s2dc_4_32", "s2d9_8_16"]
 PLAIN_OF = {"taps9": "taps9", "ky3": "ky3", "im2col": "im2col", "dma-ky3": "ky3",
             "dma-im2col": "im2col", "t4-ky3": "ky3", "t4-im2col": "im2col", "s2dc": "s2dc",
             "s2d9": "s2d9"}
-WRAPPERS = [(cf.conv_strip, "taps9", {"tw": 16}), (cf.conv_strip, "ky3", {"tw": 16}),
-            (cf.conv_strip, "im2col", {"tw": 16}), (cf.conv_strip_async, "ky3", {"tw": 32}),
-            (cf.conv_strip_async, "im2col", {"tw": 32}), (cf.conv_tile2d, "ky3", {"tw": 16}),
-            (cf.conv_tile2d, "im2col", {"tw": 16}), (cf.conv_s2d, "s2dc", {"tg": 32}),
+WRAPPERS = [(cf.conv_strip, "taps9", {"tw": 32}), (cf.conv_strip, "ky3", {"tw": 32}),
+            (cf.conv_strip, "im2col", {"tw": 32}), (cf.conv_strip_async, "ky3", {"tw": 32}),
+            (cf.conv_strip_async, "im2col", {"tw": 32}), (cf.conv_tile2d, "ky3", {"tw": 32}),
+            (cf.conv_tile2d, "im2col", {"tw": 32}), (cf.conv_s2d, "s2dc", {"tg": 32}),
             (cf.conv_s2d, "s2d9", {"tg": 32})]
-# What a tile no kernel takes raises: X3 and X4 run out of shared memory, X1
-# and X2 take only th x tw = 128.
+# What a tile no kernel takes raises: items are th x tw = 128 (X4: or 256),
+# and the staging must fit a block's shared memory.
 TILE_REFUSED = "shared memory|th x tw = 128"
 WRAPPER_IDS = ["strip-taps9", "strip-ky3", "strip-im2col", "async-ky3", "async-im2col",
                "tile2d-ky3", "tile2d-im2col", "s2d-s2dc", "s2d-s2d9"]
@@ -194,23 +195,35 @@ def test_plain_versions_against_float64(kind):
 
 
 def test_smem_follows_the_tile_sizes():
-    """X3, X4: the block's halo and patch staging plus 8 KB of epilogue
-    scratch. X1, X2: 1024 bytes of alignment, the halo ring (a stage is one
-    1024-aligned [th+2, tw+2, 64] bf16 box a 64-channel half), the weights
-    (X1's 72 KB resident, X2's 16 KB K slices), two 8 KB patch slots a
-    warpgroup for im2col and s2dc, 768 bytes of barriers, s and t."""
-    epi = cf.EPILOGUE_BYTES
-    assert epi == 8192
-    assert cf.smem_bytes("strip", "taps9", 4, 64) == 6 * 66 * 128 + epi
-    assert cf.smem_bytes("strip", "ky3", 4, 32) == 6 * 34 * 128 + 4 * 34 * 384 + epi
-    assert cf.smem_bytes("strip", "im2col", 4, 32) == 6 * 34 * 128 + 4 * 32 * 1152 + epi
-    assert cf.smem_bytes("tile2d", "ky3", 8, 16) == 10 * 18 * 128 + 8 * 18 * 384 + epi
-    # X1 at 4 x 32: a stage 6 * 34 * 128 = 26,112 -> 26,624 bytes; four of them.
-    assert cf.smem_bytes("strip_async", "ky3", 4, 32) == 1024 + 4 * 26_624 + 73_728 + 768
-    assert cf.smem_bytes("strip_async", "im2col", 4, 32) == \
-        1024 + 4 * 26_624 + 73_728 + 32_768 + 768
-    # At 1 x 128 a stage is 3 * 130 * 128 -> 50,176 bytes: im2col keeps two.
-    assert cf.wgmma_layout("strip_async", "im2col", 1, 128)["halo_stages"] == 2
+    """1024 bytes of alignment, the halo ring (a stage is one 1024-aligned
+    [th+2, tw+2, 64] bf16 box a 64-channel half), the weights (72 KB
+    resident for 64 channels, X2's 16 KB K slices), two 8 KB patch slots a
+    warpgroup for im2col and s2dc (X3: one), 768 bytes of barriers, s and t. Items
+    of th x tw = 128 (X4: or 256, four warpgroups); X3's block takes one
+    item and one halo stage, X1 and X4 up to four and at least two."""
+    for family in ("strip", "strip_async"):
+        # At 4 x 32: a stage 6 * 34 * 128 = 26,112 -> 26,624 bytes; four of them.
+        assert cf.smem_bytes(family, "ky3", 4, 32) == 1024 + 4 * 26_624 + 73_728 + 768
+        assert cf.smem_bytes(family, "im2col", 4, 32) == \
+            1024 + 4 * 26_624 + 73_728 + 32_768 + 768
+        # At 1 x 128 a stage is 3 * 130 * 128 -> 50,176 bytes: im2col keeps two.
+        assert cf.wgmma_layout(family, "im2col", 1, 128)["halo_stages"] == 2
+    assert cf.smem_bytes("strip", "taps9", 4, 32) == cf.smem_bytes("strip", "ky3", 4, 32)
+    # X4's 256-pixel chunks: four warpgroups; a stage 6 * 66 * 128 = 50,688
+    # -> 51,200 bytes, three beside the weights (taps9_4_64 ships).
+    lay = cf.wgmma_layout("strip", "taps9", 4, 64)
+    assert (lay["nwg"], lay["halo_stages"]) == (4, 3)
+    assert cf.smem_bytes("strip", "taps9", 4, 64) == 1024 + 3 * 51_200 + 73_728 + 768
+    # im2col's eight patch slots leave room for one stage at 4 x 64: refused.
+    assert cf.smem_bytes("strip", "im2col", 4, 64) == -1
+    assert cf.wgmma_layout("strip", "im2col", 8, 32)["patch"] == 8 * cf.BOX
+    # X3 at 8 x 16: one stage of 10 * 18 * 128 = 23,040 -> 23,552 bytes;
+    # im2col's one patch slot a warpgroup adds 16 KB; either block leaves
+    # room for a second on an SM's 228 KB (each with 1 KB the system keeps).
+    assert cf.smem_bytes("tile2d", "ky3", 8, 16) == 1024 + 23_552 + 73_728 + 768 == 99_072
+    assert cf.smem_bytes("tile2d", "im2col", 8, 16) == 99_072 + 16_384
+    for kind in ("ky3", "im2col"):
+        assert 2 * (cf.smem_bytes("tile2d", kind, 8, 16) + 1024) <= 233_472
     # X2 at 8 x 16: a stage 2 * (10 * 18 * 128 -> 23,552); two, and six
     # weight stages of 16 KB.
     lay = cf.wgmma_layout("s2d", "s2dc", 8, 16)
@@ -221,21 +234,27 @@ def test_smem_follows_the_tile_sizes():
     # Two halo stages of 1 x 128 groups leave room for one weight stage.
     assert cf.smem_bytes("s2d", "s2d9", 1, 128) == -1
     assert cf.smem_bytes("strip_async", "ky3", 4, 16) == -1 == cf.smem_bytes("s2d", "s2dc", 8, 32)
-    assert cf.smem_bytes("strip", "ky3", 4, 24) == -1
-    for family in cf.WGMMA_FAMILIES:  # every tile they take fits
+    assert cf.smem_bytes("strip", "ky3", 4, 24) == -1 == cf.smem_bytes("tile2d", "ky3", 4, 64)
+    assert cf.smem_bytes("strip", "taps9", 1, 256) == -1  # two 99 KB stages do not fit
+    assert cf.smem_bytes("tile2d", "taps9", 4, 32) == -1  # not a kind of X3
+    for family, rows in cf.ITEM_ROWS.items():  # every tile they take fits
         for kind in cf.FAMILIES[family][1]:
-            for th, tw in ((1, 128), (2, 64), (4, 32), (8, 16), (16, 8), (128, 1), (4, 64)):
-                assert cf.smem_bytes(family, kind, th, tw) <= cf.SMEM_LIMIT
+            for n in rows:
+                for th in (1, 2, 4, 8, 16, 32, 64, 128):
+                    if n % th == 0:
+                        assert cf.smem_bytes(family, kind, th, n // th) <= cf.SMEM_LIMIT
     for spec in (*tool.ALL_KINDS, *tool.DEFAULT_KINDS):
         tool.build(spec)  # every shipped tile fits
 
 
 @pytest.mark.parametrize("spec,match", [
     ("nope_4", "unknown kind"), ("conv_4_16", "unknown kind"),
-    ("taps9_4", "shared memory"), ("s2dc_16_64", "th x tw = 128"),
-    ("s2d9_32_128", "th x tw = 128"), ("im2col_8_64", "shared memory"),
-    ("ky3_4_24", "multiple of 16"), ("dma-ky3_4_16", "th x tw = 128"),
-    ("s2d9_1_128", "shared memory")])
+    ("taps9_4", "th x tw = 128 or 256"), ("s2dc_16_64", r"th x tw = 128 \("),
+    ("s2d9_32_128", r"th x tw = 128 \("), ("im2col_8_64", "th x tw = 128 or 256"),
+    ("ky3_4_24", "th x tw = 128 or 256"), ("dma-ky3_4_16", r"th x tw = 128 \("),
+    ("s2d9_1_128", "shared memory"), ("im2col_4_64", "shared memory"),
+    ("taps9_1_256", "shared memory"), ("t4-ky3_4_64", r"th x tw = 128 \("),
+    ("t4-im2col_16_16", r"th x tw = 128 \(")])
 def test_build_raises(spec, match):
     with pytest.raises(ValueError, match=match):
         tool.build(spec)
@@ -245,7 +264,7 @@ def test_build_refuses_an_odd_width_for_s2d(monkeypatch):
     monkeypatch.setattr(tool, "W", 41)
     with pytest.raises(ValueError, match="even"):
         tool.build("s2dc_4_32")
-    tool.build("ky3_4_16")
+    tool.build("ky3_4_32")
 
 
 def test_tool_main_on_the_cpu(monkeypatch, capsys):
@@ -262,10 +281,10 @@ def test_tool_main_on_the_cpu(monkeypatch, capsys):
 
 def test_tool_main_prints_a_failed_spec_and_exits_1(monkeypatch, capsys):
     _patch_sizes(monkeypatch, tool, 1)
-    assert tool.main(["--device", "cpu", "--kinds=ky3_4_16,nope_4,s2dc_16_64",
+    assert tool.main(["--device", "cpu", "--kinds=ky3_4_32,nope_4,s2dc_16_64",
                       "--iters", "1"]) == 1
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
-    assert [ln["kind"] for ln in lines] == ["ref", "ky3_4_16", "nope_4", "s2dc_16_64"]
+    assert [ln["kind"] for ln in lines] == ["ref", "ky3_4_32", "nope_4", "s2dc_16_64"]
     assert "error" not in lines[1]
     assert "unknown kind" in lines[2]["error"] and "th x tw = 128" in lines[3]["error"]
 
@@ -273,7 +292,7 @@ def test_tool_main_prints_a_failed_spec_and_exits_1(monkeypatch, capsys):
 def test_tool_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        tool.main(["--kinds=ky3_4_16"])
+        tool.main(["--kinds=ky3_4_32"])
 
 
 @pytest.mark.parametrize("fn,kind,tile", WRAPPERS, ids=WRAPPER_IDS)
@@ -352,7 +371,7 @@ def test_kernel_smem_sizes_match_the_module(cuda):
     for family, (code, kinds) in cf.FAMILIES.items():
         for kind in kinds:
             for th, tw in ((1, 16), (4, 16), (4, 64), (8, 32), (16, 64), (1, 128), (2, 64),
-                           (4, 32), (8, 16), (16, 8), (128, 1)):
+                           (4, 32), (8, 16), (16, 8), (128, 1), (2, 128), (16, 16), (1, 256)):
                 assert lib.conv_formulations_smem_bytes(code, cf.KINDS[kind], th, tw) == \
                     cf.smem_bytes(family, kind, th, tw)
     assert lib.conv_formulations_smem_bytes(0, 0, 4, 24) == -1
@@ -381,3 +400,64 @@ def test_wrappers_raise_on_the_card(cuda, fn, kind, tile):
         with pytest.raises(ValueError, match="even"):
             fn(x[:, :, :31].contiguous(), w, s, t, **kw)
     assert fn.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,kind,tile", WRAPPERS, ids=WRAPPER_IDS)
+def test_a_second_call_is_bit_identical_on_the_card(cuda, fn, kind, tile):
+    """No atomics and a fixed order of sums: every family repeats itself."""
+    x, w, s, t = _torch(_numpy_inputs(2, 13, 42, seed=13), cuda)
+    with torch.no_grad():
+        y1 = fn(x, w, s, t, kind=kind, th=4, **tile)
+        y2 = fn(x, w, s, t, kind=kind, th=4, **tile)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+
+
+@pytest.mark.cuda
+def test_a_refused_launch_raises_on_the_card(cuda, monkeypatch):
+    """X3's grid takes at most 65535 strips: the C interface refuses more
+    with cudaErrorInvalidValue (1) before it touches memory, and the
+    wrapper raises a refused launch as a RuntimeError and counts nothing."""
+    lib = cf._load()
+    x, w, s, t = _torch(_numpy_inputs(1, 8, 32, seed=14), cuda)
+    wp = cf.pack_w("ky3", w, x.dtype).contiguous()
+    y = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = lib.conv_tile2d_bf16(x.data_ptr(), wp.data_ptr(), s.data_ptr(), t.data_ptr(),
+                              y.data_ptr(), 1, 8 * 65536, 32, cf.KINDS["ky3"], 8, 16, stream)
+    assert rc == 1
+
+    class Refusing:
+        def __getattr__(self, name):
+            return lambda *args: 1
+
+    monkeypatch.setattr(cf, "_lib", Refusing())
+    before = cf.conv_tile2d.launches
+    with torch.no_grad(), pytest.raises(RuntimeError, match="launch failed: cudaError 1"):
+        cf.conv_tile2d(x, w, s, t, kind="ky3", th=8, tw=16)
+    assert cf.conv_tile2d.launches == before
+
+
+@pytest.mark.cuda
+def test_a_refused_tensor_map_is_reported_on_the_card(cuda, monkeypatch):
+    """TMA takes a 16-byte aligned x: at an odd address the C interface
+    returns ERR_TENSOR_MAP, which the wrapper raises as a RuntimeError."""
+    lib = cf._load()
+    x, w, s, t = _torch(_numpy_inputs(1, 8, 32, seed=15), cuda)
+    wp = cf.pack_w("ky3", w, x.dtype).contiguous()
+    y = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = lib.conv_tile2d_bf16(x.data_ptr() + 2, wp.data_ptr(), s.data_ptr(), t.data_ptr(),
+                              y.data_ptr(), 1, 8, 32, cf.KINDS["ky3"], 4, 32, stream)
+    assert rc == cf.ERR_TENSOR_MAP
+
+    class Refusing:
+        def __getattr__(self, name):
+            return lambda *args: cf.ERR_TENSOR_MAP
+
+    monkeypatch.setattr(cf, "_lib", Refusing())
+    before = cf.conv_tile2d.launches
+    with torch.no_grad(), pytest.raises(RuntimeError, match="tensor maps were refused"):
+        cf.conv_tile2d(x, w, s, t, kind="ky3", th=4, tw=32)
+    assert cf.conv_tile2d.launches == before

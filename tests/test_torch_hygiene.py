@@ -179,7 +179,8 @@ def _chip_smoke():
                                    "epi_unsafe_norm_grad",
                                    "epi_tie_blocked", "xconv_tap_shift",
                                    "matcher_fold_last_index", "eigh9_warp_skip_rotation",
-                                   "xconv_halo_top_row", "xconv_s2d_next_ky"])
+                                   "xconv_halo_top_row", "xconv_s2d_next_ky",
+                                   "xconv_strip_halo_column", "xconv_tile_next_halo"])
 def test_chip_smoke_kernel_faults_name_one_source_line(fault):
     """Each `--plant` kernel fault changes a line that occurs once in its
     module's CUDA source, and the module can bind the faulty build."""
