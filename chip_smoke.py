@@ -73,7 +73,11 @@ and for the solver-variant slice:
   kernels  K3 (the epipolar residual) and its backward at DeepFNet's, the
            F-loss's and the sample loss's shapes, with a zero-row F, s = 0
            and a residual at the clamp, against the plain version and
-           float64, timed beside the plain version and its bound;
+           float64, two calls bit-identical, timed beside the plain version
+           and its bound; then at each caller's broadcast through
+           `compute_epi_residual` (tools/profile_epi.py's cases): one device
+           operation a forward and one a backward, the kernels' device ms a
+           call and the host's ms a call, beside the bound;
   sample_train  the port's `train_good` with model.if_sample_loss at
            configs/synthetic_baseline.yaml's full width: 4 steps, one
            validation, a checkpoint, step 2 profiled; exact launch counts
@@ -110,7 +114,8 @@ the FFMA-only bound of the kernels' earlier rows.
 
 builds, plants FAULT (one of FAULTS: a wiring fault in the MLP's autograd
 Function, K2b built with one line changed, K3's backward built with one
-line changed, conv_formulations.cu built with taps9's centre tap read
+line changed or its cluster sum leaving the last rank's partial out,
+conv_formulations.cu built with taps9's centre tap read
 one column off, matcher.cu's fold keeping the higher index on equal
 values, eigh9.cu's warp kernel skipping rotation (7, 8), conv3x3.cu's
 tensor-core kernel reading the centre tap one column off, or its fold of
@@ -127,6 +132,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -208,7 +214,8 @@ TRAIN_QT = {
 MLP_BARS = {"forward": 2e-2, "gradient": 1.5e-1}
 F64_FACTOR, F64_FLOOR = 1.3, 1e-3
 FAULTS = ("none", "dx_zero", "dgamma_dbeta_swapped", "c1_next_item", "c2_next_item",
-          "stats_straddle_next_item", "epi_unsafe_norm_grad", "epi_tie_blocked", "xconv_tap_shift",
+          "stats_straddle_next_item", "epi_unsafe_norm_grad", "epi_tie_blocked",
+          "epi_cluster_drop_rank", "xconv_tap_shift",
           "matcher_fold_last_index", "eigh9_warp_skip_rotation", "conv_mma_tap_shift",
           "conv_fold_drop_group", "xconv_halo_top_row", "xconv_s2d_next_ky",
           "xconv_strip_halo_column", "xconv_tile_next_halo")
@@ -220,8 +227,10 @@ FAULTS = ("none", "dx_zero", "dgamma_dbeta_swapped", "c1_next_item", "c2_next_it
 # backward's r1, r2); epi_unsafe_norm_grad takes the norm's
 # gradient as x / |x| without the zero-norm guard (the plain sqrt's NaN at
 # a zero-row F); epi_tie_blocked stops the gradient at d == clamp_at, where
-# torch.clamp passes it; xconv_tap_shift reads taps9's centre tap one
-# column to the right; matcher_fold_last_index keeps the later tile on
+# torch.clamp passes it; epi_cluster_drop_rank has the first block of each
+# cluster group leave the last rank's partial out of a split sum (dF's over
+# the points, the points' gradients' over the matrices); xconv_tap_shift
+# reads taps9's centre tap one column to the right; matcher_fold_last_index keeps the later tile on
 # equal values (the higher index); eigh9_warp_skip_rotation skips rotation
 # (7, 8) in the warp kernel; conv_mma_tap_shift reads the centre tap's A
 # fragments one column to the right in conv3x3.cu's tensor-core kernel (K5
@@ -247,6 +256,11 @@ SOURCE_FAULTS = {
         "const float u1 = (-gd * as * t.r1 * t.r1) / t.n1;"),
     "epi_tie_blocked": ("epi_residual", "const float gd = t.d <= clamp_at ? g : 0.f;",
                         "const float gd = t.d < clamp_at ? g : 0.f;"),
+    "epi_cluster_drop_rank": (
+        "epi_residual",
+        "for (int r = 0; r < split; ++r) s += cluster.map_shared_rank(bpart, rank + r)[e];",
+        "for (int r = 0; r < split - (split > 1); ++r) s += cluster.map_shared_rank(bpart, "
+        "rank + r)[e];"),
     "xconv_tap_shift": (
         "conv_formulations", "const int hr = hrb + ky * hc + kx;",
         "const int hr = hrb + ky * hc + kx + (KIND == TAPS9 && s == 4);"),
@@ -2465,6 +2479,8 @@ def epi_case(P: int, M: int, N: int, clamp: float, seed: int) -> dict:
                     .manual_seed(seed + 1))
     d = epi.epi_residual_fwd(pts1, pts2, F9, clamp, 1e-6)
     dF, d1, d2 = epi.epi_residual_bwd(pts1, pts2, F9, g, clamp, 1e-6)
+    again = (epi.epi_residual_fwd(pts1, pts2, F9, clamp, 1e-6),
+             *epi.epi_residual_bwd(pts1, pts2, F9, g, clamp, 1e-6))
 
     def plain(dtype, kinks=None):
         """The plain forward and its autograd gradients in `dtype`; with
@@ -2512,8 +2528,10 @@ def epi_case(P: int, M: int, N: int, clamp: float, seed: int) -> dict:
                "s0_d": d[1, -1, 0].item(), "tie_d_equals_clamp": d[2, -1, 1].item() == clamp,
                "clamped_share": d.eq(clamp).float().mean().item()}
     finite = all(bool(torch.isfinite(t).all()) for t in got)
-    ok = (finite and special["zero_row_dF_max"] == 0.0 and special["zero_row_d_clamped"]
-          and special["s0_d"] == 0.0 and special["tie_d_equals_clamp"]
+    special["bit_identical_twice"] = all(torch.equal(a, b) for a, b in zip(got, again))
+    ok = (finite and special["bit_identical_twice"] and special["zero_row_dF_max"] == 0.0
+          and special["zero_row_d_clamped"] and special["s0_d"] == 0.0
+          and special["tie_d_equals_clamp"]
           and all(e["kernel_vs_plain"] <= 1.0 and e["kernel_vs_f64"] <= 1.0
                   for e in [errs["residual"]])
           and all(errs[n][k] <= EPI_GRAD_REL for n in names[1:]
@@ -2522,9 +2540,51 @@ def epi_case(P: int, M: int, N: int, clamp: float, seed: int) -> dict:
             "inputs": (pts1, pts2, F9, g, clamp), "max_abs_err": (d - ref[0]).abs().max().item()}
 
 
+# The rows of tools/profile_epi.py: its cases by direction.
+EPI_CALLERS = ("deepfnet_forward", "deepfnet_backward", "offsets_backward", "f_loss_forward",
+               "f_loss_backward", "sample_aux_forward", "sample_aux_backward",
+               "sample_aux_points_backward")
+
+
+def epi_callers(ph: Phases) -> dict:
+    """K3 at each caller's pattern through compute_epi_residual: the
+    readings of `python -m deepfepe_tpu_torch.tools.profile_epi --iters
+    100`, run in a process of its own (its profiler sessions over autograd
+    calls left this process's later traces without device events), beside
+    the bound; exactly one device operation a forward and one a backward,
+    a K3 kernel."""
+    proc = subprocess.run([sys.executable, "-m", "deepfepe_tpu_torch.tools.profile_epi",
+                           "--iters", "100"], cwd=REPO, capture_output=True, text=True)
+    check(proc.returncode == 0, f"tools/profile_epi.py failed: {proc.stderr[-2000:]}")
+    rows = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    callers = {}
+    for row in rows[1:]:
+        name, direction = row["case"], row["direction"]
+        P = math.prod(row["points"][:-2])
+        M, N = math.prod(row["F"][:-2]) // P, row["points"][-2]
+        kind = ("forward" if direction == "forward" else
+                "dF+dpts" if row["points_gradient"] else "dF")
+        bound, by = epi_bound_ms(P, M, N, kind)
+        ops = row["one_call"]
+        callers[f"{name}_{direction}"] = {
+            "shape": [P, M, N], "device_ops_a_call": ops, "traces_taken": row["traces"],
+            **{k: row[k] for k in ("kernel_ms", "device_ms", "device_ops", "ms", "host_ms")},
+            "bound_ms": bound, "bound_by": by}
+        check(len(ops) == 1 and any(k in ops[0] for k in EPI_KERNELS),
+              f"K3 at {name} ({direction}) ran {ops}, expected one K3 kernel")
+    check(sorted(callers) == sorted(EPI_CALLERS), f"tools/profile_epi.py gave {sorted(callers)}")
+    ph.emit("kernels", kernel="epi_residual", callers=callers, empty_launch_ms=rows[0].get(
+                "empty_launch_ms"),
+            timed="tools/profile_epi.py: kernel_ms, device_ms: torch.profiler durations over "
+                  "100 calls, a call; ms: CUDA events around 100 back-to-back calls; host_ms: "
+                  "host clock to issue one")
+    return callers
+
+
 def phase_epi_kernel(ph: Phases) -> list:
     """K3 and its backward at EPI_SHAPES against the plain versions and
-    float64, each timed beside the plain version and its bound. No single
+    float64, two calls bit-identical, each timed beside the plain version
+    and its bound; then at each caller's pattern (`epi_callers`). No single
     PyTorch call computes the residual, so there is no library time."""
     import torch
 
@@ -2563,6 +2623,7 @@ def phase_epi_kernel(ph: Phases) -> list:
         max_fwd = max(max_fwd, c["max_abs_err"])
         max_bwd = max(max_bwd, *(c["errors"][n]["kernel_vs_plain"] for n in ("dF", "dpts1",
                                                                              "dpts2")))
+    callers = epi_callers(ph)
     lead = cases["sample_aux"]
     common = {"route": "cuda", "source": "deepfepe_tpu_torch/csrc/epi_residual.cu",
               "replaces": "deepfepe_tpu/ops/pallas/epi_residual_pallas.py:23", "launches": None,
@@ -2570,9 +2631,11 @@ def phase_epi_kernel(ph: Phases) -> list:
               "library": "none: no single PyTorch call computes the residual",
               "shape": "sample aux: points [8, 100, 3] x F [8, 500, 9] f32", "per_caller": cases}
     fwd = {"name": "epi_residual", "max_abs_err": max_fwd, "ms": lead["ms"],
+           "device_ms": callers["sample_aux_forward"]["kernel_ms"],
            "plain_ms": lead["plain_ms"], "bound_ms": lead["bound_ms"],
            "bound_by": lead["bound_by"], **common}
     bwd = {"name": "epi_residual_bwd", "max_abs_err": max_bwd, "ms": lead["bwd_ms"],
+           "device_ms": callers["sample_aux_backward"]["kernel_ms"],
            "plain_ms": lead["plain_bwd_ms"], "bound_ms": lead["bwd_bound_ms"],
            "bound_by": lead["bwd_bound_by"],
            "max_abs_err_is": "relative to the largest float64 entry of dF, dpts1, dpts2",
@@ -2596,7 +2659,7 @@ SAMPLE = {
 }
 # The other ported variants at the same width, 2 steps each.
 VARIANT_FLAGS, VARIANT_STEPS = ("if_learn_offsets", "if_tri_depth", "if_goodCorresArch"), 2
-EPI_KERNELS = ("epi_fwd_kernel", "epi_dF_kernel", "epi_dpts_kernel")
+EPI_KERNELS = ("epi_fwd_kernel", "epi_bwd_kernel")
 
 
 def sample_expected(depth: int, steps: int, vals: int) -> dict:

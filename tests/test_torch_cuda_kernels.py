@@ -27,10 +27,16 @@ numpy seeds.
 - K4 on sign-vector descriptors (every similarity exact in any summation
   order, ties frequent): nn12, nn21, dist12 and mutual equal the plain
   version's exactly, ties to the lowest index.
-- K3 at DeepFNet's, the F-loss's and a ragged sample-loss shape: the
-  residual at tests/test_jacobi.py's bar (rtol 1e-4, atol 1e-5), each
-  gradient within 1e-5 of its largest entry, the zero-row F's exactly 0;
-  through `compute_epi_residual` with exact launch counts.
+- K3 at DeepFNet's, the F-loss's and the sample loss's shapes, reduced and
+  full, and at a ragged one (M and N no multiple of a block's or a
+  cluster's tile): the residual at tests/test_jacobi.py's bar (rtol 1e-4,
+  atol 1e-5), each gradient within 1e-5 of its largest entry, the zero-row
+  F's exactly 0; two calls bit-identical (fixed-order cluster sums);
+  through `compute_epi_residual` at the three callers' broadcasts and F
+  permuted in memory, with exact launch counts, against the plain version
+  and its autograd; one device operation a forward and one a backward at
+  the sample loss's pattern (torch.profiler); a pattern the strides cannot
+  express raises.
 """
 
 import importlib
@@ -238,3 +244,130 @@ def test_k3_through_compute_epi_residual_on_the_card(cuda):
     assert (gF - gF_ref).abs().max().item() <= 1e-5 * gF_ref.abs().max().item()
     with pytest.raises(ValueError, match="float32"):
         compute_epi_residual(pts1.double(), pts2.double(), F.detach().double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,M,N", [(8, 1, 1000), (8, 5, 100), (8, 500, 100), (3, 517, 999),
+                                   (8, 500, 400)])
+def test_k3_at_the_path_and_ragged_shapes_on_the_card(cuda, P, M, N):
+    """K3 and its backward at the paths' full shapes, and at ragged ones
+    whose sums are split over clusters (M and N no multiple of a block's or
+    a cluster's tile), against the plain versions at the first test's
+    bars. Over a million residuals, float32 puts a few on the other side of
+    a kink (|s| at s = 0, the clamp) in the kernel than in the plain
+    version, each moving a gradient by about |g| (r1 + r2): those terms get
+    no cotangent here, as the JAX comparisons give the kinks none."""
+    x1, x2, F9 = _epi_case(P, M, N, cuda, seed=M)
+    g = torch.randn(P, M, N, device=cuda, generator=torch.Generator(device=cuda).manual_seed(0))
+    F = F9.view(P, M, 3, 3)
+    s = torch.sum(x2[:, None] * (x1[:, None] @ F.transpose(-1, -2)), dim=-1)
+    d_free = epi.epi_residual_ref(x1[:, None], x2[:, None], F, float("inf"))
+    kink = (s.abs() < 1e-6) | ((d_free - 0.02).abs() < 1e-5 * 0.02)
+    assert kink.float().mean().item() < 1e-3
+    g = g.masked_fill(kink, 0.0)
+    d = epi.epi_residual_fwd(x1, x2, F9, 0.02, 1e-6)
+    got = epi.epi_residual_bwd(x1, x2, F9, g, 0.02, 1e-6)
+    want = epi.epi_residual_bwd_ref(x1, x2, F9, g, 0.02, 1e-6)
+    ref = epi.epi_residual_ref(x1[:, None], x2[:, None], F, 0.02)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(d, ref, rtol=1e-4, atol=1e-5)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+    assert got[0][0, 0].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,M,N", [(8, 1, 1000), (8, 500, 100), (3, 517, 999)])
+def test_k3_twice_bit_identical_on_the_card(cuda, P, M, N):
+    """The backward's sums over the points (dF) and over the matrices (the
+    points' gradients) are split over a cluster's blocks and added in rank
+    order: two calls give the same bits, as does the forward."""
+    x1, x2, F9 = _epi_case(P, M, N, cuda, seed=M + 1)
+    g = torch.randn(P, M, N, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+    first = (epi.epi_residual_fwd(x1, x2, F9, 0.02, 1e-6),
+             *epi.epi_residual_bwd(x1, x2, F9, g, 0.02, 1e-6))
+    second = (epi.epi_residual_fwd(x1, x2, F9, 0.02, 1e-6),
+              *epi.epi_residual_bwd(x1, x2, F9, g, 0.02, 1e-6))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _caller(pattern, cuda, seed=3):
+    """Points and F at a caller's broadcast (B = 4, V = 50, L = 3, S = 7),
+    F a leaf (permuted_F: the sample loss's F held as [B, S, L, 3, 3],
+    each 3x3 transposed), and a cotangent."""
+    B, V, L, S = 4, 50, 3, 7
+    M = {"deepfnet": 1, "f_loss": L}.get(pattern, L * S)
+    x1, x2, F9 = _epi_case(B, M, V, cuda, seed)
+    F = F9.view(B, M, 3, 3)
+    if pattern == "deepfnet":
+        pts1, pts2, F = x1, x2, F[:, 0]
+    elif pattern == "f_loss":
+        pts1, pts2, F = x1[None], x2[None], F.transpose(0, 1).contiguous()
+    else:
+        pts1, pts2 = x1[None, :, None], x2[None, :, None]
+        F = F.view(B, L, S, 3, 3).transpose(0, 1).contiguous()
+        if pattern == "permuted_F":
+            F = F.permute(1, 2, 0, 4, 3).contiguous().permute(2, 0, 1, 4, 3)
+    g = torch.randn(torch.broadcast_shapes(pts1.shape[:-1], F.shape[:-2] + (V,)), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(seed))
+    return (*(t.detach().requires_grad_() for t in (pts1, pts2, F)), g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["deepfnet", "f_loss", "sample", "permuted_F"])
+def test_k3_caller_patterns_on_the_card(cuda, pattern):
+    """Each caller's broadcast through `compute_epi_residual`: the kernels
+    read F and the cotangent in place (F also permuted in memory), one
+    launch each way; the residual at the forward's bar, its contiguous
+    broadcast shape, and the three gradients within 1e-5 of the plain
+    version's largest entry."""
+    from deepfepe_tpu_torch.geometry.epipolar import compute_epi_residual
+
+    pts1, pts2, F, g = _caller(pattern, cuda)
+    counts = (epi.epi_residual.launches, epi.epi_residual_bwd.launches,
+              epi.epi_residual_bwd.point_launches)
+    out = compute_epi_residual(pts1, pts2, F, clamp_at=0.02)
+    got = torch.autograd.grad(out, (pts1, pts2, F), g)
+    ref = epi.epi_residual_ref(pts1, pts2, F, 0.02)
+    want = torch.autograd.grad(ref, (pts1, pts2, F), g)
+    torch.cuda.synchronize()
+    assert (epi.epi_residual.launches, epi.epi_residual_bwd.launches,
+            epi.epi_residual_bwd.point_launches) == tuple(c + 1 for c in counts)
+    assert out.shape == ref.shape and out.is_contiguous()
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_k3_one_device_operation_each_way_on_the_card(cuda):
+    """At the sample loss's pattern ([1, B, 1, V, 3] against [L, B, S, 3,
+    3]) a forward call runs one device operation, the K3 kernel, and a
+    backward call one, with the points' gradients too: no layout copies."""
+    from deepfepe_tpu_torch.geometry.epipolar import compute_epi_residual
+    from deepfepe_tpu_torch.tools.profile_epi import device_split
+
+    pts1, pts2, F, g = _caller("sample", cuda)
+    out = compute_epi_residual(pts1, pts2, F, clamp_at=0.02)
+    calls = {"forward": lambda: compute_epi_residual(pts1, pts2, F, clamp_at=0.02),
+             "dF": lambda: torch.autograd.grad(out, F, g, retain_graph=True),
+             "all": lambda: torch.autograd.grad(out, (pts1, pts2, F), g, retain_graph=True)}
+    for name, fn in calls.items():
+        fn()
+        split = device_split(fn, 1)
+        assert split["device_ops"] == 1 and all("epi_" in k for k in split["split"]), \
+            (name, split)
+
+
+@pytest.mark.cuda
+def test_k3_refuses_what_its_strides_cannot_express(cuda):
+    """Three runs of matrix axes on the card raise; nothing falls back to
+    the plain version."""
+    from deepfepe_tpu_torch.geometry.epipolar import compute_epi_residual
+
+    a = torch.ones(1, 2, 1, 3, 1, 5, 3, device=cuda)
+    F = torch.zeros(2, 2, 3, 3, 2, 3, 3, device=cuda)
+    with pytest.raises(ValueError):
+        compute_epi_residual(a, a, F)

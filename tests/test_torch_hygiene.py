@@ -176,8 +176,8 @@ def _chip_smoke():
 
 
 @pytest.mark.parametrize("fault", ["c1_next_item", "c2_next_item", "stats_straddle_next_item",
-                                   "epi_unsafe_norm_grad",
-                                   "epi_tie_blocked", "xconv_tap_shift",
+                                   "epi_unsafe_norm_grad", "epi_tie_blocked",
+                                   "epi_cluster_drop_rank", "xconv_tap_shift",
                                    "matcher_fold_last_index", "eigh9_warp_skip_rotation",
                                    "xconv_halo_top_row", "xconv_s2d_next_ky",
                                    "xconv_strip_halo_column", "xconv_tile_next_halo"])
