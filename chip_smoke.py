@@ -100,11 +100,29 @@ and for the conv-formulation slice:
   conv_formulations  that tool's entry point on all nine kinds at the same
            size, with exact launch counts around it (2 + 3 x 10 calls a
            kind), no error line, and each kind's max_err against its cuDNN
-           yardstick within 2^-6 of max |y|.
+           yardstick within 2^-6 of max |y|;
+and for the dump-tree slice (before the checks, whose traces can come back
+empty after check_sample: PERF.md §7):
+  kitti_corr  a correspondence tree of known geometry written to a
+           temporary directory (two scenes of 11 frames, KITTI's K and
+           cam0 -> cam2 offset, 1,200 matches a pair, 0.5 px noise, 15%
+           outliers); the port's `train_good` with the values of
+           configs/kitti_corr_baseline.yaml and the fused MLP (B=8, N=1000,
+           depth 5, 376x1240), 5 steps over 2.5 epochs, and `eval_good`
+           with kitti_corr_baselineEval.yaml's, the whole test split (the
+           tail padded), the 8-point then the five-point baseline; exact
+           launch counts, median_err_q_gt < 1e-3 and median_err_q_base <
+           0.5 with each baseline, the npz dumps read back (20 rows, the
+           reference keys), the native loader built, its host ms a batch,
+           one profiled eval batch a baseline;
+  kitti_sp_dump  two 20-frame SyntheticImageSequence scenes at 376x1240 as
+           PNG, `dump_sequence_sp` with a seeded SuperPointNet (K5 6 a
+           frame, K4 1 a pair; frames/s), then `val_feature --config` and
+           `eval_good` over the tree with its frames.
 
 The line before the card's name line is the kernels' JSON summary (eigh9,
 K2, K2b, K5, K4, K5b, K3 and its backward, X1-X4, each with its launches
-on the path that carries it); the last line is {"ok": true, "device":
+on the path that carries it and on every other path); the last line is {"ok": true, "device":
 {...}}. Any failed check exits 1. K5's and K5b's bounds take their
 products as FP32 FFMA or as three TF32 passes on the tensor cores,
 whichever is faster (`f32_gemm_bound_ms`); `bound_fp32_ms` beside them is
@@ -3051,6 +3069,337 @@ def phase_conv_formulations(ph: Phases) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The dump-tree slice: the correspondence loader, eval's five-point baseline
+# and npz dumps, the SuperPoint dump writer.
+# ---------------------------------------------------------------------------
+
+# configs/kitti_corr_baseline.yaml and kitti_corr_baselineEval.yaml, built
+# in code (no YAML reader needed); data.dump_root points at the smoke's
+# tree, and training takes the fused MLP.
+KITTI_CORR = {
+    "name": "kitti_odo_good_corr",
+    "data": {"dataset": "kitti_odo_corr", "sequence_length": 2, "delta_ij": 1, "batch_size": 8,
+             "good_num": 1000, "read_what": {"with_quality": True, "with_pose": True},
+             "image": {"size": [376, 1241, 3]}, "preprocessing": {"resize": [376, 1240]}},
+    "model": {"name": "GoodCorresNet_layers_deepF", "depth": 5, "clamp_at": 0.02,
+              "if_quality": False, "quality_size": 0, "if_learn_offsets": False,
+              "if_tri_depth": False, "if_qt_loss": False, "if_sample_loss": False,
+              "if_SP": False, "balance_q": 1, "balance_t": 0.1, "use_pallas_mlp": True},
+    "exps": {"five_point": False, "base_name": "ransac_8p", "our_name": "DeepF",
+             "filename": "err_ratio.npz"},
+    "training": {"reproduce": False, "learning_rate": 0.0001, "lr_decay_step": 10,
+                 "lr_decay_rate": 1, "clamp_iter1": 3000, "clamp_iter2": 6000,
+                 "clamp_q_params": [0.1, 0.01, 0.001], "clamp_t_params": [0.5, 0.3, 0.1],
+                 "seed": 0, "train_iter": 100000, "val_interval": 200, "val_batches": 10,
+                 "save_interval": 200, "retrain": True, "train": True, "pretrained": ""},
+}
+KITTI_EVAL = {
+    "name": "kitti_odo_good_corr_eval",
+    "data": {"dataset": "kitti_odo_corr", "batch_size": 8, "good_num": 1000,
+             "image": {"size": [376, 1241, 3]}, "preprocessing": {"resize": [376, 1240]}},
+    "model": {"name": "GoodCorresNet_layers_deepF", "depth": 5, "clamp_at": 0.02,
+              "if_quality": False},
+    "exps": {"base_name": "ransac_8p", "our_name": "DeepF", "filename": "err_ratio.npz"},
+    "training": {"reproduce": True, "train_iter": 0, "train": False, "retrain": False,
+                 "val_interval": 1, "val_batches": -1, "seed": 0},
+}
+# The correspondence tree: two scenes of 11 frames (20 pairs: two train
+# batches an epoch, the tail of 4 dropped; three eval batches, the last
+# padded), 1,200 matches a pair cut to good_num 1,000, 0.5 px of noise, 15%
+# outliers, KITTI's intrinsics and cam0 -> cam2 offset.
+KITTI_TREE = {"scenes": 2, "frames": 11, "matches": 1200, "noise_px": 0.5,
+              "outlier_frac": 0.15, "seed": 0}
+KITTI_TRAIN_STEPS = 5  # 2.5 epochs
+KITTI_PAIRS = KITTI_TREE["scenes"] * (KITTI_TREE["frames"] - 1)
+# Per eval batch, with either baseline: five weighted 8-point fits, the
+# baseline's hypotheses (one eigh batch: the 8-point fits, or the five-
+# point null spaces) and its refit; K3 four times in DeepFNet and once in
+# the F-loss. Per train step: eigh9, K2, K2b, K3 and its backward depth
+# times each.
+KITTI_EVAL_PER_BATCH = {"eigh9": 7, "epi_residual": 5}
+KITTI_TRAIN_PER_STEP = {"eigh9": 5, "mlp_forward": 5, "mlp_backward": 5, "epi_residual": 5,
+                        "epi_residual_bwd": 5}
+# The SuperPoint tree: two scenes of a SyntheticImageSequence at 376x1240,
+# 20 frames each, written as PNG, dumped with a seeded SuperPointNet, K =
+# 1000, the conv switch on K5 (six layers of >= 16,384 px a frame) and K4
+# on each pair's [1, K_pad, 256] descriptors.
+SP_TREE = {"scenes": 2, "frames": 20, "image_size": (376, 1240), "focal": 718.856,
+           "n_corners": 400, "K": 1000}
+SP_DUMP_PER_FRAME = {"conv3x3_affine_relu": 6}
+SP_DUMP_PER_PAIR = {"mutual_nn_kernel": 1}
+SP_VF_BATCHES = 5  # val_feature's default: 5 batches of 8 pairs (the last short)
+
+
+def expect(per: dict, n: int, keys) -> dict:
+    return {k: per.get(k, 0) * n for k in keys}
+
+
+def read_npz_dumps(exp: str, pairs: int) -> dict:
+    """Both npz dumps of an eval_good run read back: the reference keys and
+    one row a pair."""
+    import numpy as np
+
+    keys = {"err_q", "err_t", "epi_dists", "relative_poses_cam", "relative_poses_body"}
+    out = {}
+    for name in ("DeepF", "ransac_8p"):
+        path = os.path.join("logs", exp, f"{name}_err_ratio.npz")
+        check(os.path.exists(path), f"{exp}: no {path}")
+        z = np.load(path)
+        check(set(z.files) == keys, f"{path}: keys {sorted(z.files)}")
+        check(all(len(z[k]) == pairs for k in keys), f"{path}: rows "
+              f"{[len(z[k]) for k in sorted(keys)]}, expected {pairs}")
+        check(all(np.isfinite(z[k]).all() for k in keys), f"{path}: non-finite entries")
+        out[name] = {k: list(z[k].shape) for k in sorted(keys)}
+    return out
+
+
+def eval_batch_trace(cfg, net, batch, path: str) -> dict:
+    """One eval batch (solver, val_rt with the config's baseline) under
+    torch.profiler after a warm-up call: the device's busy share and top
+    kernels (`read_trace`), and the batch's host ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepfepe_tpu_torch import cli
+
+    dev = torch.device("cuda")
+    cli.evaluate(cfg, net, [batch], dev, generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cli.evaluate(cfg, net, [batch], dev, generator=torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    return {"batch_ms": ms, **read_trace(path)}
+
+
+def loader_ms(ds, batch_size: int, n: int = 2) -> float:
+    """Host ms a batch of the dataset's in-order pass (files read, pairs
+    cropped, virtual points), over its first `n` batches."""
+    import itertools
+
+    t0 = time.perf_counter()
+    got = list(itertools.islice(ds.batches(batch_size, shuffle=False), n))
+    return (time.perf_counter() - t0) * 1e3 / len(got)
+
+
+def phase_kitti_corr(ph: Phases) -> dict:
+    """train_good and eval_good (both baselines) on a correspondence dump at
+    the paper's KITTI point; launches read around each run alone. Returns
+    their sums."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch import cli
+    from deepfepe_tpu_torch.data.native_loader import native_available
+    from deepfepe_tpu_torch.data.synthetic_dump import write_corr_dump
+    from deepfepe_tpu_torch.train.config import config_from_dict
+
+    check(native_available(), "the native npy loader did not build (g++)")
+    total = dict.fromkeys(kernel_counters(), 0)
+    with tempfile.TemporaryDirectory(prefix="smoke_kitti_") as root:
+        t0 = time.perf_counter()
+        write_corr_dump(root, **KITTI_TREE)
+        ph.emit("kitti_corr", tree=KITTI_TREE, pairs=KITTI_PAIRS, native_loader=True,
+                write_s=time.perf_counter() - t0)
+        for exp in ("smoke_kitti_train", "smoke_kitti_eval_8p", "smoke_kitti_eval_5p"):
+            shutil.rmtree(os.path.join(REPO, "logs", exp), ignore_errors=True)
+        raw = {**KITTI_CORR, "data": {**KITTI_CORR["data"], "dump_root": root}}
+        cfg = config_from_dict(raw)
+        reset_counts()
+        last = cli.train_good(cfg, "smoke_kitti_train", train_iter=KITTI_TRAIN_STEPS,
+                              device="cuda")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expected = expect(KITTI_TRAIN_PER_STEP, KITTI_TRAIN_STEPS, counts)
+        ms = last["wall_s"] * 1e3 / KITTI_TRAIN_STEPS
+        ph.emit("kitti_corr", run="train_good", steps=KITTI_TRAIN_STEPS, last=last,
+                launches=counts, expected_launches=expected,
+                launches_per_step={k: v / KITTI_TRAIN_STEPS for k, v in counts.items() if v},
+                ms_per_step=ms, pairs_per_s=cfg.data.batch_size * 1e3 / ms,
+                timed="host clock over fit (ending in a synchronize), batches read from the "
+                      "tree by the prefetch thread")
+        check(counts == expected, f"kitti train_good: launches {counts}, expected {expected}")
+        check(last["n_iter"] == KITTI_TRAIN_STEPS, f"kitti train_good ended at {last['n_iter']}")
+        check(all(np.isfinite(v) for v in last.values()), f"kitti train_good: non-finite {last}")
+        check(last["nonfinite"] == 0.0, "kitti train_good: a step had a non-finite loss")
+        for k, v in counts.items():
+            total[k] += v
+        ckpt = os.path.join("logs", "smoke_kitti_train", "checkpoints",
+                            f"deepFNet_{KITTI_TRAIN_STEPS}_checkpoint.pth.tar")
+        batches = -(-KITTI_PAIRS // KITTI_EVAL["data"]["batch_size"])
+        for five, exp in ((False, "smoke_kitti_eval_8p"), (True, "smoke_kitti_eval_5p")):
+            raw = {**KITTI_EVAL, "data": {**KITTI_EVAL["data"], "dump_root": root},
+                   "exps": {**KITTI_EVAL["exps"], "five_point": five}}
+            reset_counts()
+            summary = cli.eval_good(config_from_dict(raw), 0, device="cuda", pretrained=ckpt,
+                                    exper_name=exp)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            expected = expect(KITTI_EVAL_PER_BATCH, batches, counts)
+            dumps = read_npz_dumps(exp, KITTI_PAIRS)
+            ph.emit("kitti_corr", run="eval_good", five_point=five, summary=summary,
+                    batches=batches, launches=counts, expected_launches=expected,
+                    launches_per_batch={k: v / batches for k, v in counts.items() if v},
+                    pairs_per_s=summary["pairs"] / summary["seconds"], npz=dumps,
+                    timed="host clock over the solver and its evaluation, ending in a "
+                          "synchronize; data read up front")
+            check(counts == expected, f"kitti eval_good (five_point {five}): launches {counts}, "
+                  f"expected {expected}")
+            check(summary["pairs"] == KITTI_PAIRS, f"kitti eval_good: {summary['pairs']} pairs")
+            check(all(np.isfinite(v) for v in summary.values() if isinstance(v, float)),
+                  f"kitti eval_good: non-finite summary {summary}")
+            check(summary["median_err_q_gt"] < 1e-3,
+                  f"kitti eval_good: median_err_q_gt {summary['median_err_q_gt']} >= 1e-3 deg")
+            check(summary["median_err_q_base"] < 0.5, f"kitti eval_good (five_point {five}): "
+                  f"median_err_q_base {summary['median_err_q_base']} >= 0.5 deg")
+            for k, v in counts.items():
+                total[k] += v
+        # After the counted runs: the data layer's host ms a batch, and one
+        # profiled eval batch with each baseline.
+        from deepfepe_tpu_torch.loader import data_loader, model_loader
+        from deepfepe_tpu_torch.train import load_checkpoint
+
+        ecfg = config_from_dict({**KITTI_EVAL, "data": {**KITTI_EVAL["data"], "dump_root": root}})
+        ds = data_loader(ecfg, "test")
+        host_ms = loader_ms(ds, ecfg.data.batch_size)
+        batch = next(ds.batches(ecfg.data.batch_size, shuffle=False))
+        net = model_loader(ecfg, torch.device("cuda"), torch.Generator().manual_seed(0))
+        load_checkpoint(ckpt, net)
+        traces = {}
+        for five in (False, True):
+            ecfg.exps.five_point = five
+            traces["five_point" if five else "eight_point"] = eval_batch_trace(
+                ecfg, net, batch, os.path.join("logs", "smoke_kitti_trace", f"eval_{five}.json"))
+        ph.emit("kitti_corr", loader_ms_per_batch=host_ms, eval_batch_traces=traces)
+        for name, tr in traces.items():
+            check(tr["device_events"] > 0, f"kitti {name} eval batch trace has no device events")
+    return total
+
+
+def write_sp_frames(root: str) -> list:
+    """Two SyntheticImageSequence scenes as PNG frames; returns (files,
+    poses, K) a scene."""
+    import numpy as np
+
+    from deepfepe_tpu_torch.data import SyntheticImageSequence
+    from deepfepe_tpu_torch.utils.image_io import write_png
+
+    scenes = []
+    for s in range(SP_TREE["scenes"]):
+        seq = SyntheticImageSequence(n_frames=SP_TREE["frames"], image_size=SP_TREE["image_size"],
+                                     focal=SP_TREE["focal"], n_corners=SP_TREE["n_corners"],
+                                     seed=s)
+        files = []
+        for k in range(seq.n_frames):
+            files.append(os.path.join(root, "frames", f"{s:02d}_{k:06d}.png"))
+            os.makedirs(os.path.dirname(files[-1]), exist_ok=True)
+            write_png(files[-1], np.rint(seq.frame(k) * 255).astype(np.uint8))
+        scenes.append((files, seq.cam2world_poses(), seq.K))
+    return scenes
+
+
+def phase_kitti_sp_dump(ph: Phases) -> dict:
+    """The SuperPoint dump of rendered frames, then val_feature --config and
+    eval_good over the tree with its frames; launches read around each run
+    alone. Returns their sums."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch import cli
+    from deepfepe_tpu_torch.data.dump_kitti import dump_sequence_sp
+    from deepfepe_tpu_torch.frontend import SuperPointNet
+    from deepfepe_tpu_torch.frontend.superpoint import reset_superpoint
+    from deepfepe_tpu_torch.train.config import config_from_dict
+
+    total = dict.fromkeys(kernel_counters(), 0)
+    H, W = SP_TREE["image_size"]
+    n_frames = SP_TREE["scenes"] * SP_TREE["frames"]
+    n_pairs = SP_TREE["scenes"] * (SP_TREE["frames"] - 1)
+    with tempfile.TemporaryDirectory(prefix="smoke_sp_") as root:
+        t0 = time.perf_counter()
+        scenes = write_sp_frames(root)
+        render_s = time.perf_counter() - t0
+        net = reset_superpoint(SuperPointNet(), torch.Generator().manual_seed(0))
+        net = net.eval().to("cuda")
+        reset_counts()
+        t0 = time.perf_counter()
+        for s, (files, poses, K) in enumerate(scenes):
+            dump_sequence_sp(files, poses, K, os.path.join(root, "tree", f"{s:02d}"), net,
+                             out_num_points=SP_TREE["K"], conv_impl="pallas")
+        torch.cuda.synchronize()
+        dump_s = time.perf_counter() - t0
+        counts = read_counts()
+        expected = {k: SP_DUMP_PER_FRAME.get(k, 0) * n_frames + SP_DUMP_PER_PAIR.get(k, 0) * n_pairs
+                    for k in counts}
+        rows = [len(np.load(os.path.join(root, "tree", f"{s:02d}",
+                                          f"ij_match_quality_{i}-{i + 1}_good.npy")))
+                for s in range(SP_TREE["scenes"]) for i in range(SP_TREE["frames"] - 1)]
+        ph.emit("kitti_sp_dump", run="dump_sequence_sp", tree=SP_TREE, frames=n_frames,
+                pairs=n_pairs, render_s=render_s, dump_s=dump_s, frames_per_s=n_frames / dump_s,
+                launches=counts, expected_launches=expected, matches_per_pair=[min(rows),
+                                                                              max(rows)],
+                timed="host clock over dump_sequence_sp (PNG reads and writes, SuperPoint, "
+                      "matching, .npy writes), ending in a synchronize")
+        check(counts == expected, f"SP dump: launches {counts}, expected {expected}")
+        check(min(rows) >= 8, f"SP dump: a pair with {min(rows)} matches")
+        for k, v in counts.items():
+            total[k] += v
+
+        cfg = config_from_dict({**KITTI_EVAL, "data": {
+            **KITTI_EVAL["data"], "dump_root": os.path.join(root, "tree"), "with_imgs": True,
+            "image": {"size": [H, W, 1]}, "preprocessing": {"resize": [H, W]}}})
+        reset_counts()
+        summary = cli.val_feature("smoke_sp_vf", config=cfg, fp=vf_params(), device="cuda")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expected = {k: SP_VF_BATCHES * VF_PER_BATCH["b"].get(k, 0) for k in counts}
+        ratios = [summary[f"ratio@{t}"] for t in (0.1, 0.5, 1.0, 2.0)]
+        ph.emit("kitti_sp_dump", run="val_feature --config", summary=summary, launches=counts,
+                expected_launches=expected, pairs_per_s=summary["pairs"] / summary["seconds"])
+        check(counts == expected, f"SP tree val_feature: launches {counts}, expected {expected}")
+        check(summary["pairs"] == min(n_pairs, SP_VF_BATCHES * 8),
+              f"SP tree val_feature: {summary['pairs']} pairs")
+        check(np.isfinite(summary["num_matches"]) and 0 < summary["num_matches"] <= VF_K,
+              f"SP tree val_feature: num_matches {summary['num_matches']}")
+        check(all(0 <= a <= b <= 1 for a, b in zip(ratios, ratios[1:])),
+              f"SP tree val_feature: ratios not in [0, 1] and rising: {ratios}")
+        for k, v in counts.items():
+            total[k] += v
+
+        reset_counts()
+        summary = cli.eval_good(cfg, 0, device="cuda", exper_name="smoke_sp_eval")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        batches = -(-n_pairs // cfg.data.batch_size)
+        expected = expect(KITTI_EVAL_PER_BATCH, batches, counts)
+        dumps = read_npz_dumps("smoke_sp_eval", n_pairs)
+        ph.emit("kitti_sp_dump", run="eval_good", summary=summary, batches=batches,
+                launches=counts, expected_launches=expected,
+                pairs_per_s=summary["pairs"] / summary["seconds"], npz=dumps)
+        check(counts == expected, f"SP tree eval_good: launches {counts}, expected {expected}")
+        check(summary["pairs"] == n_pairs, f"SP tree eval_good: {summary['pairs']} pairs")
+        check(all(np.isfinite(v) for v in summary.values() if isinstance(v, float)),
+              f"SP tree eval_good: non-finite summary {summary}")
+        # The gt sanity bar at float32's acos floor near 0 (~0.03 deg): this
+        # sequence turns 0.6 deg at most a frame, and rounding of its gt
+        # rotations lands most pairs just off 0.
+        check(summary["median_err_q_gt"] < 0.05,
+              f"SP tree eval_good: median_err_q_gt {summary['median_err_q_gt']} >= 0.05 deg")
+        for k, v in counts.items():
+            total[k] += v
+        ph.emit("kitti_sp_dump", loader_ms_per_batch_with_frames=loader_ms(
+            cli.data_loader(cfg, "test"), cfg.data.batch_size))
+    return total
+
+
 def plant(fault: str) -> None:
     """Install a deliberate fault for `--plant`. Wiring faults wrap the MLP
     autograd Function's backward; kernel faults (SOURCE_FAULTS) build a
@@ -3187,6 +3536,8 @@ def main(argv=None) -> int:
         phase_frontend_breakdown(ph)
         joint_counts = phase_joint_train(ph)
         phase_joint_step_times(ph)
+        kitti_counts = phase_kitti_corr(ph)
+        sp_dump_counts = phase_kitti_sp_dump(ph)
         phase_check(ph, cfg)
         phase_check_train(ph)
         phase_check_sample(ph)
@@ -3213,6 +3564,8 @@ def main(argv=None) -> int:
         r["launches_variants"] = variant_counts[r["name"]]
         r["launches_joint_train"] = joint_counts[r["name"]]
         r["launches_conv_formulations"] = xconv_counts[r["name"]]
+        r["launches_kitti_corr"] = kitti_counts[r["name"]]
+        r["launches_kitti_sp_dump"] = sp_dump_counts[r["name"]]
         if r["launches"] <= 0:
             print(f"chip_smoke: FAILED: {r['name']} never launched on {path}",
                   file=sys.stderr, flush=True)

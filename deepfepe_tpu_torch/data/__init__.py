@@ -1,6 +1,8 @@
-"""Data: the synthetic two-view generators (correspondences, image pairs)."""
+"""Data: the synthetic two-view generators (correspondences, image pairs,
+image sequences) and the dump-tree dataset."""
 
+from .kitti import KittiCorrDataset
 from .synthetic import SyntheticPairs
-from .synthetic_images import SyntheticImagePairs
+from .synthetic_images import SyntheticImagePairs, SyntheticImageSequence
 
-__all__ = ["SyntheticImagePairs", "SyntheticPairs"]
+__all__ = ["KittiCorrDataset", "SyntheticImagePairs", "SyntheticImageSequence", "SyntheticPairs"]

@@ -14,6 +14,8 @@ from .epipolar import (
     hartley_normalize,
     norm_hw_matrix,
     normalize_hw,
+    sampson_dist,
+    sym_epi_dist,
 )
 from .rotations import R_to_q, rotation_angle_error, vector_angle
 

@@ -1,8 +1,8 @@
 """Epipolar geometry core (batched torch, differentiable).
 
 Counterpart of `deepfepe_tpu/geometry/epipolar.py`: Hartley
-normalization, the 9-column constraint matrix, epipolar distances and the
-F/E conversions. The F convention is `x2ᵀ F x1 = 0`.
+normalization, the 9-column constraint matrix, epipolar distances
+(line, symmetric and Sampson) and the F/E conversions. The F convention is `x2ᵀ F x1 = 0`.
 """
 
 from __future__ import annotations
@@ -91,6 +91,26 @@ def compute_epi_residual(pts1_h, pts2_h, F, clamp_at: float = 0.5, eps: float = 
     from ..ops.epi_residual import epi_residual  # ops imports this module
 
     return epi_residual(pts1_h, pts2_h, F, clamp_at, eps)
+
+
+def sym_epi_dist(F, pts1, pts2, if_homo: bool = False, clamp_at: float | None = None,
+                 eps: float = 1e-10):
+    """Squared symmetric epipolar distance (x2ᵀFx1)² (1/|(Fx1)_xy|² +
+    1/|(Fᵀx2)_xy|²), clamped at `clamp_at` when given."""
+    s, Fx1, Ftx2 = _prep(pts1, pts2, F, if_homo)
+    errors = s ** 2 * (1.0 / (Fx1[..., 0] ** 2 + Fx1[..., 1] ** 2 + eps)
+                       + 1.0 / (Ftx2[..., 0] ** 2 + Ftx2[..., 1] ** 2 + eps))
+    if clamp_at is not None:
+        errors = torch.clamp(errors, max=clamp_at)
+    return errors
+
+
+def sampson_dist(F, pts1, pts2, if_homo: bool = False, eps: float = 1e-10):
+    """First-order (Sampson) epipolar distance (x2ᵀFx1)² / (|(Fx1)_xy|² +
+    |(Fᵀx2)_xy|²)."""
+    s, Fx1, Ftx2 = _prep(pts1, pts2, F, if_homo)
+    denom = (Fx1[..., 0] ** 2 + Fx1[..., 1] ** 2 + Ftx2[..., 0] ** 2 + Ftx2[..., 1] ** 2)
+    return s ** 2 / (denom + eps)
 
 
 def epi_distance(F, pts1, pts2, if_homo: bool = False, eps: float = 1e-10):

@@ -29,6 +29,9 @@ torch.profiler:
   args_big    the kernels' parameter block 1 KB larger (unused)
   smem_big    the backward's shared memory padded by 12 KB (its size
               before each role's sums took one path)
+  fixed_sms   the backward takes 132 SMs as a constant in place of its
+              cudaGetDevice + cudaDeviceGetAttribute queries (the H100
+              SXM's count; a runtime-API suspect of tools/profiler_witness.py)
 
 Every variant but no_math and parent_dF computes the function; only the
 time differs. Variants joined by '+' apply in turn. `--extra NAME=PATH`
@@ -181,6 +184,10 @@ VARIANTS = {
     "args_big": [("  int cs;           // blocks a cluster",
                   "  int cs;           // blocks a cluster\n  long long unused[128];")],
     "smem_big": [("  __shared__ float ws[NW * 9];", "  __shared__ float ws[NW * 9 + 3072];")],
+    "fixed_sms": [("  cudaError_t e = cudaGetDevice(&dev);\n"
+                   "  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, "
+                   "cudaDevAttrMultiProcessorCount, dev);\n",
+                   "  cudaError_t e = cudaSuccess;\n  sms = 132;\n  (void)dev;\n")],
 }
 
 

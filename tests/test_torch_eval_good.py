@@ -139,9 +139,10 @@ def test_config_copy_matches_jax():
     assert tc.model.mlp_dtype == "bfloat16" and tc.data.batch_size == 8
 
 
-def test_cli_eval_good_on_cpu(capsys):
+def test_cli_eval_good_on_cpu(capsys, tmp_path, monkeypatch):
     import json
 
+    monkeypatch.chdir(tmp_path)  # eval_good writes logs/<exper_name>/
     out = cli.main(["eval_good", CONFIG, "cpu_run", "--max_batches", "1", "--device", "cpu"])
     printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     for k in ("median_err_q", "median_err_t", "median_err_q_base", "median_err_t_base",
@@ -149,3 +150,5 @@ def test_cli_eval_good_on_cpu(capsys):
         assert k in printed and np.isfinite(printed[k]), k
     assert printed["pairs"] == 8 and printed["device"] == "cpu" and out == printed
     assert printed["median_err_q_gt"] < 1e-3 and printed["median_err_q_base"] < 0.5
+    for name in ("DeepF_err_ratio.npz", "ransac_8p_err_ratio.npz"):
+        assert len(np.load(tmp_path / "logs" / "cpu_run" / name)["err_q"]) == 8

@@ -109,10 +109,3 @@ def test_val_rt_batch_matches_jax(data):
     ri, rj = t_valrt.inlier_ratios(ot["epi_dists_base"]), j_valrt.inlier_ratios(oj["epi_dists_base"])
     for k in rj:
         np.testing.assert_allclose(ri[k].numpy(), np.asarray(rj[k]))
-
-
-def test_val_rt_five_point_is_not_ported(data):
-    args = [torch.from_numpy(data[k]) for k in ("E_gts", "Ks", "matches_xy_ori", "E_gts",
-                                                "delta_Rtijs_4_4")]
-    with pytest.raises(NotImplementedError):
-        t_valrt.val_rt_batch(*args, five_point=True)

@@ -114,7 +114,6 @@ def test_val_feature_builds_gauss2_from_batchnorm_keys(tmp_path):
 
 def test_val_feature_refuses_what_is_not_ported(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    for kw, what in ((dict(config="c.yaml"), "Queue 1 item 8"), (dict(homography=2), "cv2"),
-                     (dict(pretrained="sp.msgpack"), "flax")):
+    for kw, what in ((dict(homography=2), "cv2"), (dict(pretrained="sp.msgpack"), "flax")):
         with pytest.raises(NotImplementedError, match=what):
             cli.val_feature("x", device="cpu", **kw)
