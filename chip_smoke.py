@@ -118,10 +118,33 @@ empty after check_sample: PERF.md §7):
   kitti_sp_dump  two 20-frame SyntheticImageSequence scenes at 376x1240 as
            PNG, `dump_sequence_sp` with a seeded SuperPointNet (K5 6 a
            frame, K4 1 a pair; frames/s), then `val_feature --config` and
-           `eval_good` over the tree with its frames.
+           `eval_good` over the tree with its frames, then bf16 joint
+           training (stage 1, 4 pairs a batch) over the tree one step past
+           its first full epoch;
+and for the bf16 joint slice:
+  kernels  the bf16 K5 and K5b (csrc/conv3x3_bf16.cu) at the six layers
+           that take them on the joint path, B = 8 at full width, each
+           against its plain version and float64 on the same bf16 operands
+           (X1-X4's ulp bars; a quarter of the channels at scale 1 + 2^-9,
+           where a float32 dz shows), K5b twice bit for bit, timed beside
+           the plain versions, cuDNN (its fused bf16 conv + bias + ReLU; its
+           bf16 backward by autograd) and the bound;
+  joint_bf16  `train_good` with model.if_SP and model.mlp_dtype bfloat16 (the
+           JAX package's production point, the bf16 SuperPoint), conv switch
+           on K5: stage 1 with remat none, stage 1 with remat block, stage 2
+           with remat block, 3 steps each, exact launch counts (stage 1: the
+           bf16 K5 6 a step, 12 under block, K5b 6, K4 1, eigh9 5, K3 5 +
+           5; stage 2: no K5 or K5b), float32 checkpoints, stage 1 leaving
+           SuperPoint untouched, stage 2 moving every BN buffer;
+  joint_bf16_step  bare stage-1 steps with remat none and block (ms, peak
+           device memory), one profiled step (busy share, K5 and K5b device
+           ms) whose every bf16 K5/K5b call is held against the plain
+           versions, and the SuperPoint gradients of that step's frames and
+           cotangents under block equal to none's bit for bit.
 
 The line before the card's name line is the kernels' JSON summary (eigh9,
-K2, K2b, K5, K4, K5b, K3 and its backward, X1-X4, each with its launches
+K2, K2b, K5, K4, K5b, K3 and its backward, X1-X4, the bf16 K5 and K5b, each
+with its launches
 on the path that carries it and on every other path); the last line is {"ok": true, "device":
 {...}}. Any failed check exits 1. K5's and K5b's bounds take their
 products as FP32 FFMA or as three TF32 passes on the tensor cores,
@@ -140,8 +163,9 @@ tensor-core kernel reading the centre tap one column off, or its fold of
 K5b's gradients dropping the last pixel group, the 64-channel kinds'
 halo box one row low (X1, X3, X4), X2's ky = 0 weights streamed from
 ky = 1's rows, X4's chunk halo one column to the right, an X3 block
-bringing the next tile's halo) and runs only
-that kernel's checks, printing their readings; it exits 1 when a check
+bringing the next tile's halo, conv3x3_bf16.cu's forward dropping the
+centre tap, or its weight gradient summing dscale and dbias from a float32
+dz) and runs only that kernel's checks, printing their readings; it exits 1 when a check
 caught the fault. `--plant none` runs every set and gives the sound
 readings the bars are set against.
 """
@@ -167,7 +191,7 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 SOURCES = ("eigh9.cu", "mlp.cu", "conv3x3.cu", "matcher.cu", "epi_residual.cu",
-           "conv_formulations.cu")
+           "conv_formulations.cu", "conv3x3_bf16.cu")
 
 # The synthetic_baseline.yaml values, built in code (no YAML reader needed).
 BASELINE = {
@@ -236,7 +260,8 @@ FAULTS = ("none", "dx_zero", "dgamma_dbeta_swapped", "c1_next_item", "c2_next_it
           "epi_cluster_drop_rank", "xconv_tap_shift",
           "matcher_fold_last_index", "eigh9_warp_skip_rotation", "conv_mma_tap_shift",
           "conv_fold_drop_group", "xconv_halo_top_row", "xconv_s2d_next_ky",
-          "xconv_strip_halo_column", "xconv_tile_next_halo")
+          "xconv_strip_halo_column", "xconv_tile_next_halo", "conv_bf16_drop_tap",
+          "conv_bf16_dz_f32")
 # Kernel faults, each planted into one source line: (module under
 # deepfepe_tpu_torch.ops, the line, its faulty form). c1/c2_next_item build
 # K2b's dh with the next item's coefficient; stats_straddle_next_item
@@ -259,7 +284,10 @@ FAULTS = ("none", "dx_zero", "dgamma_dbeta_swapped", "c1_next_item", "c2_next_it
 # xconv_s2d_next_ky streams X2's ky = 0 weight slices from ky = 1's rows;
 # xconv_strip_halo_column brings X4's chunk halo from column c0 instead of
 # c0 - 1; xconv_tile_next_halo has each X3 block bring the halo of the
-# next tile (the last block the first tile's) while it writes its own.
+# next tile (the last block the first tile's) while it writes its own;
+# conv_bf16_drop_tap leaves the centre tap's products out of the bf16 K5's
+# wgmma kernel; conv_bf16_dz_f32 sums the bf16 K5b's dscale and dbias from
+# dz in float32 (not rounded to bf16).
 SOURCE_FAULTS = {
     "c1_next_item": ("mlp", "load8(p.c1b + pi, k.c1);  // c1 of the row's item",
                      "load8(p.c1b + (pi + p.pch) % (static_cast<long long>((p.prow + p.Nn - 1) "
@@ -308,6 +336,13 @@ SOURCE_FAULTS = {
         "conv_formulations",
         "const int item = wk.first + i * wk.step;  // the item whose halo this stage takes",
         "const int item = FAMILY == TILE2D ? (wk.first + 1) % p.n_items : wk.first + i * wk.step;"),
+    "conv_bf16_drop_tap": (
+        "conv_bf16", "wgmma_rs(acc[j], a[s & 1][kk], db);  // every tap of every slice",
+        "if (s / KH != 4) wgmma_rs(acc[j], a[s & 1][kk], db);"),
+    "conv_bf16_dz_f32": (
+        "conv_bf16", "const float dzf = __bfloat162float(d[e]);  // the sums take the bf16 dz",
+        "const float dzf = __fmul_rn(__bfloat162float(dyv) * (__bfloat162float(yy[e]) > 0.0f "
+        "? 1.0f : 0.0f), s_l[e]);"),
 }
 
 
@@ -933,6 +968,8 @@ def phase_mlp_kernels(ph: Phases) -> list:
 def kernel_counters():
     from deepfepe_tpu_torch.ops import conv_formulations as cf
     from deepfepe_tpu_torch.ops.conv import conv3x3_affine_relu, conv3x3_affine_relu_bwd
+    from deepfepe_tpu_torch.ops.conv_bf16 import (conv3x3_affine_relu_bf16,
+                                                  conv3x3_affine_relu_bwd_bf16)
     from deepfepe_tpu_torch.ops.eigh9 import eigh9
     from deepfepe_tpu_torch.ops.epi_residual import epi_residual, epi_residual_bwd
     from deepfepe_tpu_torch.ops.matcher import mutual_nn_kernel
@@ -941,6 +978,8 @@ def kernel_counters():
     return {"eigh9": eigh9, "mlp_forward": mlp_forward, "mlp_backward": mlp_backward,
             "conv3x3_affine_relu": conv3x3_affine_relu,
             "conv3x3_affine_relu_bwd": conv3x3_affine_relu_bwd,
+            "conv3x3_affine_relu_bf16": conv3x3_affine_relu_bf16,
+            "conv3x3_affine_relu_bwd_bf16": conv3x3_affine_relu_bwd_bf16,
             "mutual_nn_kernel": mutual_nn_kernel, "epi_residual": epi_residual,
             "epi_residual_bwd": epi_residual_bwd, "conv_strip": cf.conv_strip,
             "conv_strip_async": cf.conv_strip_async, "conv_tile2d": cf.conv_tile2d,
@@ -3070,6 +3109,460 @@ def phase_conv_formulations(ph: Phases) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The bf16 joint slice: the bf16 K5 and K5b (csrc/conv3x3_bf16.cu), the bf16
+# SuperPoint, remat, joint training over dump trees.
+# ---------------------------------------------------------------------------
+
+# The bf16 K5 and K5b at the six layers that take them on the joint path (B
+# = 8 frames; down1's two convs share a shape, both measured), with
+# need_dx as the fused forward declares it.
+CONV_BF16_SHAPES = (("inc.conv0", 8, 376, 1240, 1, 64, False),
+                    ("inc.conv1", 8, 376, 1240, 64, 64, True),
+                    ("down1.conv0", 8, 188, 620, 64, 64, True),
+                    ("down1.conv1", 8, 188, 620, 64, 64, True),
+                    ("down2.conv0", 8, 94, 310, 64, 128, True),
+                    ("down2.conv1", 8, 94, 310, 128, 128, True))
+# Bars, as X1-X4's (XCONV_*): y, dx and dw (bf16) within one ulp of the
+# plain version plus a floor and within half an ulp of float64 on the same
+# bf16 operands plus that floor; the floor is XCONV_FLOOR for y and, for the
+# gradients, CONV_BF16_REL of their largest entry (float32 sums of up to 3.7
+# M products in another order: the f32 K5b's bar); dscale and dbias
+# (float32) within CONV_BF16_REL of their largest entry of the plain version
+# and of float64 (the float64 formula takes the same bf16 dz). A quarter of
+# the channels have scale 1 + 2^-9, where dy s rounds back to dy in bf16: a
+# dz kept in float32 moves their dscale and dbias by 2^-9 relative there.
+CONV_BF16_REL = 1e-4
+CONV_BF16_DZ_SCALE = 1 + 2.0 ** -9
+K5_BF16_KERNELS = ("k5_wgmma_kernel", "k5_cin1_kernel")
+K5B_BF16_KERNELS = ("k5b_wgrad_kernel", "k5b_wgrad_cin1_kernel", "k5b_dgrad_kernel",
+                    "k5b_dgrad_cin1_kernel", "sum_groups_kernel")
+
+# joint_bf16: JOINT with model.mlp_dtype bfloat16 (the JAX CLI then builds
+# SuperPointNetGauss2(dtype=bfloat16), as the JAX package trains), the conv
+# switch on K5: (run, stage, SP_params.remat, steps).
+JOINT_BF16_RUNS = (("stage1_none", "stage1", "none", 3), ("stage1_block", "stage1", "block", 3),
+                   ("stage2_block", "stage2", "block", 3))
+JOINT_BF16_PER_STEP = {
+    "stage1": {"conv3x3_affine_relu_bf16": 6, "conv3x3_affine_relu_bwd_bf16": 6,
+               "mutual_nn_kernel": 1, "eigh9": 5, "epi_residual": 5, "epi_residual_bwd": 5},
+    "stage2": {"mutual_nn_kernel": 1, "eigh9": 5, "epi_residual": 5, "epi_residual_bwd": 5}}
+# remat 'block' reruns the encoder's double-convs in the backward: K5 twice
+# a layer of the six.
+JOINT_BF16_BLOCK_EXTRA = {"conv3x3_affine_relu_bf16": 6}
+JOINT_BF16_STEPS = 3  # bare steps a remat mode (joint_bf16_step)
+# The bf16 joint run over the SuperPoint tree (kitti_sp_dump): 4 pairs a
+# batch, stage 1, enough steps to wrap the train split's epoch once.
+SP_TREE_JOINT_BS = 4
+
+
+def conv_bf16_inputs(B, H, W, Cin, C, seed: int):
+    """bf16 x (a grey image for Cin = 1, else ReLU outputs) and w (lecun
+    scale), float32 s in [0.5, 1.5) with every 4th at CONV_BF16_DZ_SCALE, t
+    of scale 0.1, and a bf16 cotangent dy."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = {"device": "cuda", "generator": g}
+    x = torch.rand(B, H, W, Cin, **kw) if Cin == 1 else torch.relu(torch.randn(B, H, W, Cin, **kw))
+    w = torch.randn(3, 3, Cin, C, **kw) / (9 * Cin) ** 0.5
+    s = torch.rand(C, **kw) + 0.5
+    s[::4] = CONV_BF16_DZ_SCALE
+    dy = torch.randn(B, H, W, C, **kw)
+    return (x.bfloat16(), w.bfloat16(), s, 0.1 * torch.randn(C, **kw), dy.bfloat16())
+
+
+def conv_bf16_bound_ms(B, H, W, Cin, C, backward: bool, need_dx: bool = True) -> tuple:
+    """Least time for the bf16 K5 (or K5b): its products (2 flops a
+    multiply-add; K5b dw's and, with need_dx, dx's) and elementwise work (the
+    affine and ReLU, 3 an output; K5b's dz and affine sums, 6) over the bf16
+    tensor-core rate, against the bf16 tensors read or written once (K5: x
+    and y; K5b: x, y and dy read, dx written) and w, dw, s, t over HBM."""
+    px = B * H * W
+    macs = px * 9 * Cin * C
+    if backward:
+        flops = (2 if need_dx else 1) * 2 * macs + 6 * px * C
+        nbytes = 2 * (px * Cin + 2 * px * C + (px * Cin if need_dx else 0)) + 4 * 9 * Cin * C \
+            + 16 * C
+    else:
+        flops = 2 * macs + 3 * px * C
+        nbytes = 2 * (px * Cin + px * C) + 2 * 9 * Cin * C + 8 * C
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return ((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")), flops, nbytes
+
+
+def over_ulp(got, want, ulp: float, floor: float) -> float:
+    """max |got - want| / (ulp |want| + floor): at most 1 within the bar."""
+    g, w = got.double(), want.double()
+    return ((g - w).abs() / (ulp * w.abs() + floor)).max().item()
+
+
+def conv_bf16_f64(x, w, s, t, y, dy, need_dx, rows: int = XCONV_F64_ROWS):
+    """The bf16 K5's y (the top `rows` rows of image 0 and the bottom ones of
+    the last image) and K5b's (dx on image 0's top rows, dw, dscale, dbias)
+    in float64 on the same bf16 operands and the same bf16 dz."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepfepe_tpu_torch.ops import conv_bf16 as cb
+
+    wd = w.double().permute(3, 2, 0, 1)
+
+    def fwd(xs):
+        z = F.conv2d(xs.double().permute(0, 3, 1, 2), wd, padding=1).permute(0, 2, 3, 1)
+        return torch.relu(z * s.double() + t.double())
+
+    y64 = (fwd(x[:1, :rows + 1])[:, :rows], fwd(x[-1:, -rows - 1:])[:, 1:])
+    sd = s.double()
+    safe = torch.where(sd.abs() < 1e-8, torch.ones_like(sd), sd)
+    ds = db = 0.0
+    dw = torch.zeros(9 * x.shape[-1] * w.shape[-1], dtype=torch.float64, device=x.device)
+    for b in range(x.shape[0]):  # image by image: the float64 tensors of one image
+        dz = cb.dz_bf16(y[b:b + 1], dy[b:b + 1], s).double()
+        m = dz / safe
+        db = db + m.sum((0, 1, 2))
+        ds = ds + (m * (y[b:b + 1].double() - t.double()) / safe).sum((0, 1, 2))
+        dw += torch.nn.grad.conv2d_weight(x[b:b + 1].double().permute(0, 3, 1, 2), wd.shape,
+                                          dz.permute(0, 3, 1, 2), padding=1) \
+            .permute(2, 3, 1, 0).reshape(-1)
+        del dz, m
+    dx = None
+    if need_dx:
+        dz = cb.dz_bf16(y[:1, :rows + 1], dy[:1, :rows + 1], s).double()
+        dx = torch.nn.grad.conv2d_input((1, x.shape[-1], rows + 1, x.shape[2]), wd,
+                                        dz.permute(0, 3, 1, 2), padding=1) \
+            .permute(0, 2, 3, 1)[:, :rows]
+    return y64, (dx, dw.view(w.shape), ds, db)
+
+
+def conv_bf16_case(name, B, H, W, Cin, C, need_dx, seed) -> dict:
+    """The bf16 K5 and K5b at one layer's shape against their plain versions
+    and float64, K5b twice bit for bit, timed beside the plain versions,
+    cuDNN and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepfepe_tpu_torch.ops import conv_bf16 as cb
+
+    x, w, s, t, dy = conv_bf16_inputs(B, H, W, Cin, C, seed)
+    R = XCONV_F64_ROWS
+    with torch.no_grad():
+        y = cb.conv3x3_affine_relu_bf16(x, w, s, t)
+        plain = cb.conv3x3_affine_relu_bf16_ref(x, w, s, t)
+        got = cb.conv3x3_affine_relu_bwd_bf16(x, w, s, t, y, dy, need_dx)
+        again = cb.conv3x3_affine_relu_bwd_bf16(x, w, s, t, y, dy, need_dx)
+        pgot = cb.conv3x3_affine_relu_bwd_bf16_ref(x, w, s, t, y, dy, need_dx)
+        y64, g64 = conv_bf16_f64(x, w, s, t, y, dy, need_dx)
+    torch.cuda.synchronize()
+    fwd = {"kernel_vs_plain_over_bar": over_ulp(y, plain, XCONV_ULP, XCONV_FLOOR),
+           "kernel_vs_f64_over_bar": max(over_ulp(e, r, XCONV_HALF_ULP, XCONV_FLOOR) for e, r in
+                                         zip((y[:1, :R], y[-1:, -R:]), y64)),
+           "plain_vs_f64_over_bar": max(over_ulp(e, r, XCONV_HALF_ULP, XCONV_FLOOR) for e, r in
+                                        zip((plain[:1, :R], plain[-1:, -R:]), y64)),
+           "kernel_vs_plain": (y.float() - plain.float()).abs().max().item(),
+           "max_abs_y": plain.float().abs().max().item(),
+           "equal_share": (y == plain).float().mean().item(),
+           "finite": bool(torch.isfinite(y.float()).all())}
+    bwd = {"repeat_bit_identical": all(torch.equal(a, b) for a, b in zip(got, again)),
+           "finite": all(bool(torch.isfinite(a.float()).all()) for a in got)}
+    for n, a, p, e in zip(("dx", "dw", "dscale", "dbias"), got, pgot, g64):
+        if n == "dx" and not need_dx:
+            bwd["dx_abs_max"] = a.float().abs().max().item()
+            continue
+        floor = CONV_BF16_REL * p.float().abs().max().item()
+        a64 = a[:1, :R] if n == "dx" else a
+        if n in ("dx", "dw"):
+            bwd[n] = {"kernel_vs_plain_over_bar": over_ulp(a, p, XCONV_ULP, floor),
+                      "kernel_vs_f64_over_bar": over_ulp(a64, e, XCONV_HALF_ULP, floor)}
+        else:
+            bwd[n] = {"kernel_vs_plain_over_bar": (a - p).abs().max().item() / floor,
+                      "kernel_vs_f64_over_bar": (a.double() - e).abs().max().item() / floor}
+    ok_fwd = fwd["finite"] and fwd["kernel_vs_plain_over_bar"] <= 1 \
+        and fwd["kernel_vs_f64_over_bar"] <= 1
+    ok_bwd = bwd["finite"] and bwd["repeat_bit_identical"] and bwd.get("dx_abs_max", 0.0) == 0.0 \
+        and all(v["kernel_vs_plain_over_bar"] <= 1 and v["kernel_vs_f64_over_bar"] <= 1
+                for k, v in bwd.items() if isinstance(v, dict))
+    max_err = {"fwd": fwd["kernel_vs_plain"],
+               "bwd": max((a.float() - p.float()).abs().max().item() for a, p in zip(got, pgot))}
+    del got, again, pgot, y64, g64, plain
+    torch.cuda.empty_cache()
+
+    # cuDNN: its fused bf16 conv + bias + ReLU (s folded into w, channels
+    # last), and the backward of its bf16 conv + affine + ReLU by autograd.
+    cl = torch.channels_last
+    x_nchw = x.permute(0, 3, 1, 2)
+    ws_cl = (w.float() * s).bfloat16().permute(3, 2, 0, 1).contiguous(memory_format=cl)
+    t16 = t.bfloat16()
+    leaves = [a.detach().clone().requires_grad_(need_dx if j == 0 else True)
+              for j, a in enumerate((x_nchw, w.permute(3, 2, 0, 1), s, t))]
+    out = torch.relu(F.conv2d(leaves[0], leaves[1], padding=1) * leaves[2][:, None, None]
+                     + leaves[3][:, None, None])
+    dy_lib = dy.permute(0, 3, 1, 2).to(out.dtype)
+    wanted = [v for v in leaves if v.requires_grad]
+    iters = 10 if B * H * W > 1e6 else 40
+    with torch.no_grad():
+        fwd_t = {"ms": cuda_time_ms(lambda: cb.conv3x3_affine_relu_bf16(x, w, s, t), iters),
+                 "plain_ms": cuda_time_ms(lambda: cb.conv3x3_affine_relu_bf16_ref(x, w, s, t),
+                                          3, warmup=1),
+                 "library_ms": cuda_time_ms(lambda: torch.cudnn_convolution_relu(
+                     x_nchw, ws_cl, t16, (1, 1), (1, 1), (1, 1), 1), iters)}
+        bwd_t = {"ms": cuda_time_ms(lambda: cb.conv3x3_affine_relu_bwd_bf16(
+                     x, w, s, t, y, dy, need_dx), iters),
+                 "plain_ms": cuda_time_ms(lambda: cb.conv3x3_affine_relu_bwd_bf16_ref(
+                     x, w, s, t, y, dy, need_dx), 3, warmup=1)}
+    bwd_t["library_ms"] = cuda_time_ms(
+        lambda: torch.autograd.grad(out, wanted, dy_lib, retain_graph=True), iters)
+    (fb, fby), fflops, fbytes = conv_bf16_bound_ms(B, H, W, Cin, C, False)
+    (bb, bby), bflops, bbytes = conv_bf16_bound_ms(B, H, W, Cin, C, True, need_dx)
+    fwd_t.update(bound_ms=fb, bound_by=fby, flops=fflops, bytes=fbytes)
+    bwd_t.update(bound_ms=bb, bound_by=bby, flops=bflops, bytes=bbytes)
+    del x, w, s, t, dy, y, x_nchw, ws_cl, leaves, out, dy_lib, wanted
+    torch.cuda.empty_cache()
+    return {"layer": name, "shape": [B, H, W, Cin, C], "need_dx": need_dx, "fwd": fwd,
+            "bwd": bwd, "ok_fwd": ok_fwd, "ok_bwd": ok_bwd, "max_err": max_err,
+            "fwd_t": fwd_t, "bwd_t": bwd_t}
+
+
+def phase_conv_bf16_kernels(ph: Phases) -> list:
+    """The bf16 K5 and K5b at the six layer shapes (`conv_bf16_case`);
+    returns their two rows for the kernels line (inc.conv1 in front)."""
+    from deepfepe_tpu_torch.ops import conv_bf16 as cb
+
+    cases = {}
+    for i, (name, B, H, W, Cin, C, need_dx) in enumerate(CONV_BF16_SHAPES):
+        case = conv_bf16_case(name, B, H, W, Cin, C, need_dx, seed=60 + i)
+        ph.emit("kernels", kernel="conv3x3_affine_relu_bf16", **case,
+                bars={"ulp": XCONV_ULP, "half_ulp": XCONV_HALF_ULP, "floor": XCONV_FLOOR,
+                      "grad_rel": CONV_BF16_REL},
+                block=cb.fwd_layout(Cin, C) if Cin > 1 else "cin1 FFMA")
+        check(case["ok_fwd"], f"bf16 K5 at {name}: outside its bars: {case['fwd']}")
+        check(case["ok_bwd"], f"bf16 K5b at {name}: outside its bars: {case['bwd']}")
+        cases[name] = case
+    lead = cases["inc.conv1"]
+    rows = []
+    for kind, key, replaces, lib in (
+            ("conv3x3_affine_relu_bf16", "fwd_t", "deepfepe_tpu/ops/pallas/conv_pallas.py:111",
+             "torch.cudnn_convolution_relu, bf16, channels-last, s folded into w"),
+            ("conv3x3_affine_relu_bwd_bf16", "bwd_t", "deepfepe_tpu/ops/pallas/conv_pallas.py:175",
+             "autograd of cuDNN's bf16 F.conv2d + affine + ReLU")):
+        err = "fwd" if key == "fwd_t" else "bwd"
+        rows.append({"name": kind, "route": "cuda",
+                     "source": "deepfepe_tpu_torch/csrc/conv3x3_bf16.cu", "replaces": replaces,
+                     "launches": None,
+                     "max_abs_err": max(c["max_err"][err] for c in cases.values()),
+                     **{k: lead[key][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "library_ms")},
+                     "library": lib, "shape": "inc.conv1: x [8, 376, 1240, 64] -> 64, bf16",
+                     "per_layer": {n: {k: c[key][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                             "bound_by", "library_ms")}
+                                   for n, c in cases.items()}})
+    return rows
+
+
+def joint_bf16_cfg(stage: str, remat: str, pretrained_sp: str, steps: int, **data):
+    from deepfepe_tpu_torch.train.config import config_from_dict
+
+    sp = {**JOINT["training"]["SP_params"], "remat": remat}
+    raw = {**JOINT, "data": {**JOINT["data"], **data},
+           "model": {**JOINT["model"], "mlp_dtype": "bfloat16"},
+           "training": {**JOINT["training"], "train_SP": stage == "stage2",
+                        "pretrained_SP": pretrained_sp, "train_iter": steps, "SP_params": sp}}
+    return config_from_dict(raw)
+
+
+def joint_bf16_expected(stage: str, remat: str, steps: int, counts: dict) -> dict:
+    per = dict(JOINT_BF16_PER_STEP[stage])
+    if stage == "stage1" and remat != "none":
+        for k, v in JOINT_BF16_BLOCK_EXTRA.items():
+            per[k] = per.get(k, 0) + v
+    return {k: steps * per.get(k, 0) for k in counts}
+
+
+def phase_joint_bf16(ph: Phases) -> dict:
+    """The port's train_good with model.if_SP and model.mlp_dtype bfloat16
+    (the bf16 SuperPoint) at the production point, for each of
+    JOINT_BF16_RUNS, from val_feature (b)'s gauss2 `.pth.tar`; launches read
+    around each run alone. Returns the sums."""
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch import cli
+
+    pretrained = vf_pretrained("b")
+    before = torch.load(pretrained, weights_only=True)["model_state_dict"]
+    total = dict.fromkeys(kernel_counters(), 0)
+    for run, stage, remat, steps in JOINT_BF16_RUNS:
+        exp = f"smoke_joint_bf16_{run}"
+        shutil.rmtree(os.path.join(REPO, "logs", exp), ignore_errors=True)
+        reset_counts()
+        with conv_switch("pallas"):
+            last = cli.train_good(joint_bf16_cfg(stage, remat, pretrained, steps), exp,
+                                  device="cuda")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expected = joint_bf16_expected(stage, remat, steps, counts)
+        after = torch.load(os.path.join("logs", exp, "checkpoints",
+                                        f"superPointNet_{steps}_checkpoint.pth.tar"),
+                           weights_only=True)["model_state_dict"]
+        moved = {k for k, v in after.items() if not torch.equal(v, before[k])}
+        buffers = {k for k in after if "running_" in k}
+        f32 = all(v.dtype == torch.float32 for v in after.values() if v.is_floating_point())
+        ph.emit("joint_bf16", run=run, stage=stage, remat=remat, steps=steps, last=last,
+                launches=counts, expected_launches=expected, sp_tensors_moved=len(moved),
+                bn_buffers_moved=len(moved & buffers), bn_buffers=len(buffers),
+                checkpoint_float32=f32, ms_per_step_fit=last["wall_s"] * 1e3 / steps,
+                timed="host clock over the CLI's loop (ending in a synchronize)")
+        check(counts == expected, f"joint_bf16 {run}: launches {counts}, expected {expected}")
+        check(last["n_iter"] == steps, f"joint_bf16 {run}: ended at {last['n_iter']}")
+        check(all(np.isfinite(v) for v in last.values()), f"joint_bf16 {run}: non-finite {last}")
+        check(last["skipped_update"] == 0.0, f"joint_bf16 {run}: the last update was skipped")
+        check(f32, f"joint_bf16 {run}: the SuperPoint checkpoint is not float32")
+        if stage == "stage1":
+            check(not moved, f"joint_bf16 {run}: the frozen SuperPoint moved: {sorted(moved)[:5]}")
+        else:
+            check(buffers <= moved, f"joint_bf16 {run}: not every BN buffer moved")
+        for k, v in counts.items():
+            total[k] += v
+    return total
+
+
+def hold_conv_call(c: dict) -> dict:
+    """One recorded bf16 K5/K5b call of a step against the plain versions on
+    its own inputs and cotangent, at the kernels phase's bars."""
+    import torch
+
+    from deepfepe_tpu_torch.ops import conv_bf16 as cb
+
+    x, w, s, t = c["x"], c["w"], c["scale"], c["bias"]
+    with torch.no_grad():
+        y = cb.conv3x3_affine_relu_bf16_ref(x, w, s, t)
+        grads = cb.conv3x3_affine_relu_bwd_bf16_ref(x, w, s, t, c["y"], c["dy"], c["need_dx"])
+    r = {"shape": list(x.shape[:3]) + [x.shape[3], w.shape[-1]],
+         "y": over_ulp(c["y"], y, XCONV_ULP, XCONV_FLOOR)}
+    for n, p in zip(("dx", "dw", "dscale", "dbias"), grads):
+        floor = CONV_BF16_REL * p.float().abs().max().item() + 1e-30
+        r[n] = (over_ulp(c[n], p, XCONV_ULP, floor) if n in ("dx", "dw")
+                else (c[n] - p).abs().max().item() / floor)
+    return r
+
+
+def phase_joint_bf16_step(ph: Phases) -> None:
+    """Bare stage-1 bf16 joint steps (batches on the card up front) with
+    remat 'none' and 'block': ms a step and peak device memory; one
+    profiled 'none' step (busy share, K5 and K5b device ms) whose every K5
+    and K5b call is held against the plain versions; then the SuperPoint
+    gradients of the step's own frames and cotangents, under 'none' and
+    'block', bit for bit. After the counted runs, before the checks."""
+    import statistics
+
+    import torch
+
+    from deepfepe_tpu_torch.frontend import frontend_params_from_config, pipeline
+    from deepfepe_tpu_torch.frontend.sp_fused import superpoint_forward_fused
+    from deepfepe_tpu_torch.loader import model_loader
+    from deepfepe_tpu_torch.ops import conv as conv_mod
+    from deepfepe_tpu_torch.train.joint import joint_train_step, make_joint_state
+    from deepfepe_tpu_torch.utils.weights import load_superpoint
+
+    dev = torch.device("cuda")
+    pretrained = vf_pretrained("b")
+    steps = JOINT_BF16_STEPS
+    batches = None
+    readings = {}
+    captured = {}
+    for remat in ("none", "block"):
+        cfg = joint_bf16_cfg("stage1", remat, pretrained, steps)
+        if batches is None:
+            batches = joint_batches(cfg, steps + 1, dev)
+        fp = frontend_params_from_config(cfg)
+        sp = load_superpoint(pretrained, dev, dtype=torch.bfloat16)
+        state = make_joint_state(model_loader(cfg, dev, torch.Generator().manual_seed(0),
+                                              train=True), sp, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        ms = []
+        with conv_switch("pallas"):
+            for b in batches[:steps]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = joint_train_step(state, b, fp, cfg, 0.1, 0.5, train_sp=False)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                check(bool(torch.isfinite(m["loss"])) and float(m["skipped_update"]) == 0.0,
+                      f"joint_bf16_step {remat}: loss {float(m['loss'])}, skipped "
+                      f"{float(m['skipped_update'])}")
+        peak = torch.cuda.max_memory_allocated(dev)
+        readings[remat] = {"step_ms": ms, "median_step_ms_after_first": statistics.median(ms[1:]),
+                           "peak_mb": peak / 2 ** 20, "peak_above_start_mb": (peak - base) / 2 ** 20}
+        if remat == "none":
+            real = pipeline.superpoint_forward_fused
+
+            def capture(net, x, conv_impl=None, remat="none"):
+                out = real(net, x, conv_impl, remat)
+                for k in ("semi", "desc"):
+                    out[k].retain_grad()
+                captured.update(x=x, out=out)
+                return out
+
+            trace = os.path.join("logs", "smoke_joint_bf16_profile", "trace.json")
+            os.makedirs(os.path.dirname(trace), exist_ok=True)
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            pipeline.superpoint_forward_fused = capture
+            try:
+                with conv_switch("pallas"), conv_mod.record_calls() as calls, \
+                        torch.profiler.profile(activities=acts) as prof:
+                    joint_train_step(state, batches[steps], fp, cfg, 0.1, 0.5, train_sp=False)
+                    torch.cuda.synchronize()
+            finally:
+                pipeline.superpoint_forward_fused = real
+            prof.export_chrome_trace(trace)
+            tr = read_trace(trace)
+            held = [hold_conv_call(c) for c in calls]
+            worst = {k: max(h[k] for h in held) for k in ("y", "dx", "dw", "dscale", "dbias")}
+            readings[remat].update(
+                profiled_step=tr, k5_device_ms=device_ms(trace, K5_BF16_KERNELS),
+                k5b_device_ms=device_ms(trace, K5B_BF16_KERNELS), calls=len(calls),
+                calls_over_bar_worst=worst)
+            check(len(calls) == 6 and all("dy" in c for c in calls),
+                  f"joint_bf16_step: {len(calls)} recorded K5 calls, expected 6 with a backward")
+            check(all(v <= 1.0 for v in worst.values()),
+                  f"joint_bf16_step: a K5/K5b call is outside its bars: {worst}")
+            cot = {k: captured["out"][k].grad.detach().clone() for k in ("semi", "desc")}
+            frames = captured["x"].detach()
+        del state
+        torch.cuda.empty_cache()
+
+    # The SuperPoint gradients of the profiled step's frames and cotangents,
+    # without and with remat: K5b's fixed-order sums, and cuDNN held to its
+    # deterministic algorithms for the plain layers.
+    sp = load_superpoint(pretrained, dev, dtype=torch.bfloat16)
+    params = [p for p in sp.parameters()]
+    grads = {}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with conv_switch("pallas"):
+            for remat in ("none", "block", "none_again"):
+                out = superpoint_forward_fused(sp, frames, "pallas", remat.split("_")[0])
+                grads[remat] = torch.autograd.grad([out["semi"], out["desc"]], params,
+                                                   [cot["semi"], cot["desc"]],
+                                                   allow_unused=True)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    same = lambda a, b: all((x is None and y is None) or torch.equal(x, y)  # noqa: E731
+                            for x, y in zip(a, b))
+    rep, blk = same(grads["none"], grads["none_again"]), same(grads["none"], grads["block"])
+    ph.emit("joint_bf16_step", readings=readings, remat_grads_bit_equal=blk,
+            repeat_grads_bit_equal=rep,
+            peak_mb_block_over_none=readings["block"]["peak_above_start_mb"]
+            / readings["none"]["peak_above_start_mb"],
+            timed="host clock between synchronizes, batches on the card up front; peak "
+                  "memory by torch.cuda.max_memory_allocated over the bare steps")
+    check(rep, "joint_bf16_step: two 'none' SuperPoint backwards differ")
+    check(blk, "joint_bf16_step: 'block' SuperPoint gradients differ from 'none'")
+
+
+# ---------------------------------------------------------------------------
 # The dump-tree slice: the correspondence loader, eval's five-point baseline
 # and npz dumps, the SuperPoint dump writer.
 # ---------------------------------------------------------------------------
@@ -3397,6 +3890,47 @@ def phase_kitti_sp_dump(ph: Phases) -> dict:
             total[k] += v
         ph.emit("kitti_sp_dump", loader_ms_per_batch_with_frames=loader_ms(
             cli.data_loader(cfg, "test"), cfg.data.batch_size))
+
+        # bf16 joint training over the tree, stage 1 with the conv switch on
+        # K5: one batch drawn first, then the epochs, as the JAX CLI walks
+        # them; one step past the first full pass.
+        jcfg = joint_bf16_cfg("stage1", "none", vf_pretrained("b"), 1,
+                              **{**KITTI_EVAL["data"], "dump_root": os.path.join(root, "tree"),
+                                 "batch_size": SP_TREE_JOINT_BS, "image": {"size": [H, W, 1]},
+                                 "preprocessing": {"resize": [H, W]}})
+        per_pass = len(cli.data_loader(jcfg, "train")) // SP_TREE_JOINT_BS
+        steps = jcfg.training.train_iter = per_pass + 1
+        seen = []
+        real_step = cli.joint_train_step
+
+        def step(state, batch, *a, **k):
+            seen.append(batch["frame_ids"].cpu().numpy().tolist())
+            return real_step(state, batch, *a, **k)
+
+        exp = "smoke_sp_joint_bf16"
+        shutil.rmtree(os.path.join(REPO, "logs", exp), ignore_errors=True)
+        reset_counts()
+        cli.joint_train_step = step
+        try:
+            with conv_switch("pallas"):
+                t0 = time.perf_counter()
+                last = cli.train_good(jcfg, exp, device="cuda")
+                torch.cuda.synchronize()
+                joint_s = time.perf_counter() - t0
+        finally:
+            cli.joint_train_step = real_step
+        counts = read_counts()
+        expected = joint_bf16_expected("stage1", "none", steps, counts)
+        ph.emit("kitti_sp_dump", run="train_good if_SP bf16", steps=steps,
+                batches_a_pass=per_pass, last=last, launches=counts,
+                expected_launches=expected, ms_per_step_fit=joint_s * 1e3 / steps,
+                first_batches=seen[:2], wrapped_batch=seen[-1])
+        check(counts == expected, f"SP tree joint: launches {counts}, expected {expected}")
+        check(len(seen) == steps and per_pass >= 1, f"SP tree joint: {len(seen)} steps")
+        check(all(np.isfinite(v) for v in last.values()), f"SP tree joint: non-finite {last}")
+        check(last["skipped_update"] == 0.0, "SP tree joint: the last update was skipped")
+        for k, v in counts.items():
+            total[k] += v
     return total
 
 
@@ -3470,6 +4004,7 @@ def run_planted(ph: Phases, fault: str) -> int:
                  "conv_formulations": xconv_checks,
                  "conv": (("kernels_k5", lambda: phase_conv_kernel(ph)),
                           ("kernels_k5b", lambda: phase_conv_bwd_kernel(ph))),
+                 "conv_bf16": (("kernels_k5_bf16", lambda: phase_conv_bf16_kernels(ph)),),
                  "matcher": (("kernels_k4", lambda: phase_matcher_kernel(ph)),),
                  "eigh9": (("kernels_eigh9", lambda: phase_kernels(ph)),)}
     chosen = (sum(by_module.values(), ()) if fault == "none" else
@@ -3525,6 +4060,7 @@ def main(argv=None) -> int:
         bwd_row = phase_conv_bwd_kernel(ph)
         epi_rows = phase_epi_kernel(ph)
         xconv_rows = phase_xconv_kernels(ph)
+        bf16_rows = phase_conv_bf16_kernels(ph)
         cfg = config_from_dict(BASELINE)
         eval_counts = phase_eval_good(ph, cfg)
         phase_breakdown(ph, cfg)
@@ -3536,6 +4072,8 @@ def main(argv=None) -> int:
         phase_frontend_breakdown(ph)
         joint_counts = phase_joint_train(ph)
         phase_joint_step_times(ph)
+        joint_bf16_counts = phase_joint_bf16(ph)
+        phase_joint_bf16_step(ph)
         kitti_counts = phase_kitti_corr(ph)
         sp_dump_counts = phase_kitti_sp_dump(ph)
         phase_check(ph, cfg)
@@ -3546,14 +4084,16 @@ def main(argv=None) -> int:
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
-    rows = [row, *mlp_rows, *front_rows, bwd_row, *epi_rows, *xconv_rows]
+    rows = [row, *mlp_rows, *front_rows, bwd_row, *epi_rows, *xconv_rows, *bf16_rows]
     # Each kernel's launches on the path that carries it: train_good for
     # eigh9 and the MLP pair, val_feature (a) + (b) for K5 and K4,
     # joint_train (stages 1 + 2) for K5b, the sample-loss train_good for K3,
-    # the conv-formulation tool for X1-X4.
+    # the conv-formulation tool for X1-X4, joint_bf16 (its three runs) for
+    # the bf16 K5 and K5b.
     for r in rows:
         path, counts = (("val_feature", vf_counts) if r in front_rows
                         else ("joint_train", joint_counts) if r is bwd_row
+                        else ("joint_bf16", joint_bf16_counts) if r in bf16_rows
                         else ("sample_train", sample_counts) if r in epi_rows
                         else ("conv_formulations", xconv_counts) if r in xconv_rows
                         else ("train_good", train_counts))
@@ -3566,6 +4106,7 @@ def main(argv=None) -> int:
         r["launches_conv_formulations"] = xconv_counts[r["name"]]
         r["launches_kitti_corr"] = kitti_counts[r["name"]]
         r["launches_kitti_sp_dump"] = sp_dump_counts[r["name"]]
+        r["launches_joint_bf16"] = joint_bf16_counts[r["name"]]
         if r["launches"] <= 0:
             print(f"chip_smoke: FAILED: {r['name']} never launched on {path}",
                   file=sys.stderr, flush=True)

@@ -214,18 +214,18 @@ def train_joint(cfg: Config, exper_name: str, train_iter: int | None = None,
     `pretrained_SP` unless `retrain_SP`; the solver seeded, or read from
     `pretrained` (else the config's unless `retrain`); both Adams at
     `learning_rate`; `train` and `train_SP` gate the two updates;
-    training.SP_params sets the frontend. Checkpoints every
-    `save_interval` steps and at the end, under both reference names.
-    Returns the last step's scalar metrics with `wall_s` and `n_iter`.
-    `profile_dir` traces steps [profile_start, profile_start +
+    training.SP_params sets the frontend (its `remat` included). The
+    frontend computes in bf16 when `model.mlp_dtype` is bfloat16, as the
+    JAX CLI builds it; its parameters, and so its checkpoints, stay
+    float32. The train data is walked epoch after epoch (`epochs`), from a
+    `synthetic_images` stream or a dump tree with frames. Checkpoints
+    every `save_interval` steps and at the end, under both reference
+    names. Returns the last step's scalar metrics with `wall_s` and
+    `n_iter`. `profile_dir` traces steps [profile_start, profile_start +
     profile_steps) as `train_good` does."""
     device = resolve_device(device)
     t = cfg.training
-    if cfg.model.mlp_dtype == "bfloat16":
-        raise NotImplementedError(
-            "the bf16 SuperPoint (the JAX CLI builds the joint frontend in bf16 when "
-            "model.mlp_dtype is bfloat16) and a bf16 K5/K5b are not ported (ROADMAP Queue 1); "
-            "set model.mlp_dtype: float32")
+    sp_dtype = torch.bfloat16 if cfg.model.mlp_dtype == "bfloat16" else torch.float32
     if not t.retrain_SP and t.pretrained_SP \
             and not t.pretrained_SP.endswith((".pth", ".pth.tar")):
         raise NotImplementedError("only reference .pth/.pth.tar SuperPoint checkpoints load; "
@@ -240,13 +240,19 @@ def train_joint(cfg: Config, exper_name: str, train_iter: int | None = None,
     train_ds = data_loader(cfg, "train")
     bs = cfg.data.batch_size
     # The JAX CLI draws one batch to initialize its parameters before it
-    # trains; drawing it here too keeps both CLIs on the same pairs.
-    if "imgs_grey" not in train_ds.batch(bs):
-        raise SystemExit("if_SP training needs image batches: dataset: synthetic_images")
+    # trains (it advances a dump tree's RandomState); drawing it here too
+    # keeps both CLIs on the same pairs.
+    batch0 = next(iter(train_ds.batches(bs)), None)
+    if batch0 is None:
+        raise RuntimeError("train dataset produced no batches")
+    if "imgs_grey" not in batch0:
+        raise SystemExit("if_SP training needs image batches: a dump tree with frames "
+                         "or dataset: synthetic_images")
     if not t.retrain_SP and t.pretrained_SP:
-        sp_net = load_superpoint(t.pretrained_SP, device)
+        sp_net = load_superpoint(t.pretrained_SP, device, dtype=sp_dtype)
     else:
-        sp_net = reset_superpoint(SuperPointNetGauss2(), torch.Generator().manual_seed(t.seed))
+        sp_net = reset_superpoint(SuperPointNetGauss2(dtype=sp_dtype),
+                                  torch.Generator().manual_seed(t.seed))
         sp_net = sp_net.eval().to(device)
     deepf_net = model_loader(cfg, device, torch.Generator().manual_seed(t.seed), train=True)
     pre = pretrained or ("" if t.retrain else t.pretrained)
@@ -268,7 +274,7 @@ def train_joint(cfg: Config, exper_name: str, train_iter: int | None = None,
     prof = None
     t0 = time.perf_counter()
     try:
-        stream = prefetch_batches(train_ds.batches(bs), depth=max(2, min(t.workers_train, 8)))
+        stream = prefetch_batches(epochs(train_ds, bs), depth=max(2, min(t.workers_train, 8)))
         for it, batch in enumerate(stream):
             if it >= t.train_iter:
                 break

@@ -17,10 +17,11 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .matching import gather_matches, mutual_nn_match
 from .process import Keypoints, extract_keypoints
-from .sp_fused import superpoint_forward_fused
+from .sp_fused import REMATS, superpoint_forward_fused
 from .superpoint import SuperPointNet, flatten_detection
 
 SP_PARAMS = ("out_num_points", "patch_size", "nms_dist", "conf_thresh", "nn_thresh",
@@ -37,8 +38,8 @@ class FrontendParams:
     (the JAX name, kept: the nn.Module forward) force a side. `conv_impl`
     picks the fused forward's conv implementation ('xla' or 'pallas';
     None reads DEEPFEPE_SP_CONV_IMPL); it is not an SP_params key. `remat`
-    other than 'none' (rerunning encoder blocks in the backward) is not
-    ported and raises."""
+    ('none', 'block' or 'full') reruns the SuperPoint forward, or each of
+    its encoder blocks, in the backward (`run_superpoint`)."""
 
     def __init__(self, out_num_points: int = 1000, patch_size: int = 5, nms_dist: int = 4,
                  conf_thresh: float = 0.015, nn_thresh: float = 1.0,
@@ -46,10 +47,8 @@ class FrontendParams:
                  conv_impl: str | None = None):
         if conv_backend not in CONV_BACKENDS:
             raise ValueError(f"conv_backend {conv_backend!r} is not one of {CONV_BACKENDS}")
-        if remat != "none":
-            raise NotImplementedError("remat (jax.checkpoint of encoder blocks; "
-                                      "torch.utils.checkpoint here) is not ported "
-                                      "(ROADMAP Queue 1)")
+        if remat not in REMATS:
+            raise ValueError(f"remat {remat!r} is not one of {REMATS}")
         self.out_num_points = out_num_points
         self.patch_size = patch_size
         self.nms_dist = nms_dist
@@ -73,6 +72,18 @@ def _use_fused_convs(fp: FrontendParams, images: torch.Tensor) -> bool:
     return fp.conv_backend == "fused" or (fp.conv_backend == "auto" and images.is_cuda)
 
 
+def _rerun(fn, x):
+    """fn(x, first) with its activations recomputed in the backward: the
+    first call (the forward) gets first=True, the recompute first=False."""
+    calls = []
+
+    def once(v):
+        calls.append(v)
+        return fn(v, len(calls) == 1)
+
+    return checkpoint(once, x, use_reentrant=False, preserve_rng_state=False)
+
+
 def run_superpoint(net, images: torch.Tensor, fp: FrontendParams, bn_train: bool = False,
                    bn_groups: int = 1):
     """images [B, H, W] grey in [0, 1] -> Keypoints with descriptors.
@@ -80,19 +91,36 @@ def run_superpoint(net, images: torch.Tensor, fp: FrontendParams, bn_train: bool
     `bn_train=True` (BatchNorm nets only) runs the module forward with
     BatchNorm on batch statistics, `bn_groups` groups of the batch, which
     updates the running buffers in place. It never takes the fused
-    forward, whose BatchNorm is folded from the running statistics."""
+    forward, whose BatchNorm is folded from the running statistics.
+
+    `fp.remat` 'block' or 'full' reruns the forward in the backward, as the
+    JAX package's `jax.checkpoint` does: the fused forward per encoder
+    block or whole (`superpoint_forward_fused`); the module forward whole
+    ('block' degrades to 'full' there, as in the JAX package). The rerun of
+    a train-mode forward leaves the running buffers alone
+    (`update_stats=False`), so they take one update a step, as the JAX
+    step's functional write-back does."""
     x = images[..., None].contiguous()
+    remat = fp.remat != "none"
     if bn_train:
         if not any(True for _ in net.buffers()):
             raise ValueError("train-mode BatchNorm needs a net with BatchNorm")
-        was_training = net.training
-        net.train()
-        try:
-            outs = net(x, bn_groups=bn_groups)
-        finally:
-            net.train(was_training)
+
+        def train_forward(v, first):
+            # In train mode also when rerun in the backward, after this
+            # function has put the net back.
+            was_training = net.training
+            net.train()
+            try:
+                return net(v, bn_groups=bn_groups, update_stats=first)
+            finally:
+                net.train(was_training)
+
+        outs = _rerun(train_forward, x) if remat else train_forward(x, True)
     elif _use_fused_convs(fp, images):
         outs = superpoint_forward_fused(net, x, fp.conv_impl, fp.remat)
+    elif remat:
+        outs = _rerun(lambda v, first: net(v), x)
     else:
         outs = net(x)
     return extract_keypoints(flatten_detection(outs["semi"]), outs["desc"],

@@ -23,8 +23,20 @@ normalized by its own biased statistics and the running buffers take one
 momentum-0.1 update per group, in group order, with the unbiased variance,
 exactly the reference's two per-frame passes (the JAX package's
 `TorchBatchNorm`). The buffers are updated in place during the forward, as
-`nn.BatchNorm2d` does. Convolutions run in full float32
-(`ops.conv.full_f32`).
+`nn.BatchNorm2d` does, unless `update_stats=False` (a rerun of the same
+forward, `pipeline.run_superpoint`'s remat). Convolutions run in full
+float32 (`ops.conv.full_f32`).
+
+`dtype` is the compute dtype, as the JAX modules' (bf16 on the JAX
+package's production path): parameters and running buffers stay float32,
+and each conv casts its input, weight and bias to `dtype` per call (the
+conv in `dtype`, then the bias added in `dtype`). In eval mode BatchNorm
+runs in `dtype` as `(x - mean) (rsqrt(var + eps) scale) + bias`, every
+term cast to `dtype`; in train mode it takes its batch statistics in
+float32 (E[x^2] - E[x]^2) and normalizes in `dtype`. `semi` and `desc`
+return in float32 and the descriptor is normalized in float32. float32 runs
+in the parameters' own dtype (the tests raise it to float64), through
+`nn.Conv2d` and `F.batch_norm`.
 """
 
 from __future__ import annotations
@@ -39,6 +51,16 @@ from ..geometry.basic import safe_norm
 from ..ops.conv import full_f32
 
 BN_EPS = 1e-5
+
+
+def run_conv(conv: nn.Conv2d, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """`conv` on NCHW x in `dtype`: float32 is the module itself; another
+    dtype casts x, the weight and the bias to it, convolves, then adds the
+    bias (flax's nn.Conv with `dtype`)."""
+    if dtype == torch.float32:
+        return conv(x)
+    y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, padding=conv.padding)
+    return y + conv.bias.to(dtype)[:, None, None]
 
 
 def conv3(cin: int, cout: int) -> nn.Conv2d:
@@ -75,8 +97,9 @@ class SuperPointNet(nn.Module):
     """magicleap's VGG-style SuperPoint (no BatchNorm)."""
 
     def __init__(self, det_h: int = 65, desc_dim: int = 256,
-                 channels=(64, 64, 64, 64, 128, 128, 128, 128)):
+                 channels=(64, 64, 64, 64, 128, 128, 128, 128), dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         c = channels
         self.conv1a, self.conv1b = conv3(1, c[0]), conv3(c[0], c[1])
         self.conv2a, self.conv2b = conv3(c[1], c[2]), conv3(c[2], c[3])
@@ -87,6 +110,7 @@ class SuperPointNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """x [B, H, W, 1] grey in [0, 1] -> {'semi', 'desc'} (NHWC)."""
+        dt = self.dtype
         with full_f32():
             y = x.permute(0, 3, 1, 2)
             for i, (a, b) in enumerate(((self.conv1a, self.conv1b), (self.conv2a, self.conv2b),
@@ -94,25 +118,56 @@ class SuperPointNet(nn.Module):
                                         (self.conv4a, self.conv4b))):
                 if i:
                     y = F.max_pool2d(y, 2)
-                y = F.relu(b(F.relu(a(y))))
-            semi = self.convPb(F.relu(self.convPa(y)))
-            desc = self.convDb(F.relu(self.convDa(y)))
-        return {"semi": semi.permute(0, 2, 3, 1),
-                "desc": normalize_desc(desc.permute(0, 2, 3, 1))}
+                y = F.relu(run_conv(b, F.relu(run_conv(a, y, dt)), dt))
+            semi = run_conv(self.convPb, F.relu(run_conv(self.convPa, y, dt)), dt)
+            desc = run_conv(self.convDb, F.relu(run_conv(self.convDa, y, dt)), dt)
+        return {"semi": _out(semi), "desc": normalize_desc(_out(desc))}
 
 
-def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, groups: int = 1) -> torch.Tensor:
+def _out(y: torch.Tensor) -> torch.Tensor:
+    """A head's NCHW output as NHWC, in float32 where it was computed in a
+    narrower dtype."""
+    y = y.permute(0, 2, 3, 1)
+    return y.float() if y.dtype == torch.bfloat16 else y
+
+
+def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, groups: int = 1, dtype=torch.float32,
+               update_stats: bool = True) -> torch.Tensor:
     """`bn` on NCHW x: on its running statistics in eval mode; in train
     mode on the batch statistics of each of `groups` equal slices of the
-    batch, each slice updating the running buffers in turn."""
+    batch, each slice updating the running buffers in turn (none with
+    `update_stats` False). Computes in `dtype` (module docstring)."""
     if not bn.training:
-        return bn(x)
+        if dtype == torch.float32:
+            return bn(x)
+        mul = torch.rsqrt(bn.running_var.to(dtype) + bn.eps) * bn.weight.to(dtype)
+        return ((x.to(dtype) - bn.running_mean.to(dtype)[:, None, None]) * mul[:, None, None]
+                + bn.bias.to(dtype)[:, None, None])
     if x.shape[0] % groups:
         raise ValueError(f"a batch of {x.shape[0]} does not split into {groups} groups")
-    outs = [F.batch_norm(xg, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                         training=True, momentum=bn.momentum, eps=bn.eps)
-            for xg in x.chunk(groups)]
-    bn.num_batches_tracked.add_(groups)
+    if dtype == torch.float32:
+        # A rerun updates throwaway copies: the same operation as the forward's.
+        rm, rv = (bn.running_mean, bn.running_var) if update_stats else \
+            (bn.running_mean.clone(), bn.running_var.clone())
+        outs = [F.batch_norm(xg, rm, rv, bn.weight, bn.bias, training=True,
+                             momentum=bn.momentum, eps=bn.eps) for xg in x.chunk(groups)]
+    else:
+        outs = []
+        for xg in x.chunk(groups):
+            xf = xg.float()
+            mean = xf.mean((0, 2, 3))
+            var = (xf * xf).mean((0, 2, 3)) - mean * mean
+            if update_stats:
+                n = xg.numel() // xg.shape[1]
+                m = bn.momentum
+                with torch.no_grad():
+                    bn.running_mean.copy_((1.0 - m) * bn.running_mean + m * mean)
+                    bn.running_var.copy_((1.0 - m) * bn.running_var + m * (var * (n / max(n - 1, 1))))
+            mul = torch.rsqrt(var.to(dtype) + bn.eps) * bn.weight.to(dtype)
+            outs.append((xg.to(dtype) - mean.to(dtype)[:, None, None]) * mul[:, None, None]
+                        + bn.bias.to(dtype)[:, None, None])
+    if update_stats:
+        bn.num_batches_tracked.add_(groups)
     return torch.cat(outs) if groups > 1 else outs[0]
 
 
@@ -125,10 +180,11 @@ class DoubleConv(nn.Module):
                                   nn.ReLU(inplace=True), conv3(cout, cout),
                                   nn.BatchNorm2d(cout, eps=BN_EPS), nn.ReLU(inplace=True))
 
-    def forward(self, x, bn_groups: int = 1):
+    def forward(self, x, bn_groups: int = 1, dtype=torch.float32, update_stats: bool = True):
         seq = self.conv
-        x = F.relu(batch_norm(seq[1], seq[0](x), bn_groups))
-        return F.relu(batch_norm(seq[4], seq[3](x), bn_groups))
+        kw = dict(groups=bn_groups, dtype=dtype, update_stats=update_stats)
+        x = F.relu(batch_norm(seq[1], run_conv(seq[0], x, dtype), **kw))
+        return F.relu(batch_norm(seq[4], run_conv(seq[3], x, dtype), **kw))
 
 
 class InConv(nn.Module):
@@ -136,8 +192,8 @@ class InConv(nn.Module):
         super().__init__()
         self.conv = DoubleConv(cin, cout)
 
-    def forward(self, x, bn_groups: int = 1):
-        return self.conv(x, bn_groups)
+    def forward(self, x, bn_groups: int = 1, dtype=torch.float32, update_stats: bool = True):
+        return self.conv(x, bn_groups, dtype, update_stats)
 
 
 class Down(nn.Module):
@@ -145,16 +201,17 @@ class Down(nn.Module):
         super().__init__()
         self.mpconv = nn.Sequential(nn.MaxPool2d(2), DoubleConv(cin, cout))
 
-    def forward(self, x, bn_groups: int = 1):
-        return self.mpconv[1](self.mpconv[0](x), bn_groups)
+    def forward(self, x, bn_groups: int = 1, dtype=torch.float32, update_stats: bool = True):
+        return self.mpconv[1](self.mpconv[0](x), bn_groups, dtype, update_stats)
 
 
 class SuperPointNetGauss2(nn.Module):
     """pytorch-superpoint's `SuperPointNet_gauss2`, the net the reference
     instantiates (train_good.py:224); built in eval mode."""
 
-    def __init__(self, det_h: int = 65, desc_dim: int = 256):
+    def __init__(self, det_h: int = 65, desc_dim: int = 256, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.inc = InConv(1, 64)
         self.down1 = Down(64, 64)
         self.down2 = Down(64, 128)
@@ -165,20 +222,22 @@ class SuperPointNetGauss2(nn.Module):
         self.convDb, self.bnDb = conv1(256, desc_dim), nn.BatchNorm2d(desc_dim, eps=BN_EPS)
         self.eval()
 
-    def forward(self, x: torch.Tensor, bn_groups: int = 1) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, bn_groups: int = 1,
+                update_stats: bool = True) -> Dict[str, torch.Tensor]:
         """x [B, H, W, 1] grey in [0, 1] -> {'semi', 'desc'} (NHWC);
-        `bn_groups` splits the batch for train-mode BatchNorm."""
-        g = bn_groups
+        `bn_groups` splits the batch for train-mode BatchNorm, which updates
+        the running buffers unless `update_stats` is False."""
+        dt = self.dtype
+        kw = dict(groups=bn_groups, dtype=dt, update_stats=update_stats)
         with full_f32():
             y = x.permute(0, 3, 1, 2)
             for block in (self.inc, self.down1, self.down2, self.down3):
-                y = block(y, g)
-            d = F.relu(batch_norm(self.bnPa, self.convPa(y), g))
-            semi = batch_norm(self.bnPb, self.convPb(d), g)
-            e = F.relu(batch_norm(self.bnDa, self.convDa(y), g))
-            desc = batch_norm(self.bnDb, self.convDb(e), g)
-        return {"semi": semi.permute(0, 2, 3, 1),
-                "desc": normalize_desc(desc.permute(0, 2, 3, 1))}
+                y = block(y, bn_groups, dt, update_stats)
+            d = F.relu(batch_norm(self.bnPa, run_conv(self.convPa, y, dt), **kw))
+            semi = batch_norm(self.bnPb, run_conv(self.convPb, d, dt), **kw)
+            e = F.relu(batch_norm(self.bnDa, run_conv(self.convDa, y, dt), **kw))
+            desc = batch_norm(self.bnDb, run_conv(self.convDb, e, dt), **kw)
+        return {"semi": _out(semi), "desc": normalize_desc(_out(desc))}
 
 
 def flatten_detection(semi: torch.Tensor) -> torch.Tensor:

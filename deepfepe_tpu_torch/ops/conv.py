@@ -25,9 +25,19 @@ A float32 convolution on the card goes through cuDNN in TF32 by default
 (`torch.backends.cudnn.allow_tf32` is True), and on the CPU through oneDNN;
 `full_f32` turns off both, and the plain versions and the SuperPoint
 modules run under it, so every conv of the port is float32 end to end, as
-the kernels are. The joint train step runs forward and backward under
-`exact_convs`: `full_f32` and, on the card, no cuDNN, whose weight
+the kernels are. The joint train step of a float32 SuperPoint runs forward and backward
+under `exact_convs`: `full_f32` and, on the card, no cuDNN, whose weight
 gradient takes Winograd for some layers.
+
+bf16 activations take the bf16 kernels instead (`ops/conv_bf16.py`,
+`csrc/conv3x3_bf16.cu`): `conv3x3_affine_relu` dispatches on x's dtype,
+casting w to it as the JAX package's callers do. Their launches are
+counted apart, on `conv_bf16.conv3x3_affine_relu_bf16` and
+`conv_bf16.conv3x3_affine_relu_bwd_bf16`.
+
+`record_calls` keeps each call's inputs and outputs (and, once the
+backward has run, its cotangent and gradients), so a check can hold the
+kernel calls of a whole step against the plain versions.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ MAX_GRID_Z = 65535
 SAFE_EPS = 1e-8  # |scale| below this divides as 1 (the TPU kernel's `_safe`)
 
 _lib = None
+_recorded = None  # the list `record_calls` fills, or None
 
 
 @contextlib.contextmanager
@@ -219,29 +230,66 @@ conv3x3_affine_relu_bwd.launches = 0
 
 
 class FusedConv3x3AffineReLU(torch.autograd.Function):
-    """Forward K5, backward K5b on CUDA tensors; the plain versions on CPU
-    tensors. Inputs: (x, w, scale, bias, need_dx)."""
+    """Forward K5, backward K5b on CUDA tensors (the float32 or the bf16
+    kernels, by x's dtype); the plain versions on CPU tensors. Inputs: (x,
+    w, scale, bias, need_dx)."""
 
     @staticmethod
     def forward(ctx, x, w, scale, bias, need_dx):
-        y = conv3x3_affine_relu_fwd(x, w, scale, bias)
+        from . import conv_bf16
+
+        fwd = conv_bf16.conv3x3_affine_relu_bf16 if x.dtype == torch.bfloat16 \
+            else conv3x3_affine_relu_fwd
+        y = fwd(x, w, scale, bias)
         ctx.save_for_backward(x, w, scale, bias, y)
         ctx.need_dx = need_dx
+        ctx.record = None
+        if _recorded is not None:
+            ctx.record = {"x": x.detach().clone(), "w": w.detach().clone(),
+                          "scale": scale.detach().clone(), "bias": bias.detach().clone(),
+                          "need_dx": need_dx, "y": y.detach().clone()}
+            _recorded.append(ctx.record)
         return y
 
     @staticmethod
     def backward(ctx, dy):
+        from . import conv_bf16
+
         x, w, scale, bias, y = ctx.saved_tensors
-        dx, dw, dscale, dbias = conv3x3_affine_relu_bwd(x, w, scale, bias, y, dy.contiguous(),
-                                                        ctx.need_dx)
-        return dx, dw, dscale, dbias, None
+        bwd = conv_bf16.conv3x3_affine_relu_bwd_bf16 if x.dtype == torch.bfloat16 \
+            else conv3x3_affine_relu_bwd
+        dy = dy.contiguous()
+        grads = bwd(x, w, scale, bias, y, dy, ctx.need_dx)
+        if ctx.record is not None:
+            ctx.record.update(dy=dy.detach().clone(),
+                              **{k: g.detach().clone() for k, g in
+                                 zip(("dx", "dw", "dscale", "dbias"), grads)})
+        return (*grads, None)
 
 
 def conv3x3_affine_relu(x, w, scale, bias, need_dx: bool = True) -> torch.Tensor:
-    """Fused 3x3 SAME conv + affine + ReLU, NHWC float32, differentiable in
-    x (unless `need_dx` is False), w, scale and bias. CPU tensors take the
-    plain versions; CUDA tensors launch K5 and, in the backward, K5b."""
-    return FusedConv3x3AffineReLU.apply(x, w, scale, bias, need_dx)
+    """Fused 3x3 SAME conv + affine + ReLU, NHWC, differentiable in x
+    (unless `need_dx` is False), w, scale and bias; float32 x, or bf16 x
+    (w cast to x's dtype). CPU tensors take the plain versions; CUDA
+    tensors launch K5 and, in the backward, K5b."""
+    return FusedConv3x3AffineReLU.apply(x, w.to(x.dtype), scale, bias, need_dx)
 
 
 conv3x3_affine_relu.launches = 0
+
+
+@contextlib.contextmanager
+def record_calls():
+    """Within the block, keep one dict per `conv3x3_affine_relu` call: its
+    inputs as they were at the call (`x`, `w` in x's dtype, `scale`,
+    `bias`, `need_dx`) and its output `y`; once the backward has run, the
+    cotangent `dy` that reached y and the gradients `dx`, `dw`, `dscale`
+    and `dbias` that the backward returned. A call whose forward is rerun
+    (`remat`) is recorded once a run."""
+    global _recorded
+    calls = []
+    _recorded = calls
+    try:
+        yield calls
+    finally:
+        _recorded = None

@@ -24,8 +24,17 @@ statistics, as the reference puts the frozen net in eval mode.
 The update guard skips both updates, and restores the BatchNorm buffers,
 when the loss or a gradient norm is not finite or when the pair with the
 fewest matches has fewer than `training.min_matches`. The optimizers never
-see the buffers. The step runs under `exact_convs`, so the plain convs'
-backward is float32 without Winograd.
+see the buffers.
+
+Convolutions outside the K5 kernels: a float32 SuperPoint's step runs
+under `exact_convs` (no TF32, no oneDNN, and on the card no cuDNN, whose
+float32 weight gradient takes Winograd), so its plain convs are float32
+without Winograd. A bf16 SuperPoint (`net.dtype`, the JAX package's
+production point) takes the library's bf16 conv for its plain and module
+convs, the counterpart of the JAX package's XLA convs: cuDNN on the card
+(PyTorch's own CUDA conv, which `exact_convs` would fall back to, is an
+im2col and a GEMM a layer), PyTorch's CPU conv on the CPU. Its step runs
+under `full_f32` (TF32 and oneDNN off), which leaves cuDNN on.
 """
 
 from __future__ import annotations
@@ -36,7 +45,7 @@ from typing import Dict
 import torch
 
 from ..frontend import FrontendParams, get_matches_from_sp
-from ..ops.conv import exact_convs
+from ..ops.conv import exact_convs, full_f32
 from .config import Config
 from .engine import compute_losses, make_optimizer
 
@@ -100,7 +109,8 @@ def joint_train_step(state: JointState, batch: Dict[str, torch.Tensor], fp: Fron
     sp_params = [p for p in sp_net.parameters() if p.requires_grad]
     for p in (*deepf_params, *sp_params):
         p.grad = None
-    with exact_convs():
+    convs = exact_convs if getattr(sp_net, "dtype", torch.float32) == torch.float32 else full_f32
+    with convs():
         sp_out = get_matches_from_sp(sp_net, _frames(batch), fp, bn_train=bn_train)
         loss, metrics = compute_losses(deepf_net, build_solver_batch(sp_out, batch), cfg,
                                        q_clamp, t_clamp)

@@ -1,8 +1,11 @@
 """Build the CUDA sources under `csrc/` with nvcc and load them by ctypes.
 
 Each source is compiled on its own into a shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds). The library's
-name carries a hash of the source and the flags; it is written under a
+interface (no PyTorch headers, so a build takes seconds); the headers
+beside the sources (`csrc/*.cuh`) are on the include path, so a copy of a
+source built elsewhere (a planted fault, a timing variant) finds them too.
+The library's name carries a hash of the source, the headers and the
+flags; it is written under a
 temporary name and moved into place with `os.replace`, so concurrent
 builds need no lock file and a cut-off build leaves nothing that blocks
 the next one. Libraries go to `build/torch_kernels/` at the repository
@@ -21,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC)]
 
 
 def find_nvcc() -> str:
@@ -35,8 +38,11 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library for `csrc/<source>` goes, keyed on its content."""
+    """Where the library for `csrc/<source>` goes, keyed on its content and
+    the headers'."""
     h = hashlib.sha256(Path(CSRC, source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}_{h.hexdigest()[:16]}.so"
 

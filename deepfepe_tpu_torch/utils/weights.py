@@ -146,9 +146,10 @@ def save_superpoint(path: str, net: torch.nn.Module, n_iter: int,
                 "loss": float(loss)}, path)
 
 
-def load_superpoint(path: str, device=None) -> torch.nn.Module:
+def load_superpoint(path: str, device=None, dtype=torch.float32) -> torch.nn.Module:
     """A reference SuperPoint checkpoint (`.pth` state dict, or `.pth.tar`
-    with `model_state_dict`) -> the matching net, in eval mode:
+    with `model_state_dict`) -> the matching net, in eval mode, computing
+    in `dtype` (its parameters float32, as in the file):
     `SuperPointNetGauss2` when the file has BatchNorm keys, else
     `SuperPointNet`."""
     from ..frontend.superpoint import SuperPointNet, SuperPointNetGauss2
@@ -157,6 +158,6 @@ def load_superpoint(path: str, device=None) -> torch.nn.Module:
     sd = ckpt.get("model_state_dict", ckpt)
     sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
     gauss2 = any(k.endswith("running_mean") for k in sd)
-    net = SuperPointNetGauss2() if gauss2 else SuperPointNet()
+    net = SuperPointNetGauss2(dtype=dtype) if gauss2 else SuperPointNet(dtype=dtype)
     net.load_state_dict(sd, strict=True)
     return net.eval().to(device)

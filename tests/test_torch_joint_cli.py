@@ -18,8 +18,9 @@ guard against the JAX step, and the `train_good` entry point with
 - `train_good` with `model.if_SP` on a tiny synthetic_images YAML, on the
   CPU: metrics.jsonl, both reference checkpoints (the SuperPoint one with
   its BatchNorm buffers, readable by the JAX package's importer), a
-  `pretrained_SP` restore, and NotImplementedError for the bf16 SuperPoint
-  and a flax SuperPoint file.
+  `pretrained_SP` restore, and NotImplementedError for a flax SuperPoint
+  file (the bf16 SuperPoint and `remat` run since they were ported:
+  tests/test_torch_joint_bf16.py).
 """
 
 import importlib
@@ -144,17 +145,7 @@ def test_pretrained_sp_restores_the_frontend(tmp_path, monkeypatch):
 
 def test_what_the_joint_path_does_not_port_raises(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    path = _joint_yaml(tmp_path)
-    cfg = yaml.safe_load(open(path))
-    cfg["model"]["mlp_dtype"] = "bfloat16"
-    bf16 = tmp_path / "bf16.yaml"
-    bf16.write_text(yaml.safe_dump(cfg))
-    with pytest.raises(NotImplementedError, match="bf16 SuperPoint"):
-        cli.main(["train_good", str(bf16), "x", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="msgpack"):
         cli.main(["train_good", _joint_yaml(tmp_path, retrain_SP=False,
                                             pretrained_SP="sp.msgpack"), "x", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="remat"):
-        cli.main(["train_good", _joint_yaml(tmp_path, SP_params={"remat": "block"}), "x",
-                  "--device", "cpu"])
     assert not (tmp_path / "logs").exists()
