@@ -140,7 +140,21 @@ and for the bf16 joint slice:
            device memory), one profiled step (busy share, K5 and K5b device
            ms) whose every bf16 K5/K5b call is held against the plain
            versions, and the SuperPoint gradients of that step's frames and
-           cotangents under block equal to none's bit for bit.
+           cotangents under block equal to none's bit for bit;
+and for the VO slice:
+  eval_vo  the port's `eval_vo` with the repo's trained flagship solver
+           (experiments/flagship/ckpt_qt_best.msgpack through the port's
+           msgpack reader; its vo_net config: B = 8, N = 1000, depth 5,
+           bf16 MLP) on the 60-frame synthetic sequence (seed 123, 59
+           pairs), the net then the RANSAC baseline: trans %, rot, ATE, RPE,
+           median err_q/err_t, pairs/s, exact launches (eigh9 5 a batch, 7
+           with the baseline; K3 5), the net's median err_t under 5 deg, the
+           baseline's median err_q under 0.5 deg, and the net's first batch's
+           rotations against the port's CPU replay;
+  infer    the serving entry on two 376x1240 PNG frames with the gauss2
+           SuperPoint of val_feature (b) and the flagship solver, K = 1000,
+           the conv switch on K5: the pose JSON, R a rotation, exact launches
+           (K5 6, K4 1, eigh9 5, K3 4) and the call's ms.
 
 The line before the card's name line is the kernels' JSON summary (eigh9,
 K2, K2b, K5, K4, K5b, K3 and its backward, X1-X4, the bf16 K5 and K5b, each
@@ -168,6 +182,16 @@ centre tap, or its weight gradient summing dscale and dbias from a float32
 dz) and runs only that kernel's checks, printing their readings; it exits 1 when a check
 caught the fault. `--plant none` runs every set and gives the sound
 readings the bars are set against.
+
+    python3 chip_smoke.py --window '["NAME", ARG, ...]'
+
+runs one profiled window of WINDOWS (eigh9's or K2/K2b's device
+operations, K3 at a caller, a joint step, a KITTI eval batch) and prints
+its JSON result. The smoke takes a window again this way, in a fresh
+process, when its trace in the smoke's process held no device event
+(`fresh_window`), and records `fresh_process` beside the readings;
+`--fresh-windows` takes every such window again so, to exercise each
+retake.
 """
 
 from __future__ import annotations
@@ -462,6 +486,127 @@ def device_ops(fn, tries: int = 3) -> tuple:
     return ops, n
 
 
+# `--fresh-windows`: take every window of WINDOWS again in a fresh process,
+# whatever its trace here held, so that each retake is exercised.
+FRESH_WINDOWS = False
+
+
+def lost(empty: bool) -> bool:
+    """Whether a window is taken again in a fresh process: its trace here
+    held no device event, or `--fresh-windows` asks for every retake."""
+    return empty or FRESH_WINDOWS
+
+
+def fresh_window(name: str, *args):
+    """WINDOWS[name](*args) in a new process (`chip_smoke.py --window`), for
+    a profiled window whose trace in this process held no device event at
+    all. After one earlier profiler session, every later trace of a process
+    can lose the card's events, retraces included (ROADMAP.md, Queue 3's
+    open profiler defect), while a process's first session has always held
+    them. Returns the window's JSON result."""
+    cmd = [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--window",
+           json.dumps([name, *args])]
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True)
+    check(proc.returncode == 0, f"the {name} window {args} in a fresh process failed: "
+          f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def window_eigh9(B: int, rows: int) -> dict:
+    """The device operations of one eigh9 call at B (`device_ops`)."""
+    import torch
+
+    from deepfepe_tpu_torch.ops.eigh9 import eigh9
+
+    A = gram_batch(B, rows, torch.Generator().manual_seed(B))
+    ops, traces = device_ops(lambda: eigh9(A))
+    return {"ops": ops, "traces": traces}
+
+
+def window_mlp(key: str, c_in: int, B: int) -> dict:
+    """One K2 or K2b call profiled (`tools/profile_mlp.device_profile`)."""
+    from deepfepe_tpu_torch.ops import mlp
+    from deepfepe_tpu_torch.tools.profile_mlp import device_profile
+
+    _, (Ws, gammas, betas, Wf, bf), x, g = mlp_inputs(c_in, B, 1000)
+    if key == "K2":
+        return device_profile(lambda: mlp.mlp_forward(x, Ws, gammas, betas, Wf, bf))
+    return device_profile(lambda: mlp.mlp_backward(x, g, Ws, gammas, betas, Wf))
+
+
+def window_epi(case: str, direction: str, iters: int) -> dict:
+    """K3 at one caller's pattern, as `tools/profile_epi.py` reads it."""
+    from deepfepe_tpu_torch.tools import profile_epi
+
+    spec = next(c for c in profile_epi.CASES if c[0] == case)
+    return profile_epi.timing(profile_epi.case_fns(*spec)[direction], iters)
+
+
+def window_joint_step(stage: str, steps: int) -> dict:
+    """`steps` joint steps of the stage timed, then one under the profiler
+    (`phase_joint_step_times`)."""
+    import statistics
+
+    import torch
+
+    from deepfepe_tpu_torch.frontend import frontend_params_from_config
+    from deepfepe_tpu_torch.loader import model_loader
+    from deepfepe_tpu_torch.train.joint import joint_train_step, make_joint_state
+    from deepfepe_tpu_torch.utils.weights import load_superpoint
+
+    dev = torch.device("cuda")
+    pretrained = vf_pretrained("b")
+    cfg = joint_cfg(stage, pretrained)
+    t = cfg.training
+    state = make_joint_state(model_loader(cfg, dev, torch.Generator().manual_seed(0),
+                                          train=True), load_superpoint(pretrained, dev), cfg)
+    fp = frontend_params_from_config(cfg)
+    batches = joint_batches(cfg, steps + 1, dev)
+    ms = []
+    with conv_switch("pallas"):
+        for b in batches[:steps]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            joint_train_step(state, b, fp, cfg, 0.1, 0.5, train_sp=t.train_SP)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        trace = os.path.join("logs", f"smoke_joint_{stage}_profile", "trace.json")
+        os.makedirs(os.path.dirname(trace), exist_ok=True)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            joint_train_step(state, batches[steps], fp, cfg, 0.1, 0.5, train_sp=t.train_SP)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(trace)
+    med = statistics.median(ms[1:])
+    del state, batches
+    torch.cuda.empty_cache()
+    return {"step_ms": ms, "median_step_ms_after_first": med,
+            "pairs_per_s": cfg.data.batch_size * 1e3 / med, "profiled_step": read_trace(trace),
+            "k5b_device_ms": device_ms(trace, K5B_KERNELS),
+            "k5_device_ms": device_ms(trace, K5_KERNELS)}
+
+
+def window_kitti_eval(root: str, ckpt: str, five: bool, path: str) -> dict:
+    """One profiled eval batch of the correspondence dump at `root` with the
+    checkpoint `ckpt` (`phase_kitti_corr`, `eval_batch_trace`)."""
+    import torch
+
+    from deepfepe_tpu_torch.loader import data_loader, model_loader
+    from deepfepe_tpu_torch.train import load_checkpoint
+    from deepfepe_tpu_torch.train.config import config_from_dict
+
+    ecfg = config_from_dict({**KITTI_EVAL, "data": {**KITTI_EVAL["data"], "dump_root": root}})
+    batch = next(data_loader(ecfg, "test").batches(ecfg.data.batch_size, shuffle=False))
+    net = model_loader(ecfg, torch.device("cuda"), torch.Generator().manual_seed(0))
+    load_checkpoint(ckpt, net)
+    ecfg.exps.five_point = five
+    return eval_batch_trace(ecfg, net, batch, path)
+
+
+WINDOWS = {"eigh9": window_eigh9, "mlp": window_mlp, "epi": window_epi,
+           "joint_step": window_joint_step, "kitti_eval": window_kitti_eval}
+
+
 def phase_kernels(ph: Phases) -> dict:
     """eigh9: both kernels against the plain version and float64 at the
     path's batches, against each other, on a NaN matrix, as one device
@@ -530,10 +675,15 @@ def phase_kernels(ph: Phases) -> dict:
               f"{nan_rows[kernel]}")
     ph.emit("kernels", kernel="eigh9", nan_matrix=nan_rows)
 
-    ops, traces = {}, {}
-    for B, A_B in ((8, A), (4096, gram_batch(4096, 8, gen))):
+    ops, traces, fresh = {}, {}, []
+    for B, rows, A_B in ((8, 1000, A), (4096, 8, gram_batch(4096, 8, gen))):
         ops[B], traces[B] = device_ops(lambda: eigh9_mod.eigh9(A_B))
-    ph.emit("kernels", kernel="eigh9", device_ops_a_call=ops, traces_taken=traces)
+        if lost(not ops[B]):
+            r = fresh_window("eigh9", B, rows)
+            ops[B], traces[B] = r["ops"], [traces[B], r["traces"]]
+            fresh.append(B)
+    ph.emit("kernels", kernel="eigh9", device_ops_a_call=ops, traces_taken=traces,
+            fresh_process=fresh)
     check(all(len(v) == 1 and "eigh9_" in v[0] for v in ops.values()),
           f"an eigh9 call is not one kernel launch: {ops}")
 
@@ -922,11 +1072,14 @@ def phase_mlp_kernels(ph: Phases) -> list:
                 "unfused_fwd_bwd_ms": cuda_time_ms(unfused_fwd_bwd, 20),
             }
             prof = {"K2": device_profile(fwd), "K2b": device_profile(bwd)}
+            fresh = [key for key, p in prof.items() if lost(p["device_ops"] == 0)]
+            for key in fresh:
+                prof[key] = fresh_window("mlp", key, c_in, B)
             fb, fb_by = mlp_bound_ms(c_in, B * N, backward=False)
             bb, bb_by = mlp_bound_ms(c_in, B * N, backward=True)
             ph.emit("kernels", kernel="mlp", c_in=c_in, B=B, timing=t, K2_bound_ms=fb,
                     K2_bound_by=fb_by, K2b_bound_ms=bb, K2b_bound_by=bb_by,
-                    K2_device=prof["K2"], K2b_device=prof["K2b"])
+                    K2_device=prof["K2"], K2b_device=prof["K2b"], fresh_process=fresh)
             for name, key in (("mlp_forward", "K2"), ("mlp_backward", "K2b")):
                 # A trace may miss the window's first kernel, never add one.
                 want = mlp_device_ops(name)
@@ -2109,53 +2262,22 @@ def device_ms(trace_path: str, names) -> float:
 def phase_joint_step_times(ph: Phases, steps: int = 4) -> None:
     """Host-clock time of single joint steps of each stage between
     synchronizes, batches made up front, then one step under torch.profiler
-    (the device's busy share, top kernels, K5 and K5b device time). After
-    the counted runs, so it changes no count."""
-    import statistics
-
-    import torch
-
-    from deepfepe_tpu_torch.frontend import frontend_params_from_config
-    from deepfepe_tpu_torch.loader import model_loader
-    from deepfepe_tpu_torch.train.joint import joint_train_step, make_joint_state
-    from deepfepe_tpu_torch.utils.weights import load_superpoint
-
-    dev = torch.device("cuda")
-    pretrained = vf_pretrained("b")
+    (the device's busy share, top kernels, K5 and K5b device time); a
+    stage whose trace lost every device event is taken again in a fresh
+    process (`fresh_window`). After the counted runs, so it changes no
+    count."""
     for stage in ("stage1", "stage2"):
-        cfg = joint_cfg(stage, pretrained)
-        t = cfg.training
-        state = make_joint_state(model_loader(cfg, dev, torch.Generator().manual_seed(0),
-                                              train=True), load_superpoint(pretrained, dev), cfg)
-        fp = frontend_params_from_config(cfg)
-        batches = joint_batches(cfg, steps + 1, dev)
-        ms = []
-        with conv_switch("pallas"):
-            for b in batches[:steps]:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                joint_train_step(state, b, fp, cfg, 0.1, 0.5, train_sp=t.train_SP)
-                torch.cuda.synchronize()
-                ms.append((time.perf_counter() - t0) * 1e3)
-            trace = os.path.join("logs", f"smoke_joint_{stage}_profile", "trace.json")
-            os.makedirs(os.path.dirname(trace), exist_ok=True)
-            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=acts) as prof:
-                joint_train_step(state, batches[steps], fp, cfg, 0.1, 0.5, train_sp=t.train_SP)
-                torch.cuda.synchronize()
-            prof.export_chrome_trace(trace)
-        med = statistics.median(ms[1:])
-        tr = read_trace(trace)
-        k5b, k5 = device_ms(trace, K5B_KERNELS), device_ms(trace, K5_KERNELS)
+        r = window_joint_step(stage, steps)
+        fresh = lost(r["profiled_step"]["device_events"] == 0)
+        if fresh:
+            r = fresh_window("joint_step", stage, steps)
+        k5b, k5 = r["k5b_device_ms"], r["k5_device_ms"]
         if stage == "stage1":
             check(k5b > 0 and k5 > 0, f"a stage-1 joint step read K5b {k5b} and K5 {k5} device "
                   f"ms: K5B_KERNELS or K5_KERNELS name no kernel of the trace")
-        ph.emit("joint_step", stage=stage, step_ms=ms, median_step_ms_after_first=med,
-                pairs_per_s=cfg.data.batch_size * 1e3 / med, profiled_step=tr,
-                k5b_device_ms=k5b, k5_device_ms=k5, k5b_share_of_window=k5b / tr["window_ms"],
+        ph.emit("joint_step", stage=stage, **r,
+                k5b_share_of_window=k5b / r["profiled_step"]["window_ms"], fresh_process=fresh,
                 timed="host clock between synchronizes, batches on the card up front")
-        del state, batches
-        torch.cuda.empty_cache()
 
 
 def calibrated_gauss2(seed: int, frames):
@@ -2616,6 +2738,9 @@ def epi_callers(ph: Phases) -> dict:
     rows = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
     callers = {}
     for row in rows[1:]:
+        row["fresh_process"] = lost(not row["one_call"])
+        if row["fresh_process"]:
+            row.update(fresh_window("epi", row["case"], row["direction"], 100))
         name, direction = row["case"], row["direction"]
         P = math.prod(row["points"][:-2])
         M, N = math.prod(row["F"][:-2]) // P, row["points"][-2]
@@ -2625,6 +2750,7 @@ def epi_callers(ph: Phases) -> dict:
         ops = row["one_call"]
         callers[f"{name}_{direction}"] = {
             "shape": [P, M, N], "device_ops_a_call": ops, "traces_taken": row["traces"],
+            "fresh_process": row["fresh_process"],
             **{k: row[k] for k in ("kernel_ms", "device_ms", "device_ops", "ms", "host_ms")},
             "bound_ms": bound, "bound_by": by}
         check(len(ops) == 1 and any(k in ops[0] for k in EPI_KERNELS),
@@ -3764,12 +3890,17 @@ def phase_kitti_corr(ph: Phases) -> dict:
         batch = next(ds.batches(ecfg.data.batch_size, shuffle=False))
         net = model_loader(ecfg, torch.device("cuda"), torch.Generator().manual_seed(0))
         load_checkpoint(ckpt, net)
-        traces = {}
+        traces, fresh = {}, []
         for five in (False, True):
             ecfg.exps.five_point = five
-            traces["five_point" if five else "eight_point"] = eval_batch_trace(
-                ecfg, net, batch, os.path.join("logs", "smoke_kitti_trace", f"eval_{five}.json"))
-        ph.emit("kitti_corr", loader_ms_per_batch=host_ms, eval_batch_traces=traces)
+            name = "five_point" if five else "eight_point"
+            path = os.path.join("logs", "smoke_kitti_trace", f"eval_{five}.json")
+            traces[name] = eval_batch_trace(ecfg, net, batch, path)
+            if lost(traces[name]["device_events"] == 0):
+                traces[name] = fresh_window("kitti_eval", root, ckpt, five, path)
+                fresh.append(name)
+        ph.emit("kitti_corr", loader_ms_per_batch=host_ms, eval_batch_traces=traces,
+                fresh_process=fresh)
         for name, tr in traces.items():
             check(tr["device_events"] > 0, f"kitti {name} eval batch trace has no device events")
     return total
@@ -3934,6 +4065,261 @@ def phase_kitti_sp_dump(ph: Phases) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# The VO slice: eval_vo with the repo's trained flagship solver, and the
+# serving entry infer on two PNG frames.
+# ---------------------------------------------------------------------------
+
+# experiments/flagship/vo_net/config.yml, built in code (no YAML reader
+# needed): B = 8, N = 1000, depth 5, the bf16 MLP, 376x1241.
+FLAGSHIP_VO = {
+    "name": "synthetic_good_corr",
+    "data": {"dataset": "synthetic", "batch_size": 8, "good_num": 1000, "noise_px": 0.5,
+             "outlier_frac": 0.15, "image": {"size": [376, 1241, 3]},
+             "preprocessing": {"resize": [376, 1241]}},
+    "model": {"name": "GoodCorresNet_layers_deepF", "depth": 5, "clamp_at": 0.02,
+              "if_quality": True, "quality_size": 1, "mlp_dtype": "bfloat16",
+              "balance_q": 1, "balance_t": 0.1},
+    "exps": {"five_point": False, "base_name": "ransac_8p", "our_name": "DeepF",
+             "filename": "err_ratio.npz"},
+    "training": {"seed": 0, "clamp_q_params": [0.1, 0.01, 0.001],
+                 "clamp_t_params": [0.5, 0.3, 0.1]},
+}
+FLAGSHIP_CKPT = os.path.join("experiments", "flagship", "ckpt_qt_best.msgpack")
+VO_FRAMES = 60  # the JAX CLI's default sequence, seed 123: 59 pairs in 8 batches
+VO_PAIRS = VO_FRAMES - 1
+# Per eval_vo batch: the net's five weighted 8-point fits, and with the
+# baseline one RANSAC fan-out and one refit more; K3 four times in DeepFNet
+# and once in eval_step's F-loss, forward only.
+VO_PER_BATCH = {"net": {"eigh9": 5, "epi_residual": 5},
+                "baseline": {"eigh9": 7, "epi_residual": 5}}
+VO_MEDIAN_ERR_T = 5.0  # deg: the committed 3.27 deg (experiments/flagship/README.md)
+# The card's first batch against the port's CPU replay of it: the rotation
+# between the two packages' per-pair R. The bf16 MLP rounds its products in
+# another order on each device, which moves the weights and so F by about
+# the gap between the bf16 and float32 MLPs on one device: VO_ROT_BAR is
+# twice the largest such gap of this batch on the CPU (`vo_rotation_gap`,
+# measured in the same run), plus float32's acos floor of ~0.03 deg.
+VO_ACOS_FLOOR = 0.03
+# infer: two frames of a SyntheticImageSequence at the joint path's
+# 376x1240, the seeded gauss2 SuperPoint of val_feature (b), the flagship
+# solver, K = 1000, the conv switch on K5. One pass of both frames through
+# SuperPoint (six layers of >= 16,384 px: K5 6), one K4 match, the solver's
+# five fits (eigh9 5) and its four residual feedbacks (K3 4: no loss).
+INFER = {"image_size": (376, 1240), "focal": 718.856, "n_corners": 400, "K": 1000, "seed": 3}
+INFER_LAUNCHES = {"conv3x3_affine_relu": 6, "mutual_nn_kernel": 1, "eigh9": 5,
+                  "epi_residual": 4}
+
+
+def vo_rotations(cfg, batch, dev: str):
+    """The port's per-pair [R | t] of eval_vo's net on `batch` on `dev`
+    (float64 numpy), with the flagship weights."""
+    import torch
+
+    from deepfepe_tpu_torch.eval import val_rt_batch
+    from deepfepe_tpu_torch.loader import model_loader
+    from deepfepe_tpu_torch.train import eval_step, load_checkpoint
+    from deepfepe_tpu_torch.utils.device import batch_to_device
+
+    device = torch.device(dev)
+    net = model_loader(cfg, device)
+    load_checkpoint(FLAGSHIP_CKPT, net)
+    tb = batch_to_device(batch, device)
+    E = eval_step(net, tb, cfg)["E_ests"]
+    with torch.no_grad():
+        rt = val_rt_batch(E, tb["Ks"], tb["matches_xy_ori"], tb["E_gts"],
+                          tb["delta_Rtijs_4_4"], ransac=False)
+    return rt["M_est"].double().cpu().numpy()
+
+
+def rotation_gaps(a, b):
+    """Degrees between the rotations of [B, 3, 4] poses a and b."""
+    import numpy as np
+
+    rel = np.einsum("bji,bjk->bik", a[:, :3, :3], b[:, :3, :3])
+    cos = np.clip((np.trace(rel, axis1=1, axis2=2) - 1) / 2, -1, 1)
+    return np.degrees(np.arccos(cos))
+
+
+def phase_eval_vo(ph: Phases) -> dict:
+    """The port's eval_vo with the flagship checkpoint (read by the port's
+    msgpack reader) on the 60-frame synthetic sequence, the net then the
+    RANSAC baseline; launches read around each run alone; then the net's
+    first batch replayed on the CPU. Returns the launch sums."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch import cli
+    from deepfepe_tpu_torch.train.config import config_from_dict
+
+    check(os.path.exists(FLAGSHIP_CKPT), f"no {FLAGSHIP_CKPT} in the checkout")
+    cfg = config_from_dict(FLAGSHIP_VO)
+    batches = -(-VO_PAIRS // cfg.data.batch_size)
+    total = dict.fromkeys(kernel_counters(), 0)
+    reports = {}
+    for run in ("net", "baseline"):
+        reset_counts()
+        rep = cli.eval_vo(cfg, f"smoke_vo_{run}", pretrained=FLAGSHIP_CKPT,
+                          baseline=run == "baseline", n_frames=VO_FRAMES, device="cuda")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expected = expect(VO_PER_BATCH[run], batches, counts)
+        reports[run] = rep
+        ph.emit("eval_vo", run=run, report=rep, batches=batches, launches=counts,
+                expected_launches=expected,
+                launches_per_batch={k: v / batches for k, v in counts.items() if v},
+                timed="host clock over the solver (and the baseline) and the pose "
+                      "recovery, ending in a synchronize; the sequence made up front")
+        check(counts == expected, f"eval_vo ({run}): launches {counts}, expected {expected}")
+        check(rep["n_pairs"] == VO_PAIRS, f"eval_vo ({run}): {rep['n_pairs']} pairs")
+        check(all(np.isfinite(v) for v in rep.values() if isinstance(v, float)),
+              f"eval_vo ({run}): non-finite report {rep}")
+        for k, v in counts.items():
+            total[k] += v
+    net, base = reports["net"], reports["baseline"]
+    # The flagship's committed result (experiments/flagship/README.md) is the
+    # JAX package's on the TPU, whose RANSAC baseline lost to the net 56.26%
+    # to 4.29%; off the TPU the float32 baseline is as good as the net
+    # (PERF.md), so the ratio is reported, not held.
+    ph.emit("eval_vo", trans_err_pct_net_over_baseline=net["trans_err_pct"]
+            / base["trans_err_pct"], committed_jax_tpu={"net": 4.289, "baseline": 56.259})
+    check(net["median_err_t"] < VO_MEDIAN_ERR_T,
+          f"eval_vo: the flagship's median err_t {net['median_err_t']} >= {VO_MEDIAN_ERR_T} deg")
+    check(base["median_err_q"] < 0.5,
+          f"eval_vo: the RANSAC baseline's median err_q {base['median_err_q']} >= 0.5 deg")
+
+    # The net's first batch: the card against the port's CPU replay.
+    from deepfepe_tpu_torch.data import SyntheticSequence
+
+    d = cfg.data
+    first = next(SyntheticSequence(n_frames=VO_FRAMES, good_num=d.good_num, noise_px=d.noise_px,
+                                   outlier_frac=d.outlier_frac, seed=123)
+                 .pair_batches(d.batch_size))
+    card = vo_rotations(cfg, first, "cuda")
+    cpu = vo_rotations(cfg, first, "cpu")
+    f32 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, mlp_dtype="float32"))
+    gap = rotation_gaps(cpu, vo_rotations(f32, first, "cpu"))
+    bar = 2 * float(gap.max()) + VO_ACOS_FLOOR
+    diff = rotation_gaps(card, cpu)
+    ph.emit("eval_vo", check="first batch, card vs CPU", rotation_deg=diff.tolist(),
+            bf16_vs_f32_on_cpu_deg=gap.tolist(), bar_deg=bar)
+    check(float(diff.max()) <= bar,
+          f"eval_vo: card and CPU rotations differ by {diff.max()} deg (bar {bar})")
+    return total
+
+
+def write_infer_frames(root: str) -> tuple:
+    """Two frames of a SyntheticImageSequence as PNG; returns (paths, K)."""
+    import numpy as np
+
+    from deepfepe_tpu_torch.data import SyntheticImageSequence
+    from deepfepe_tpu_torch.utils.image_io import write_png
+
+    seq = SyntheticImageSequence(n_frames=2, image_size=INFER["image_size"],
+                                 focal=INFER["focal"], n_corners=INFER["n_corners"],
+                                 seed=INFER["seed"])
+    paths = []
+    for k in range(2):
+        paths.append(os.path.join(root, f"{k:06d}.png"))
+        write_png(paths[-1], np.rint(seq.frame(k) * 255).astype(np.uint8))
+    return paths, seq.K
+
+
+def infer_stages(paths, kw) -> dict:
+    """One more warm infer call with each stage wrapped in synchronizes and
+    timed on the host clock: ms a stage, and the rest of the call."""
+    import torch
+
+    from deepfepe_tpu_torch import cli
+    from deepfepe_tpu_torch.geometry import decompose
+    from deepfepe_tpu_torch.models import DeepFNet
+    from deepfepe_tpu_torch.utils import image_io
+
+    spent = {}
+
+    def timed(label, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[label] = spent.get(label, 0.0) + (time.perf_counter() - t) * 1e3
+            return out
+        return run
+
+    patches = ((image_io, "read_grey", "read PNG frames"),
+               (cli, "load_superpoint", "load SuperPoint"),
+               (cli, "get_matches_from_sp", "SuperPoint and matching"),
+               (cli, "load_checkpoint", "load the solver"),
+               (DeepFNet, "forward", "solver"),
+               (decompose, "recover_pose", "pose recovery (float64)"))
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, label in patches:
+        setattr(obj, name, timed(label, getattr(obj, name)))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.infer(*paths, **kw)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    spent["rest"] = total - sum(spent.values())
+    spent["total"] = total
+    return spent
+
+
+def phase_infer(ph: Phases) -> dict:
+    """The port's serving entry on two PNG frames: launches read around one
+    call, then the call timed warm. Returns the launch counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory(prefix="smoke_infer_") as root:
+        paths, K = write_infer_frames(root)
+        kw = dict(pretrained=FLAGSHIP_CKPT, pretrained_SP=vf_pretrained("b"),
+                  K=f"{K[0, 0]},{K[1, 1]},{K[0, 2]},{K[1, 2]}", good_num=INFER["K"],
+                  out=os.path.join(root, "pose.json"), device="cuda")
+        with conv_switch("pallas"):
+            reset_counts()
+            out = cli.infer(*paths, **kw)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                cli.infer(*paths, **kw)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            stages = infer_stages(paths, kw)
+        with open(kw["out"]) as f:
+            written = json.load(f)
+    expected = {k: INFER_LAUNCHES.get(k, 0) for k in counts}
+    R = np.asarray(out["R"])
+    ortho = float(np.abs(R @ R.T - np.eye(3)).max())
+    ph.emit("infer", result=out, launches=counts, expected_launches=expected,
+            ms_per_pair=times, stages_ms=stages, orthonormality=ortho,
+            det=float(np.linalg.det(R)),
+            timed="host clock over one infer call (two PNG reads, SuperPoint, matching, the "
+                  "solver, the float64 pose recovery), ending in a synchronize; warm")
+    check(counts == expected, f"infer: launches {counts}, expected {expected}")
+    check(written == out, "infer: the --out file differs from the printed result")
+    check(out["num_matches"] >= 8, f"infer: {out['num_matches']} matches")
+    check(ortho < 1e-9 and abs(np.linalg.det(R) - 1) < 1e-9, f"infer: R is not a rotation: {R}")
+    check(abs(np.linalg.norm(out["t_unit"]) - 1) < 1e-9, f"infer: |t_unit| != 1: {out}")
+    check(all(np.isfinite(np.asarray(out[k])).all()
+              for k in ("R", "t_unit", "E", "epi_inlier_ratio_1px", "epi_median_px")),
+          f"infer: non-finite output {out}")
+    return counts
+
+
 def plant(fault: str) -> None:
     """Install a deliberate fault for `--plant`. Wiring faults wrap the MLP
     autograd Function's backward; kernel faults (SOURCE_FAULTS) build a
@@ -4029,7 +4415,14 @@ def main(argv=None) -> int:
     ap.add_argument("--plant", choices=FAULTS, help="plant this fault and run only the checks "
                     "of its kernel (K2/K2b, K3, X1-X4, K5/K5b, K4 or eigh9), to show that they catch it "
                     "(exit 1 when caught); 'none' gives the sound readings")
+    ap.add_argument("--window", help="a JSON list [name, *args]: run WINDOWS[name](*args), "
+                    "one profiled window, and print its JSON result (fresh_window)")
+    ap.add_argument("--fresh-windows", action="store_true",
+                    help="take every profiled window that a check reads again in a fresh "
+                    "process (fresh_window), to exercise each retake")
     args = ap.parse_args(argv)
+    global FRESH_WINDOWS
+    FRESH_WINDOWS = args.fresh_windows
     sys.path.insert(0, REPO)
     from deepfepe_tpu_torch.train.config import config_from_dict
 
@@ -4049,6 +4442,10 @@ def main(argv=None) -> int:
             name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
     os.chdir(REPO)  # train_good writes under logs/ (gitignored)
+    if args.window:
+        name, *window_args = json.loads(args.window)
+        print(json.dumps(WINDOWS[name](*window_args)), flush=True)
+        return 0
     if args.plant:
         build_all(ph)
         return run_planted(ph, args.plant)
@@ -4076,6 +4473,8 @@ def main(argv=None) -> int:
         phase_joint_bf16_step(ph)
         kitti_counts = phase_kitti_corr(ph)
         sp_dump_counts = phase_kitti_sp_dump(ph)
+        vo_counts = phase_eval_vo(ph)
+        infer_counts = phase_infer(ph)
         phase_check(ph, cfg)
         phase_check_train(ph)
         phase_check_sample(ph)
@@ -4107,6 +4506,8 @@ def main(argv=None) -> int:
         r["launches_kitti_corr"] = kitti_counts[r["name"]]
         r["launches_kitti_sp_dump"] = sp_dump_counts[r["name"]]
         r["launches_joint_bf16"] = joint_bf16_counts[r["name"]]
+        r["launches_eval_vo"] = vo_counts[r["name"]]
+        r["launches_infer"] = infer_counts[r["name"]]
         if r["launches"] <= 0:
             print(f"chip_smoke: FAILED: {r['name']} never launched on {path}",
                   file=sys.stderr, flush=True)

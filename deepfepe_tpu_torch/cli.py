@@ -8,6 +8,18 @@
     python -m deepfepe_tpu_torch.cli val_feature <exper_name> [--config c.yaml]
         [--max_batches k] [--pretrained sp.pth.tar] [--rand_noise s]
         [--device cpu|cuda]
+    python -m deepfepe_tpu_torch.cli eval_vo <config.yaml> <exper_name>
+        [--pretrained ckpt] [--baseline] [--n_frames n] [--scene s]
+        [--lengths 5,10] [--device cpu|cuda]
+    python -m deepfepe_tpu_torch.cli infer img1.png img2.png --pretrained ckpt
+        --pretrained_SP sp.pth.tar [--K fx,fy,cx,cy] [--config c.yaml]
+        [--good_num n] [--out pose.json] [--device cpu|cuda]
+    python -m deepfepe_tpu_torch.cli export_torch <config.yaml> ckpt.msgpack
+        out.pth.tar [--superpoint] [--n_iter n]
+    python -m deepfepe_tpu_torch.cli verify_dump <dump_root> [--deltas 1,2]
+    python -m deepfepe_tpu_torch.cli tables <table.yaml> [--metrics a,b] [--latex]
+    python -m deepfepe_tpu_torch.cli baseline_gate 09=logs/eval09 10=logs/eval10
+        --gt_dir <dir> [--baseline deepF|deepFEPE] [--strict]
 
 `train_good` trains the solver (F-loss, or the qt pose loss with
 `model.if_qt_loss`) on the config's train data, validates on its val
@@ -28,9 +40,20 @@ package's summary keys as one JSON line. `val_feature` runs the
 SuperPoint frontend on synthetic image pairs, or with `--config` on the
 config's test split with its frames, and prints the share of matches
 within 0.1, 0.5, 1 and 2 px of their ground-truth epipolar lines and the
-match count, also written to logs/<exper_name>/result_dict_all.npz. All
-default to the card; without one they raise unless `--device cpu` is
-given.
+match count, also written to logs/<exper_name>/result_dict_all.npz.
+`eval_vo` estimates every consecutive pair of a sequence (the synthetic
+sequence, or a dump tree's test split in frame order) with the solver or
+`--baseline`, chains them and prints the KITTI metrics (trans %, rot
+deg/100 m, ATE, RPE) as one JSON line, with
+logs/<exper_name>/{trajectory_est,trajectory_gt,result}.txt. `infer` is
+the serving entry: two PNG frames through SuperPoint and the solver to
+one JSON line of R, t_unit and E. `export_torch` writes a flax `.msgpack`
+checkpoint as the reference's `.pth.tar`; `verify_dump` checks a dump
+tree; `tables` compares experiments' npz dumps; `baseline_gate` holds
+eval_good's dumps of KITTI 09/10 to BASELINE.md's targets. Every
+`--pretrained` takes a reference `.pth.tar` or a flax `.msgpack`. The
+entry points that compute default to the card; without one they raise
+unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -41,16 +64,18 @@ import itertools
 import json
 import os
 import time
+from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
 import numpy as np
 import torch
 
-from .data import KittiCorrDataset, SyntheticImagePairs
+from .data import KittiCorrDataset, SyntheticImagePairs, SyntheticSequence
 from .data.prefetch import prefetch_batches
-from .eval import frontend_epidist_eval, val_rt_batch
+from .eval import (chain_relative_poses, export_poses_kitti, frontend_epidist_eval,
+                   kitti_odometry, val_rt_batch)
 from .frontend import (FrontendParams, SuperPointNet, SuperPointNetGauss2,
-                       frontend_params_from_config)
+                       frontend_params_from_config, get_matches_from_sp)
 from .frontend.superpoint import reset_superpoint
 from .loader import data_loader, model_loader
 from .train import (MetricLogger, Trainer, eval_step, load_checkpoint, load_config,
@@ -60,6 +85,27 @@ from .train.joint import joint_train_step, make_joint_state
 from .train.loop import scalars, start_profile, stop_profile
 from .utils.device import batch_to_device, resolve_device
 from .utils.weights import load_superpoint, save_superpoint
+
+BA_ITEM = "needs bundle adjustment (ba/), not ported yet (ROADMAP Queue 1 item 7)"
+SIFT_ITEM = ("needs OpenCV's SIFT detector and matcher, which the port does not use "
+             "(ROADMAP Queue 1 item 8); give a SuperPoint checkpoint with --pretrained_SP")
+# BASELINE.md's targets: the reference's committed kitti-odom-eval outputs
+# (results/{deepF,deepFEPE}_kitti/{09,10}/result.txt:2-6).
+BASELINE_TARGETS = {
+    "deepF": {
+        "09": {"trans_err_pct": 9.706, "rot_err_deg_per_100m": 0.889,
+               "ATE_m": 80.157, "RPE_m": 0.211, "RPE_deg": 0.051},
+        "10": {"trans_err_pct": 11.206, "rot_err_deg_per_100m": 1.546,
+               "ATE_m": 34.342, "RPE_m": 0.253, "RPE_deg": 0.362},
+    },
+    "deepFEPE": {
+        "09": {"trans_err_pct": 8.639, "rot_err_deg_per_100m": 0.664,
+               "ATE_m": 52.576, "RPE_m": 0.214, "RPE_deg": 0.054},
+        "10": {"trans_err_pct": 11.719, "rot_err_deg_per_100m": 0.945,
+               "ATE_m": 35.325, "RPE_m": 0.252, "RPE_deg": 0.212},
+    },
+}
+VO_METRICS = ("trans_err_pct", "rot_err_deg_per_100m", "ATE_m", "RPE_m", "RPE_deg")
 
 PER_PAIR = ("err_q_est", "err_t_est", "err_q_base", "err_t_base", "err_q_gt",
             "err_t_gt", "base_inliers", "M_cam_est", "M_cam_base", "epi_dists_est",
@@ -211,8 +257,9 @@ def train_joint(cfg: Config, exper_name: str, train_iter: int | None = None,
     """Joint SuperPoint + DeepF training (`model.if_SP`), the counterpart of
     the JAX CLI's `_train_joint_from_config` (train_good.py:198-251): a
     SuperPointNetGauss2 frontend seeded by `training.seed`, or read from
-    `pretrained_SP` unless `retrain_SP`; the solver seeded, or read from
-    `pretrained` (else the config's unless `retrain`); both Adams at
+    `pretrained_SP` (`.pth.tar` or flax `.msgpack`) unless `retrain_SP`;
+    the solver seeded, or read from `pretrained` (else the config's unless
+    `retrain`); both Adams at
     `learning_rate`; `train` and `train_SP` gate the two updates;
     training.SP_params sets the frontend (its `remat` included). The
     frontend computes in bf16 when `model.mlp_dtype` is bfloat16, as the
@@ -226,10 +273,6 @@ def train_joint(cfg: Config, exper_name: str, train_iter: int | None = None,
     device = resolve_device(device)
     t = cfg.training
     sp_dtype = torch.bfloat16 if cfg.model.mlp_dtype == "bfloat16" else torch.float32
-    if not t.retrain_SP and t.pretrained_SP \
-            and not t.pretrained_SP.endswith((".pth", ".pth.tar")):
-        raise NotImplementedError("only reference .pth/.pth.tar SuperPoint checkpoints load; "
-                                  ".msgpack files need flax (ROADMAP Queue 1 item 3)")
     if train_iter is not None:
         t.train_iter = train_iter
     if profile_dir:
@@ -354,8 +397,8 @@ def val_feature(exper_name: str, max_batches: int = 0, pretrained: str = "",
     0): on `SyntheticImagePairs(seed=0)` (the JAX CLI's stream) in batches of
     `batch_size` pairs, or with `config` (a YAML path or a Config) on its
     test split with the frames on, in order, in its batches, the last one
-    short. SuperPoint from `pretrained` (a reference `.pth` or `.pth.tar`;
-    gauss2 when it has BatchNorm keys) or seeded (seed 0); keypoints and
+    short. SuperPoint from `pretrained` (a reference `.pth` or `.pth.tar`,
+    or a flax `.msgpack`; gauss2 when it has BatchNorm keys) or seeded (seed 0); keypoints and
     mutual-NN matches under `fp`, else the config's SP_params, else the JAX
     CLI's FrontendParams(out_num_points=300, conf_thresh=1e-3). Returns the
     mean per batch of `ratio@{0.1,0.5,1.0,2.0}` and `num_matches`, with
@@ -365,9 +408,6 @@ def val_feature(exper_name: str, max_batches: int = 0, pretrained: str = "",
     if homography:
         raise NotImplementedError("val_feature --homography needs a numpy perspective warp in "
                                   "place of cv2, not ported yet (ROADMAP Queue 1 item 3)")
-    if pretrained and not pretrained.endswith((".pth", ".pth.tar")):
-        raise NotImplementedError("only reference .pth/.pth.tar SuperPoint checkpoints load; "
-                                  ".msgpack files need flax (ROADMAP Queue 1 item 3)")
     n_batches = max_batches or 5
     if config:
         cfg = load_config(config) if isinstance(config, str) else config
@@ -408,6 +448,314 @@ def val_feature(exper_name: str, max_batches: int = 0, pretrained: str = "",
     return summary
 
 
+def vo_batches(cfg: Config, n_frames: int = 0, scene: str = ""):
+    """eval_vo's data: (frame-ordered pair batches, gt trajectory or None,
+    segment lengths or None). On 'synthetic' the JAX CLI's sequence
+    (`n_frames`, else 60, seed 123) with lengths of 5-40 m; on a dump tree
+    its test split (one scene or all) in frame order, the gt trajectory
+    chained from the pairs' gt poses and KITTI's 100-800 m."""
+    d = cfg.data
+    if d.dataset == "synthetic":
+        seq = SyntheticSequence(n_frames=n_frames or 60, good_num=d.good_num,
+                                noise_px=d.noise_px, outlier_frac=d.outlier_frac, seed=123)
+        return seq.pair_batches(d.batch_size), seq.gt_trajectory(), (5.0, 10.0, 20.0, 40.0)
+    ds = data_loader(cfg, "test")
+    return ds.ordered_pair_batches(d.batch_size, scene_name=scene or None), None, None
+
+
+def write_result_txt(path: str, scene: str, report: Dict[str, float]) -> None:
+    """result.txt in the reference's format (results/*/result.txt)."""
+    with open(path, "w") as f:
+        f.write(f"Sequence: \t {scene or 'synthetic'} \n")
+        f.write(f"Trans. err. (%): \t {report['trans_err_pct']:.3f} \n")
+        f.write(f"Rot. err. (deg/100m): \t {report['rot_err_deg_per_100m']:.3f} \n")
+        f.write(f"ATE (m): \t {report['ATE_m']:.3f} \n")
+        f.write(f"RPE (m): \t {report['RPE_m']:.3f} \n")
+        f.write(f"RPE (deg): \t {report['RPE_deg']:.3f} \n")
+
+
+def eval_vo(cfg: Config, exper_name: str, pretrained: str = "", baseline: bool = False,
+            scene: str = "", n_frames: int = 0, lengths: Sequence[float] | None = None,
+            pose_graph: bool = False, refine_ba: bool = False, device=None,
+            ransac_idxs: Sequence[torch.Tensor] | None = None) -> Dict[str, float]:
+    """Sequence VO, the JAX CLI's `cmd_eval_vo`: every consecutive pair
+    estimated in frame order (`vo_batches`) by the solver, or with
+    `baseline` by the RANSAC baseline of `val_rt_batch` (the config's
+    8-point or five-point; hypotheses `ransac_idxs[i]` for batch i, else
+    drawn from a generator seeded 0), padded duplicates skipped by
+    `frame_i`, the poses chained and written as KITTI trajectories
+    (logs/<exper_name>/trajectory_{est,gt}.txt), scored with
+    `evaluate_sequence(align='scale')` (`lengths`, else the source's) and
+    written as result.txt. Weights seeded from `training.seed`, or read
+    from `pretrained` (`.pth.tar` or flax `.msgpack`). Returns the report
+    with median_err_q/err_t, n_pairs, `seconds` (host clock over the solver
+    and its evaluation, ending in a synchronize; data made up front),
+    pairs_per_s and `device`."""
+    if pose_graph or refine_ba:
+        raise NotImplementedError(f"eval_vo --pose_graph and --refine_ba {BA_ITEM}")
+    device = resolve_device(device)
+    save_dir = _snapshot_config(cfg, exper_name)
+    net = model_loader(cfg, device, torch.Generator().manual_seed(cfg.training.seed))
+    if pretrained:
+        load_checkpoint(pretrained, net)
+    batch_iter, gt_traj, default_lengths = vo_batches(cfg, n_frames, scene)
+    data = list(batch_iter)
+    lengths = tuple(lengths) if lengths else default_lengths
+    generator = torch.Generator().manual_seed(0)
+    tag = "base" if baseline else "est"
+    rels_est, rels_gt, errqs, errts = [], [], [], []
+    t0 = time.perf_counter()
+    for i, batch in enumerate(data):
+        tb = batch_to_device(batch, device)
+        metrics = eval_step(net, tb, cfg)
+        with torch.no_grad():
+            rt = val_rt_batch(metrics["E_ests"], tb["Ks"], tb["matches_xy_ori"], tb["E_gts"],
+                              tb["delta_Rtijs_4_4"], ransac=baseline,
+                              ransac_idxs=None if ransac_idxs is None else ransac_idxs[i],
+                              generator=generator, five_point=cfg.exps.five_point)
+        M, eq, et = (rt[f"{k}_{tag}"].cpu().numpy() for k in ("M", "err_q", "err_t"))
+        frames = batch.get("frame_i")
+        for j in range(len(M)):
+            fidx = int(frames[j]) if frames is not None else len(rels_est)
+            if fidx == len(rels_est):  # padded duplicates repeat an earlier frame
+                rels_est.append(M[j])
+                rels_gt.append(batch["delta_Rtijs_4_4"][j])
+                errqs.append(float(eq[j]))
+                errts.append(float(et[j]))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    traj_est = chain_relative_poses(np.stack(rels_est))
+    if gt_traj is None:
+        gt_traj = chain_relative_poses(np.stack(rels_gt))
+    export_poses_kitti(traj_est, os.path.join(save_dir, "trajectory_est.txt"))
+    export_poses_kitti(gt_traj, os.path.join(save_dir, "trajectory_gt.txt"))
+    kw = {"lengths": lengths} if lengths else {}
+    report = kitti_odometry.evaluate_sequence(gt_traj, traj_est, align="scale", **kw)
+    report.update(median_err_q=float(np.median(errqs)), median_err_t=float(np.median(errts)),
+                  n_pairs=len(rels_est))
+    write_result_txt(os.path.join(save_dir, "result.txt"), scene, report)
+    report.update(seconds=seconds, pairs_per_s=len(rels_est) / seconds, device=str(device))
+    return report
+
+
+def read_intrinsics(K: str, H: int, W: int) -> np.ndarray:
+    """'fx,fy,cx,cy' as a 3x3 K; empty: a focal of 1.2 max(H, W) and the
+    image centre."""
+    if K:
+        fx, fy, cx, cy = (float(v) for v in K.split(","))
+    else:
+        fx = fy = 1.2 * max(H, W)
+        cx, cy = W / 2.0, H / 2.0
+    return np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]], np.float64)
+
+
+def infer(img1: str, img2: str, pretrained: str, pretrained_SP: str = "", K: str = "",
+          config: str = "", good_num: int = 1000, out: str = "", device=None) -> Dict:
+    """The serving entry, the JAX CLI's `cmd_infer`: two frames (PNG) ->
+    the relative pose. SuperPoint from `pretrained_SP` (`.pth`, `.pth.tar`
+    or flax `.msgpack`; gauss2 when it has BatchNorm statistics) gives up
+    to `good_num` mutual-NN matches (conf_thresh 1e-3); the solver from
+    `pretrained` (`.pth.tar` or `.msgpack`), built from `config` at the
+    frames' size, else DeepFNet(depth 5, if_quality); E = KᵀF̂K
+    decomposed in float64 by cheirality voting (`recover_pose`), and the
+    matches' epipolar distances to F̂. Returns (and writes to `out` as
+    JSON) {R, t_unit, E, num_matches, epi_inlier_ratio_1px, epi_median_px,
+    frontend}."""
+    from .geometry.basic import homo
+    from .geometry.decompose import recover_pose
+    from .geometry.epipolar import F_to_E, epi_distance
+    from .models import DeepFNet
+    from .utils.image_io import read_grey
+
+    if not pretrained_SP:
+        raise NotImplementedError(f"infer without --pretrained_SP (the SIFT frontend) {SIFT_ITEM}")
+    device = resolve_device(device)
+    g1, g2 = read_grey(img1), read_grey(img2)
+    H, W = g1.shape[:2]
+    Kmat = read_intrinsics(K, H, W)
+    sp_net = load_superpoint(pretrained_SP, device)
+    imgs = torch.as_tensor(np.stack([g1, g2]).astype(np.float32) / 255.0, device=device)
+    fp = FrontendParams(out_num_points=good_num, conf_thresh=1e-3)
+    with torch.no_grad():
+        sp_out = get_matches_from_sp(sp_net, (imgs[:1], imgs[1:]), fp)
+    n_real = int(sp_out["valid"][0].sum())
+    if n_real < 8:
+        raise SystemExit(f"only {n_real} SuperPoint matches: the image pair does not suit this "
+                         "frontend (try a lower conf threshold)")
+    matches = sp_out["matches_xy_ori"][0].cpu().numpy()
+    db = {"matches_xy_ori": sp_out["matches_xy_ori"][:1],
+          "quality": sp_out["quality"][:1],
+          "matches_good_unique_nums": torch.tensor([min(n_real, good_num)], device=device),
+          "Ks": torch.as_tensor(Kmat, dtype=torch.float32, device=device)[None],
+          "t_scene_scale": torch.ones((1, 1), device=device)}
+    if config:
+        cfg = load_config(config)
+        cfg.data.resize = [H, W]
+        net = model_loader(cfg, device)
+    else:
+        net = DeepFNet(depth=5, image_size=(H, W), if_quality=True).to(device).eval()
+    load_checkpoint(pretrained, net)
+    with torch.no_grad():
+        outs = net(db)
+        F_pix = outs["T2"].transpose(-1, -2) @ outs["F_est"] @ outs["T1"]
+        E = F_to_E(F_pix, db["Ks"])
+        K_inv_t = torch.as_tensor(np.linalg.inv(Kmat).T, device=device)
+        m64 = torch.as_tensor(matches, dtype=torch.float64, device=device)
+        rec = recover_pose(E.double(), (homo(m64[:, :2]) @ K_inv_t)[None],
+                           (homo(m64[:, 2:4]) @ K_inv_t)[None])
+        d = epi_distance(F_pix[0].double(), m64[:, :2], m64[:, 2:4])[0].cpu().numpy()
+    result = {"R": rec.R[0].cpu().numpy().tolist(), "t_unit": rec.t[0].cpu().numpy().tolist(),
+              "E": E[0].cpu().numpy().tolist(), "num_matches": n_real,
+              "epi_inlier_ratio_1px": float(np.mean(d < 1.0)),
+              "epi_median_px": float(np.median(d)), "frontend": "superpoint"}
+    if out:
+        with open(out, "w") as f:
+            f.write(json.dumps(result))
+    return result
+
+
+def export_torch(config: str, checkpoint: str, out: str, n_iter: int = 0,
+                 superpoint: bool = False) -> Dict:
+    """A flax `.msgpack` checkpoint of the JAX package as the reference's
+    `.pth.tar`: the solver of `config`'s architecture (loaded strictly), or
+    with `superpoint` a SuperPointNetGauss2 with its BatchNorm statistics."""
+    if superpoint:
+        net = load_superpoint(checkpoint, "cpu")
+        if not isinstance(net, SuperPointNetGauss2):
+            raise ValueError(f"{checkpoint} holds no SuperPointNetGauss2 (no batch statistics)")
+        save_superpoint(out, net, n_iter)
+        return {"out": out, "n_iter": n_iter, "kind": "superpoint_gauss2"}
+    net = model_loader(load_config(config), torch.device("cpu"))
+    load_checkpoint(checkpoint, net)
+    save_checkpoint(out, net, None, n_iter)
+    return {"out": out, "n_iter": n_iter}
+
+
+def verify_dump(dump_root: str, deltas: str = "1", min_matches: int = 8) -> Dict:
+    """A dump tree's integrity check: per scene, the shapes of cam.npy,
+    poses.npy and Rt_cam2_gt.npy, the match files of each delta, their
+    match counts and missing frames. Exits 1 on a malformed tree."""
+    root = Path(dump_root)
+    scenes = sorted(d for d in root.iterdir() if d.is_dir())
+    if not scenes:
+        raise SystemExit(f"no scene directories under {root}")
+    report = {"root": str(root), "scenes": {}}
+    ok = True
+    for scene in scenes:
+        s = {"errors": []}
+        report["scenes"][scene.name] = s
+        try:
+            K = np.load(scene / "cam.npy")
+            s["K_shape"] = list(K.shape)
+            if K.reshape(-1).shape[0] != 9:
+                s["errors"].append("cam.npy is not 3x3")
+            poses = np.load(scene / "poses.npy").reshape(-1, 3, 4)
+            s["n_frames"] = int(len(poses))
+            if not np.all(np.isfinite(poses)):
+                s["errors"].append("poses.npy has non-finite entries")
+            Rt2 = np.load(scene / "Rt_cam2_gt.npy")
+            if Rt2.shape != (4, 4):
+                s["errors"].append(f"Rt_cam2_gt shape {Rt2.shape}")
+        except FileNotFoundError as e:
+            s["errors"].append(f"missing: {e.filename}")
+            ok = False
+            continue
+        for delta in (int(d) for d in deltas.split(",")):
+            counts, missing = [], []
+            for i in range(len(poses) - delta):
+                base = scene / f"ij_match_quality_{i}-{i + delta}_good"
+                if base.with_suffix(".npy").is_file():
+                    counts.append(int(len(np.load(base.with_suffix(".npy")))))
+                elif base.with_suffix(".h5").is_file():
+                    counts.append(-1)  # present, not parsed here
+                else:
+                    missing.append(i)
+            key = f"delta_{delta}"
+            s[key] = {"pairs": len(counts), "missing": missing[:10], "n_missing": len(missing)}
+            if counts and min(counts) >= 0:
+                s[key]["matches_min"] = int(np.min(counts))
+                s[key]["matches_median"] = float(np.median(counts))
+                if np.min(counts) < min_matches:
+                    s["errors"].append(f"delta {delta}: a pair has only {np.min(counts)} "
+                                       f"matches (< {min_matches})")
+            if delta == 1 and missing:
+                s["errors"].append(f"delta 1: {len(missing)} missing pair files")
+        ok = ok and not s["errors"]
+    report["ok"] = ok
+    print(json.dumps(report), flush=True)
+    if not ok:
+        raise SystemExit(1)
+    return report
+
+
+def tables(config: str, metrics: str = "", top_k: int = 1, latex: bool = False,
+           plot: str = "") -> str:
+    """Experiments side by side from their eval npz dumps (a table config
+    YAML: data.base_path and data.seq_dict), as Markdown (and LaTeX, and
+    a bar figure where matplotlib is installed); printed and returned."""
+    import yaml
+
+    from .eval.results import ExpTableProcessor
+
+    with open(config) as f:
+        tp = ExpTableProcessor.from_config(yaml.safe_load(f))
+    names = tuple(metrics.split(",")) if metrics else ("err_q_median", "err_t_median")
+    md = tp.to_markdown(names, top_k=top_k)
+    print(md)
+    if latex:
+        print()
+        print(tp.to_latex(names))
+    if plot and tp.plot_metrics(names, save_path=plot) is not None:
+        print(f"# wrote {plot}")
+    return md
+
+
+def baseline_gate(seq_dirs: Sequence[str], gt_dir: str, baseline: str = "deepF",
+                  exp: str = "DeepF", filename: str = "err_ratio.npz", tol: float = 0.05,
+                  lengths: str = "", strict: bool = False) -> Dict:
+    """BASELINE.md's KITTI seq 09/10 verdict from eval_good output dirs
+    (`seq=dir` each, holding `<exp>_<filename>` with relative_poses_body)
+    and KITTI gt files `<gt_dir>/<seq>.txt`: each sequence chained and
+    scored (`evaluate_sequence`), each metric passing at <= target * (1 +
+    tol); a non-finite metric fails. Prints the table and the JSON report;
+    with `strict` exits 1 on a failure."""
+    targets_all = BASELINE_TARGETS[baseline]
+    report = {"baseline": baseline, "tol": tol, "sequences": {}, "ok": True}
+    rows = []
+    kw = {"lengths": tuple(float(x) for x in lengths.split(","))} if lengths else {}
+    for spec in seq_dirs:
+        seq, _, d = spec.partition("=")
+        if not d:
+            raise SystemExit(f"seq_dirs entries are seq=dir, got {spec!r}")
+        est = chain_relative_poses(np.load(Path(d) / f"{exp}_{filename}")["relative_poses_body"])
+        gt = kitti_odometry.load_poses_txt(str(Path(gt_dir) / f"{seq}.txt"))
+        n = min(len(gt), len(est))
+        res = kitti_odometry.evaluate_sequence(gt[:n], est[:n], **kw)
+        target = targets_all.get(seq, {})
+        seq_rep = {"measured": res, "target": target, "deltas": {}, "pass": {}}
+        for m in VO_METRICS:
+            if m not in target:
+                continue
+            finite = bool(np.isfinite(res[m]))
+            delta = res[m] - target[m] if finite else float("nan")
+            ok = bool(finite and res[m] <= target[m] * (1.0 + tol))
+            seq_rep["deltas"][m] = round(float(delta), 4)
+            seq_rep["pass"][m] = ok
+            report["ok"] = report["ok"] and ok
+            rows.append((seq, m, res[m], target[m], delta, ok))
+        report["sequences"][seq] = seq_rep
+    print(f"# BASELINE gate vs {baseline} (tol {tol:+.0%} relative)")
+    print("| seq | metric | ours | baseline | delta | verdict |")
+    print("|---|---|---|---|---|---|")
+    for seq, m, v, t, delta, ok in rows:
+        print(f"| {seq} | {m} | {v:.3f} | {t:.3f} | {delta:+.3f} | {'PASS' if ok else 'FAIL'} |")
+    print(json.dumps(report), flush=True)
+    if strict and not report["ok"]:
+        raise SystemExit(1)
+    return report
+
+
 def cmd_train(args) -> Dict[str, float]:
     cfg = load_config(args.config)
     last = train_good(cfg, args.exper_name, args.train_iter, args.pretrained,
@@ -429,6 +777,41 @@ def cmd_val_feature(args) -> Dict[str, float]:
                           args.config, args.homography, device=args.device)
     print(json.dumps(summary))
     return summary
+
+
+def cmd_eval_vo(args) -> Dict[str, float]:
+    report = eval_vo(load_config(args.config), args.exper_name, args.pretrained, args.baseline,
+                     args.scene, args.n_frames,
+                     [float(x) for x in args.lengths.split(",")] if args.lengths else None,
+                     args.pose_graph, args.refine_ba, args.device)
+    print(json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in report.items()}))
+    return report
+
+
+def cmd_infer(args) -> Dict:
+    out = infer(args.img1, args.img2, args.pretrained, args.pretrained_SP, args.K, args.config,
+                args.good_num, args.out, args.device)
+    print(json.dumps(out))
+    return out
+
+
+def cmd_export_torch(args) -> Dict:
+    out = export_torch(args.config, args.checkpoint, args.out, args.n_iter, args.superpoint)
+    print(json.dumps(out))
+    return out
+
+
+def cmd_verify_dump(args) -> Dict:
+    return verify_dump(args.dump_root, args.deltas, args.min_matches)
+
+
+def cmd_tables(args) -> str:
+    return tables(args.config, args.metrics, args.top_k, args.latex, args.plot)
+
+
+def cmd_baseline_gate(args) -> Dict:
+    return baseline_gate(args.seq_dirs, args.gt_dir, args.baseline, args.exp, args.filename,
+                         args.tol, args.lengths, args.strict)
 
 
 def main(argv=None):
@@ -459,6 +842,66 @@ def main(argv=None):
     p.add_argument("--homography", type=int, default=0)
     p.add_argument("--device", choices=("cpu", "cuda"), default=None)
     p.set_defaults(fn=cmd_val_feature)
+    p = sub.add_parser("eval_vo", help="sequence VO: chain every pair, KITTI metrics")
+    p.add_argument("config")
+    p.add_argument("exper_name")
+    p.add_argument("--pretrained", default="")
+    p.add_argument("--scene", default="")
+    p.add_argument("--n_frames", type=int, default=0)
+    p.add_argument("--lengths", default="",
+                   help="comma list of segment lengths (default: KITTI 100..800 m; 5..40 m on "
+                        "the synthetic sequence)")
+    p.add_argument("--baseline", action="store_true",
+                   help="the RANSAC baseline in place of the net")
+    p.add_argument("--pose_graph", action="store_true")
+    p.add_argument("--refine_ba", action="store_true")
+    p.add_argument("--device", choices=("cpu", "cuda"), default=None)
+    p.set_defaults(fn=cmd_eval_vo)
+    p = sub.add_parser("infer", help="two images -> relative pose JSON")
+    p.add_argument("img1")
+    p.add_argument("img2")
+    p.add_argument("--pretrained", required=True,
+                   help="DeepF checkpoint (reference .pth.tar or flax .msgpack)")
+    p.add_argument("--pretrained_SP", default="", help="SuperPoint checkpoint")
+    p.add_argument("--K", default="", help="fx,fy,cx,cy (default: 1.2 max(H, W), the centre)")
+    p.add_argument("--config", default="", help="model config YAML (default: depth 5)")
+    p.add_argument("--good_num", type=int, default=1000)
+    p.add_argument("--out", default="", help="also write the JSON here")
+    p.add_argument("--device", choices=("cpu", "cuda"), default=None)
+    p.set_defaults(fn=cmd_infer)
+    p = sub.add_parser("export_torch", help="a flax .msgpack checkpoint as the reference "
+                                            ".pth.tar")
+    p.add_argument("config", help="model config YAML (ignored with --superpoint)")
+    p.add_argument("checkpoint", help="the .msgpack checkpoint")
+    p.add_argument("out", help="output .pth.tar path")
+    p.add_argument("--n_iter", type=int, default=0)
+    p.add_argument("--superpoint", action="store_true",
+                   help="the checkpoint is a SuperPointNetGauss2 frontend")
+    p.set_defaults(fn=cmd_export_torch)
+    p = sub.add_parser("verify_dump", help="dump-tree integrity check")
+    p.add_argument("dump_root")
+    p.add_argument("--deltas", default="1", help="comma list of delta_ij gaps")
+    p.add_argument("--min_matches", type=int, default=8)
+    p.set_defaults(fn=cmd_verify_dump)
+    p = sub.add_parser("tables", help="multi-experiment result tables")
+    p.add_argument("config", help="table config YAML (data.base_path + data.seq_dict)")
+    p.add_argument("--metrics", default="", help="comma list (default err_q_median,"
+                                                 "err_t_median)")
+    p.add_argument("--top_k", type=int, default=1)
+    p.add_argument("--latex", action="store_true")
+    p.add_argument("--plot", default="", help="save a bar figure here")
+    p.set_defaults(fn=cmd_tables)
+    p = sub.add_parser("baseline_gate", help="BASELINE.md's seq 09/10 verdict from eval_good "
+                                             "output dirs")
+    p.add_argument("seq_dirs", nargs="+", help="seq=dir pairs, e.g. 09=logs/eval09")
+    p.add_argument("--gt_dir", required=True, help="dir with <seq>.txt KITTI gt trajectories")
+    p.add_argument("--baseline", default="deepF", choices=sorted(BASELINE_TARGETS))
+    p.add_argument("--exp", default="DeepF", help="npz prefix (exps.our_name)")
+    p.add_argument("--filename", default="err_ratio.npz")
+    p.add_argument("--tol", type=float, default=0.05)
+    p.add_argument("--lengths", default="")
+    p.add_argument("--strict", action="store_true")
+    p.set_defaults(fn=cmd_baseline_gate)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -1,7 +1,8 @@
 """Geometry: homogeneous helpers, epipolar core, rotations, correction,
 E decomposition."""
 
-from .basic import dehomo, homo, rt_inverse, rt_pad, safe_norm, skew
+from .basic import (dehomo, homo, rt_depad, rt_inverse, rt_pad, safe_norm, se3_compose,
+                    se3_inverse, skew)
 from .correct import correct_matches, get_virtual_points, virtual_grid
 from .decompose import decompose_E, decompose_E_closed_form, recover_pose
 from .epipolar import (

@@ -57,3 +57,18 @@ def rt_inverse(Rt: torch.Tensor) -> torch.Tensor:
     R_T = Rt[..., :3, :3].transpose(-1, -2)
     t = Rt[..., :3, 3:4]
     return torch.cat([R_T, -R_T @ t], dim=-1)
+
+
+def rt_depad(T: torch.Tensor) -> torch.Tensor:
+    """[..., 4, 4] -> [..., 3, 4]."""
+    return T[..., :3, :]
+
+
+def se3_inverse(T: torch.Tensor) -> torch.Tensor:
+    """Invert [..., 4, 4] SE(3) matrices in closed form."""
+    return rt_pad(rt_inverse(rt_depad(T)))
+
+
+def se3_compose(T_a: torch.Tensor, T_b: torch.Tensor) -> torch.Tensor:
+    """Compose two [..., 4, 4] transforms: the result maps like T_a after T_b."""
+    return T_a @ T_b

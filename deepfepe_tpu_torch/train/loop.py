@@ -10,6 +10,7 @@ Checkpoints are `.pth.tar` files in the reference's `save_checkpoint`
 schema (Train_model_pipeline.py:56-77; the JAX package's
 `save_reference_checkpoint`): n_iter, n_iter_val, model_state_dict in the
 reference Conv1d layout, optimizer_state_dict (the Adam state) and loss.
+`load_checkpoint` also reads the JAX package's flax `.msgpack` files.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 from ..utils.device import batch_to_device
-from ..utils.weights import to_cpu, to_reference_layout
+from ..utils.weights import MSGPACK, deepfnet_state_from_msgpack, to_cpu, to_reference_layout
 from .config import Config, qt_clamps
 from .engine import eval_step, make_optimizer, train_step
 
@@ -45,7 +46,13 @@ def save_checkpoint(path: str, net: torch.nn.Module, opt: Optional[torch.optim.O
 def load_checkpoint(path: str, net: torch.nn.Module,
                     opt: Optional[torch.optim.Optimizer] = None) -> int:
     """Load a reference-schema checkpoint into `net` (and its Adam state
-    into `opt`, where the file has one); returns its n_iter."""
+    into `opt`, where the file has one), or the JAX package's flax
+    `.msgpack` (parameters only); returns its n_iter. A tree that does not
+    match the net fails `load_state_dict(strict=True)`."""
+    if str(path).endswith(MSGPACK):
+        sd, n_iter = deepfnet_state_from_msgpack(path)
+        net.load_state_dict(sd, strict=True)
+        return n_iter
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     net.load_state_dict(ckpt["model_state_dict"], strict=True)
     if opt is not None and ckpt.get("optimizer_state_dict"):

@@ -5,10 +5,13 @@ package's parameter trees, given as nested dicts of numpy arrays, to this
 package's `state_dict()` keys. The port's modules use the reference
 layout, so the output of the JAX package's `export_deepf_state` (Conv1d
 weights [out, in, 1]) and `export_superpoint_gauss2_state` load as well,
-with `load_state_dict(strict=True)`. `to_reference_layout` goes the other
-way, for the checkpoints the port writes. `save_superpoint` writes a
-SuperPoint net as the reference's `.pth.tar` (BatchNorm buffers
-included), and `load_superpoint` reads one, or a reference `.pth`.
+with `load_state_dict(strict=True)`. The JAX package's own `.msgpack`
+checkpoints are read without flax (`utils/msgpack_io.py`):
+`deepfnet_state_from_msgpack` and `load_superpoint` take them through the
+same two functions. `to_reference_layout` goes the other way, for the
+checkpoints the port writes. `save_superpoint` writes a SuperPoint net as
+the reference's `.pth.tar` (BatchNorm buffers included), and
+`load_superpoint` reads one, a reference `.pth` or a flax `.msgpack`.
 """
 
 from __future__ import annotations
@@ -20,6 +23,15 @@ import numpy as np
 import torch
 
 N_HIDDEN = 5
+MSGPACK = ".msgpack"
+
+
+def _np(x) -> np.ndarray:
+    """A leaf as a numpy array: msgpack bfloat16 leaves come as torch
+    tensors (numpy has no bfloat16), widened to float32 exactly."""
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x)
 
 
 def error_estimator_state_from_flax(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
@@ -30,12 +42,12 @@ def error_estimator_state_from_flax(tree: Mapping, prefix: str) -> Dict[str, tor
     sd = {}
     for li in range(N_HIDDEN + 1):
         dense = tree[f"Dense_{li}"]
-        sd[f"{pre}.{3 * li}.weight"] = np.asarray(dense["kernel"]).T
-        sd[f"{pre}.{3 * li}.bias"] = np.asarray(dense["bias"])
+        sd[f"{pre}.{3 * li}.weight"] = _np(dense["kernel"]).T
+        sd[f"{pre}.{3 * li}.bias"] = _np(dense["bias"])
         if li < N_HIDDEN:
             norm = tree[f"InstanceNorm1d_{li}"]
-            sd[f"{pre}.{3 * li + 1}.weight"] = np.asarray(norm["scale"])
-            sd[f"{pre}.{3 * li + 1}.bias"] = np.asarray(norm["bias"])
+            sd[f"{pre}.{3 * li + 1}.weight"] = _np(norm["scale"])
+            sd[f"{pre}.{3 * li + 1}.bias"] = _np(norm["bias"])
     return {k: torch.tensor(np.ascontiguousarray(v), dtype=torch.float32)
             for k, v in sd.items()}
 
@@ -48,10 +60,10 @@ def good_corres_state_from_flax(tree: Mapping, prefix: str) -> Dict[str, torch.T
     sd = {}
     for name, p in tree.items():
         if "kernel" in p:
-            sd[f"{prefix}.{name}.weight"] = np.asarray(p["kernel"]).T
+            sd[f"{prefix}.{name}.weight"] = _np(p["kernel"]).T
         else:
-            sd[f"{prefix}.{name}.weight"] = np.asarray(p["scale"])
-        sd[f"{prefix}.{name}.bias"] = np.asarray(p["bias"])
+            sd[f"{prefix}.{name}.weight"] = _np(p["scale"])
+        sd[f"{prefix}.{name}.bias"] = _np(p["bias"])
     return {k: torch.tensor(np.ascontiguousarray(v), dtype=torch.float32)
             for k, v in sd.items()}
 
@@ -71,6 +83,32 @@ def deepfnet_state_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def deepfnet_params_from_tree(tree: Mapping) -> Mapping:
+    """The solver's parameter dict inside a flax checkpoint tree: a
+    TrainState ({'params': {'params': ...}, 'opt_state', 'n_iter'}), a
+    joint state's 'deepf_params', or bare parameters, peeled down to the
+    dict that holds the weight nets."""
+    while "input_weights" not in tree:
+        key = next((k for k in ("params", "deepf_params") if isinstance(tree.get(k), Mapping)),
+                   None)
+        if key is None:
+            raise KeyError(f"no solver parameters in a tree with keys {sorted(tree)}")
+        tree = tree[key]
+    return tree
+
+
+def deepfnet_state_from_msgpack(path: str) -> tuple[Dict[str, torch.Tensor], int]:
+    """A JAX DeepFNet `.msgpack` checkpoint -> (this package's state_dict,
+    its n_iter, 0 where it has none). The Adam state of a TrainState file
+    is not carried."""
+    from .msgpack_io import load_params_msgpack
+
+    tree = load_params_msgpack(path)
+    n_iter = tree.get("n_iter")
+    return (deepfnet_state_from_flax(deepfnet_params_from_tree(tree)),
+            int(_np(n_iter)) if n_iter is not None else 0)
+
+
 def to_reference_layout(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """This package's DeepFNet state_dict -> the reference layout, whose
     Conv1d weights are [out, in, 1] (the inverse of the load hook), on the
@@ -84,15 +122,15 @@ GAUSS2_SEQ = {"conv0": 0, "bn0": 1, "conv1": 3, "bn1": 4}
 
 def _conv_from_flax(sd: dict, key: str, p: Mapping) -> None:
     """flax Conv {kernel [kh, kw, in, out], bias} -> torch weight [out, in, kh, kw]."""
-    sd[f"{key}.weight"] = np.asarray(p["kernel"]).transpose(3, 2, 0, 1)
-    sd[f"{key}.bias"] = np.asarray(p["bias"])
+    sd[f"{key}.weight"] = _np(p["kernel"]).transpose(3, 2, 0, 1)
+    sd[f"{key}.bias"] = _np(p["bias"])
 
 
 def _bn_from_flax(sd: dict, key: str, p: Mapping, s: Mapping) -> None:
-    sd[f"{key}.weight"] = np.asarray(p["scale"])
-    sd[f"{key}.bias"] = np.asarray(p["bias"])
-    sd[f"{key}.running_mean"] = np.asarray(s["mean"])
-    sd[f"{key}.running_var"] = np.asarray(s["var"])
+    sd[f"{key}.weight"] = _np(p["scale"])
+    sd[f"{key}.bias"] = _np(p["bias"])
+    sd[f"{key}.running_mean"] = _np(s["mean"])
+    sd[f"{key}.running_var"] = _np(s["var"])
     sd[f"{key}.num_batches_tracked"] = np.asarray(0, np.int64)
 
 
@@ -147,16 +185,21 @@ def save_superpoint(path: str, net: torch.nn.Module, n_iter: int,
 
 
 def load_superpoint(path: str, device=None, dtype=torch.float32) -> torch.nn.Module:
-    """A reference SuperPoint checkpoint (`.pth` state dict, or `.pth.tar`
-    with `model_state_dict`) -> the matching net, in eval mode, computing
-    in `dtype` (its parameters float32, as in the file):
-    `SuperPointNetGauss2` when the file has BatchNorm keys, else
-    `SuperPointNet`."""
+    """A SuperPoint checkpoint -> the matching net, in eval mode, computing
+    in `dtype` (its parameters float32, as in the file): a reference `.pth`
+    state dict or `.pth.tar` with `model_state_dict`, or the JAX package's
+    flax `.msgpack` variables. `SuperPointNetGauss2` when the file has
+    BatchNorm keys (batch statistics), else `SuperPointNet`."""
     from ..frontend.superpoint import SuperPointNet, SuperPointNetGauss2
 
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    sd = ckpt.get("model_state_dict", ckpt)
-    sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+    if str(path).endswith(MSGPACK):
+        from .msgpack_io import load_params_msgpack
+
+        sd = superpoint_state_from_flax(load_params_msgpack(path))
+    else:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        sd = ckpt.get("model_state_dict", ckpt)
+        sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
     gauss2 = any(k.endswith("running_mean") for k in sd)
     net = SuperPointNetGauss2(dtype=dtype) if gauss2 else SuperPointNet(dtype=dtype)
     net.load_state_dict(sd, strict=True)

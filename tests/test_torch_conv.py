@@ -32,6 +32,7 @@ import jax.numpy as jnp
 import torch.nn.functional as F
 
 from deepfepe_tpu.ops.pallas.conv_pallas import conv3x3_affine_relu as jconv
+from _torch_threads import one_torch_thread  # noqa: F401
 
 conv = importlib.import_module("deepfepe_tpu_torch.ops.conv")
 

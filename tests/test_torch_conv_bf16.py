@@ -34,6 +34,7 @@ import jax
 import jax.numpy as jnp
 
 from deepfepe_tpu.ops.pallas.conv_pallas import conv3x3_affine_relu as jconv
+from _torch_threads import one_torch_thread  # noqa: F401
 
 cb = importlib.import_module("deepfepe_tpu_torch.ops.conv_bf16")
 conv = importlib.import_module("deepfepe_tpu_torch.ops.conv")

@@ -40,6 +40,7 @@ from deepfepe_tpu.ops.pallas.conv_pallas import conv3x3_affine_relu as jconv
 from deepfepe_tpu.ops.pallas.conv_pallas import conv3x3_affine_relu_ref as jconv_ref
 from deepfepe_tpu_torch.frontend import SuperPointNetGauss2
 from deepfepe_tpu_torch.utils.weights import superpoint_state_from_flax
+from _torch_threads import one_torch_thread  # noqa: F401
 
 conv = importlib.import_module("deepfepe_tpu_torch.ops.conv")
 sp_fused = importlib.import_module("deepfepe_tpu_torch.frontend.sp_fused")

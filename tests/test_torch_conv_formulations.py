@@ -45,6 +45,7 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+from _torch_threads import one_torch_thread  # noqa: F401
 
 cf = importlib.import_module("deepfepe_tpu_torch.ops.conv_formulations")
 conv = importlib.import_module("deepfepe_tpu_torch.ops.conv")

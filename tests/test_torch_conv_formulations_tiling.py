@@ -36,6 +36,7 @@ import importlib
 
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 cf = importlib.import_module("deepfepe_tpu_torch.ops.conv_formulations")
 tool = importlib.import_module("deepfepe_tpu_torch.tools.bench_conv_formulations")

@@ -32,6 +32,7 @@ from deepfepe_tpu_torch.utils.weights import (
     deepfnet_state_from_flax,
     error_estimator_state_from_flax,
 )
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = (376, 1241)
 
@@ -75,7 +76,7 @@ def _jax_forward(batch, mlp_dtype, depth=3):
     net = JDeepFNet(depth=depth, image_size=SIZE, if_quality=True, mlp_dtype=mlp_dtype,
                     sign_canonical=True)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    params = _randomize(net.init(jax.random.PRNGKey(1), jb), seed=1)
+    params = _randomize(jax.jit(net.init)(jax.random.PRNGKey(1), jb), seed=1)
     return params, jax.jit(net.apply)(params, jb)
 
 

@@ -49,6 +49,7 @@ from deepfepe_tpu_torch.utils.image_io import read_png, write_png
 from deepfepe_tpu_torch.utils.weights import superpoint_state_from_flax
 
 from test_torch_frontend import flax_variables
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SEQ = dict(n_frames=4, image_size=(120, 160), focal=140.0, n_blobs=80, n_corners=60, seed=3)
 

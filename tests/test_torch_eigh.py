@@ -24,6 +24,7 @@ from deepfepe_tpu_torch.ops import eigh as t_eigh
 from deepfepe_tpu_torch.ops import eigh9 as t_eigh9
 from deepfepe_tpu_torch.ops.jacobi import jacobi_eigh as t_jacobi
 from deepfepe_tpu_torch.utils import build
+from _torch_threads import one_torch_thread  # noqa: F401
 
 BARS = {"float32": (1e-5, 1e-4), "float64": (1e-10, 1e-8)}
 

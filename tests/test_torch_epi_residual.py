@@ -37,6 +37,7 @@ import jax.numpy as jnp
 from deepfepe_tpu.geometry.epipolar import compute_epi_residual as j_epi
 from deepfepe_tpu_torch.geometry.epipolar import compute_epi_residual
 from deepfepe_tpu_torch.tools import epi_variants
+from _torch_threads import one_torch_thread  # noqa: F401
 
 epi = importlib.import_module("deepfepe_tpu_torch.ops.epi_residual")
 

@@ -40,6 +40,7 @@ from deepfepe_tpu_torch.data import SyntheticPairs
 from deepfepe_tpu_torch.models import DeepFNet
 from deepfepe_tpu_torch.train.config import config_from_dict, load_config
 from deepfepe_tpu_torch.utils.weights import deepfnet_state_from_flax
+from _torch_threads import one_torch_thread  # noqa: F401
 
 CONFIG = str(Path(__file__).resolve().parents[1] / "configs" / "synthetic_baseline.yaml")
 B, N, H, DEPTH = 2, 200, 512, 3

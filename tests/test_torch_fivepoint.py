@@ -33,6 +33,7 @@ from deepfepe_tpu_torch.eval import ransac as t_ransac, val_rt as t_valrt
 from deepfepe_tpu_torch.geometry import epipolar as t_epi, fivepoint as t_fp
 
 from test_fivepoint import _E_err, _E_gt, _project_pair, _random_pose
+from _torch_threads import one_torch_thread  # noqa: F401
 
 _jax_basis = jax.jit(jax.vmap(j_fp._nullspace_basis))
 _jax_cands = jax.jit(jax.vmap(j_fp.five_point_candidates))

@@ -18,6 +18,7 @@ from deepfepe_tpu.ops import fmatrix as j_fm, svd3 as j_svd3
 from deepfepe_tpu_torch.ops import fmatrix as t_fm, svd3 as t_svd3
 
 from conftest import synthetic_pair
+from _torch_threads import one_torch_thread  # noqa: F401
 
 # The packages re-export the function `f_loss` under the module's name.
 j_floss = importlib.import_module("deepfepe_tpu.losses.f_loss")

@@ -45,6 +45,7 @@ from deepfepe_tpu_torch.frontend import (FrontendParams, Keypoints, SuperPointNe
                                          sample_descriptors, soft_argmax_refine, topk_keypoints)
 from deepfepe_tpu_torch.frontend.sp_fused import superpoint_forward_fused
 from deepfepe_tpu_torch.utils.weights import superpoint_state_from_flax
+from _torch_threads import one_torch_thread  # noqa: F401
 
 NETS = {"plain": (JSuperPointNet, SuperPointNet), "gauss2": (JSuperPointNetGauss2,
                                                              SuperPointNetGauss2)}

@@ -20,6 +20,7 @@ from deepfepe_tpu_torch.geometry import basic as tb, correct as tc, decompose as
 from deepfepe_tpu_torch.geometry import epipolar as te, rotations as tr
 
 from conftest import synthetic_pair
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-10
 

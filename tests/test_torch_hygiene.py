@@ -19,7 +19,9 @@ from deepfepe_tpu_torch.utils.device import resolve_device
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "deepfepe_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "deepfepe_tpu")
+# The port reads flax checkpoints with its own decoder (utils/msgpack_io.py):
+# the card's machine has neither flax nor the msgpack package.
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "deepfepe_tpu")
 # The card's machine has no OpenCV and no Pillow: the port reads and writes
 # its frames with utils/image_io.py.
 NO_IMAGE_LIBS = ("cv2", "PIL")
@@ -70,7 +72,10 @@ def test_importing_the_port_loads_no_jax():
               "ops.conv_formulations", "tools.bench_conv_formulations", "tools.profile_mlp",
               "tools.xconv_variants", "data.kitti", "data.native_loader", "data.dump_kitti",
               "data.synthetic_dump", "utils.image_io", "geometry.fivepoint",
-              "eval.metrics_summary"):
+              "eval.metrics_summary", "utils.msgpack_io", "data.synthetic_sequence",
+              "eval.vo", "eval.kitti_odometry", "eval.tum", "eval.results",
+              "eval.opencv_baseline", "run_eval", "utils.io", "utils.logging",
+              "utils.profiling"):
         assert f"deepfepe_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -48,6 +48,7 @@ from deepfepe_tpu_torch.frontend import (FrontendParams, mutual_nn_match, nms_he
                                          sample_descriptors, soft_argmax_refine, topk_keypoints)
 from deepfepe_tpu_torch.train.joint import joint_eval_step, joint_train_step, make_joint_state
 from deepfepe_tpu_torch.utils.weights import superpoint_state_from_flax
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _rel(a, b):

@@ -49,6 +49,7 @@ from deepfepe_tpu.train.joint import JointTrainState, make_joint_train_step
 from deepfepe_tpu_torch.frontend import FrontendParams, SuperPointNetGauss2, get_matches_from_sp
 from deepfepe_tpu_torch.train.joint import joint_train_step, make_joint_state
 from deepfepe_tpu_torch.utils.weights import superpoint_state_from_flax
+from _torch_threads import one_torch_thread  # noqa: F401
 
 conv = importlib.import_module("deepfepe_tpu_torch.ops.conv")
 sp_fused = importlib.import_module("deepfepe_tpu_torch.frontend.sp_fused")

@@ -35,6 +35,7 @@ from deepfepe_tpu_torch.utils.image_io import write_png
 from deepfepe_tpu_torch.utils.weights import load_superpoint
 
 from test_torch_joint_cli import _joint_yaml
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _bf16(path, **sp_params):

@@ -18,9 +18,9 @@ guard against the JAX step, and the `train_good` entry point with
 - `train_good` with `model.if_SP` on a tiny synthetic_images YAML, on the
   CPU: metrics.jsonl, both reference checkpoints (the SuperPoint one with
   its BatchNorm buffers, readable by the JAX package's importer), a
-  `pretrained_SP` restore, and NotImplementedError for a flax SuperPoint
-  file (the bf16 SuperPoint and `remat` run since they were ported:
-  tests/test_torch_joint_bf16.py).
+  `pretrained_SP` restore from a `.pth.tar` and from a flax `.msgpack`
+  (read since the flax reader was ported; the bf16 SuperPoint and `remat`
+  run since they were ported: tests/test_torch_joint_bf16.py).
 """
 
 import importlib
@@ -41,6 +41,7 @@ from deepfepe_tpu_torch import cli
 from deepfepe_tpu_torch.frontend import FrontendParams, get_matches_from_sp
 from deepfepe_tpu_torch.ops.conv import full_f32
 from deepfepe_tpu_torch.utils.weights import load_superpoint, superpoint_state_from_flax
+from _torch_threads import one_torch_thread  # noqa: F401
 
 sp_fused = importlib.import_module("deepfepe_tpu_torch.frontend.sp_fused")
 
@@ -144,8 +145,27 @@ def test_pretrained_sp_restores_the_frontend(tmp_path, monkeypatch):
 
 
 def test_what_the_joint_path_does_not_port_raises(tmp_path, monkeypatch):
+    """Since the flax reader was ported nothing of the joint path raises as
+    unported: a flax `.msgpack` SuperPoint restores the frontend (stage 1
+    leaves it as read), and a `.msgpack` holding no SuperPoint is refused."""
+    from flax import serialization
+
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="msgpack"):
+    cli.main(["train_good", _joint_yaml(tmp_path), "a", "--device", "cpu"])
+    src = tmp_path / "logs" / "a" / "checkpoints" / "superPointNet_2_checkpoint.pth.tar"
+    variables, _ = load_reference_checkpoint(str(src), kind="auto")
+    (tmp_path / "sp.msgpack").write_bytes(serialization.to_bytes(variables))
+    cli.main(["train_good", _joint_yaml(tmp_path, train_iter=1, train_SP=False,
+                                        retrain_SP=False, pretrained_SP="sp.msgpack"),
+              "b", "--device", "cpu"])
+    before = torch.load(src, weights_only=True)["model_state_dict"]
+    after = torch.load(tmp_path / "logs" / "b" / "checkpoints"
+                       / "superPointNet_1_checkpoint.pth.tar", weights_only=True)
+    assert after["model_state_dict"].keys() == before.keys()
+    assert all(torch.equal(v, before[k]) for k, v in after["model_state_dict"].items()
+               if not k.endswith("num_batches_tracked"))
+    solver = tmp_path / "deepf.msgpack"
+    solver.write_bytes(serialization.to_bytes({"params": {"input_weights": {}}}))
+    with pytest.raises(KeyError):
         cli.main(["train_good", _joint_yaml(tmp_path, retrain_SP=False,
-                                            pretrained_SP="sp.msgpack"), "x", "--device", "cpu"])
-    assert not (tmp_path / "logs").exists()
+                                            pretrained_SP=str(solver)), "x", "--device", "cpu"])

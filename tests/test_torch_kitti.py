@@ -31,6 +31,7 @@ from deepfepe_tpu_torch.data.kitti import KittiCorrDataset as TKitti
 from deepfepe_tpu_torch.data.synthetic_dump import write_corr_dump
 from deepfepe_tpu_torch.loader import DUMP_DATASETS, data_loader
 from deepfepe_tpu_torch.train.config import config_from_dict
+from _torch_threads import one_torch_thread  # noqa: F401
 
 VIRT_TOL = 2e-3
 SIZE = (376, 1241)

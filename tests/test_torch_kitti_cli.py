@@ -26,12 +26,14 @@ import torch
 
 import jax
 
+from _jax_cli_fast import patch_jax_cli
 from deepfepe_tpu import cli as j_cli
 from deepfepe_tpu.data.kitti import KittiCorrDataset as JKitti
 from deepfepe_tpu_torch import cli
 from deepfepe_tpu_torch.data.synthetic_dump import write_corr_dump
 from deepfepe_tpu_torch.loader import data_loader, model_loader
 from deepfepe_tpu_torch.train import config_from_dict, load_config, save_checkpoint
+from _torch_threads import one_torch_thread  # noqa: F401
 
 KEYS = {"err_q", "err_t", "epi_dists", "relative_poses_cam", "relative_poses_body"}
 YAML = """
@@ -102,6 +104,7 @@ def test_eval_good_writes_the_jax_dumps(dump, tmp_path, monkeypatch, capsys):
     ckpt = str(tmp_path / "w.pth.tar")
     save_checkpoint(ckpt, net, None, 0)
 
+    patch_jax_cli(monkeypatch)  # the same numbers, fewer compiles
     j_cli.main(["eval_good", yaml, "jx", "--pretrained", ckpt])
     jsum = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     data = cli.eval_batches(cfg, data_loader(cfg, "test"), 0)

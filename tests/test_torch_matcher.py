@@ -34,6 +34,7 @@ import jax.numpy as jnp
 from deepfepe_tpu.frontend.matching import mutual_nn_match as jmatch
 from deepfepe_tpu.ops.pallas.matcher_pallas import mutual_nn_pallas
 from deepfepe_tpu_torch.frontend import matching
+from _torch_threads import one_torch_thread  # noqa: F401
 
 matcher = importlib.import_module("deepfepe_tpu_torch.ops.matcher")
 

@@ -51,6 +51,7 @@ import jax.numpy as jnp
 from deepfepe_tpu.ops.pallas.mlp_pallas import fused_pointnet_mlp as jfused
 from deepfepe_tpu.ops.pallas.mlp_pallas import reference_pointnet_mlp as jreference
 from deepfepe_tpu_torch.models import ErrorEstimator
+from _torch_threads import one_torch_thread  # noqa: F401
 
 mlp = importlib.import_module("deepfepe_tpu_torch.ops.mlp")
 

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 from deepfepe_tpu.data.synthetic import SyntheticPairs
 from deepfepe_tpu.eval import ransac as j_ransac, val_rt as j_valrt
 from deepfepe_tpu_torch.eval import ransac as t_ransac, val_rt as t_valrt
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = (376, 1241)
 H = 64

@@ -23,6 +23,7 @@ from deepfepe_tpu.losses.rt_loss import rt_loss as jrt_loss
 from deepfepe_tpu_torch.geometry import decompose_E_closed_form
 from deepfepe_tpu_torch.losses import rt_loss
 from deepfepe_tpu_torch.ops import set_nan2zero
+from _torch_threads import one_torch_thread  # noqa: F401
 
 VAL_TOL, GRAD_TOL = 1e-9, 1e-7
 

@@ -320,7 +320,8 @@ def test_sample_loss_train_step_matches_jax_f64():
                      if_sample_loss=True, mlp_dtype=jnp.float64)
     params = jax.tree_util.tree_map(
         lambda a: jnp.asarray(a, jnp.float64),
-        jnet.init({"params": jax.random.PRNGKey(0), "sample": jax.random.PRNGKey(1)}, jb))
+        jax.jit(jnet.init)({"params": jax.random.PRNGKey(0), "sample": jax.random.PRNGKey(1)},
+                           jb))
     jcfg = jconfig_from_dict(RAW)
     key = jax.random.PRNGKey(9)
 
@@ -330,7 +331,7 @@ def test_sample_loss_train_step_matches_jax_f64():
     with _RecordJaxDraws() as rec:
         jloss(params)  # un-jitted forward: records the draws the gradient below takes
     assert len(rec.idx) == depth
-    (jl, jm), jg = jax.value_and_grad(jloss, has_aux=True)(params)
+    (jl, jm), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
     cfg = config_from_dict(RAW)
     net = DeepFNet(depth=depth, image_size=SIZE, if_quality=True, sign_canonical=True,
                    if_sample_loss=True, mlp_dtype=torch.float64).double()

@@ -43,6 +43,7 @@ from deepfepe_tpu.frontend.superpoint import SuperPointNetGauss2 as JGauss2
 from deepfepe_tpu_torch.frontend import FrontendParams, SuperPointNet, SuperPointNetGauss2
 from deepfepe_tpu_torch.frontend.pipeline import run_superpoint
 from deepfepe_tpu_torch.utils.weights import superpoint_state_from_flax
+from _torch_threads import one_torch_thread  # noqa: F401
 
 sp_fused = importlib.import_module("deepfepe_tpu_torch.frontend.sp_fused")
 conv = importlib.import_module("deepfepe_tpu_torch.ops.conv")

@@ -61,6 +61,7 @@ from deepfepe_tpu_torch.ops import mlp
 from deepfepe_tpu_torch.train import config_from_dict, learning_rate, make_optimizer, train_step
 from deepfepe_tpu_torch.train.engine import update_count
 from deepfepe_tpu_torch.utils.weights import deepfnet_state_from_flax
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = (376, 1241)
 DEPTH, N, B = 2, 64, 2
@@ -114,7 +115,7 @@ def _jax_step(batch, d):
     net = JDeepFNet(depth=DEPTH, image_size=SIZE, if_quality=True, sign_canonical=True,
                     mlp_dtype=getattr(jnp, m.mlp_dtype), use_pallas_mlp=m.use_pallas_mlp)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    params = jax.device_get(net.init(jax.random.PRNGKey(0), jb))
+    params = jax.device_get(jax.jit(net.init)(jax.random.PRNGKey(0), jb))
     tx = _keep_grads()
     state, metrics = make_train_step(net, tx, cfg)(TrainState.create(params, tx), jb, 0.1, 0.5)
     grads = jax.device_get(state.opt_state)

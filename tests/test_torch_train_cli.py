@@ -31,6 +31,7 @@ from deepfepe_tpu_torch import cli
 from deepfepe_tpu_torch.models import DeepFNet
 from deepfepe_tpu_torch.train import Trainer, config_from_dict, eval_step, load_checkpoint
 from deepfepe_tpu_torch.utils.weights import to_reference_layout
+from _torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 SIZE = (376, 1241)
@@ -122,9 +123,10 @@ def test_checkpoint_loads_into_the_jax_package(tmp_path, monkeypatch):
                      mlp_dtype=jnp.float64, sign_canonical=True)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     jparams = jax.tree_util.tree_map(
-        lambda a, b: jnp.asarray(b, jnp.float64), jnet.init(jax.random.PRNGKey(0), jb),
+        lambda a, b: jnp.asarray(b, jnp.float64),
+        jax.eval_shape(jnet.init, jax.random.PRNGKey(0), jb),
         jax.tree_util.tree_map(np.asarray, variables))
-    F_jax = jnet.apply(jparams, jb)["F_est"]
+    F_jax = jax.jit(jnet.apply)(jparams, jb)["F_est"]
     net = trainer.net.double()
     net.input_weights.dtype = net.update_weights.dtype = torch.float64
     with torch.no_grad():

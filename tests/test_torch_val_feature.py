@@ -34,6 +34,7 @@ from deepfepe_tpu_torch.frontend import FrontendParams, SuperPointNet, SuperPoin
 from deepfepe_tpu_torch.utils.weights import load_superpoint, superpoint_state_from_flax
 
 from test_torch_frontend import flax_variables
+from _torch_threads import one_torch_thread  # noqa: F401
 
 FP = dict(out_num_points=300, conf_thresh=1e-3)  # the JAX CLI's val_feature knobs
 
@@ -114,6 +115,6 @@ def test_val_feature_builds_gauss2_from_batchnorm_keys(tmp_path):
 
 def test_val_feature_refuses_what_is_not_ported(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    for kw, what in ((dict(homography=2), "cv2"), (dict(pretrained="sp.msgpack"), "flax")):
+    for kw, what in ((dict(homography=2), "cv2"),):
         with pytest.raises(NotImplementedError, match=what):
             cli.val_feature("x", device="cpu", **kw)

@@ -49,6 +49,7 @@ from deepfepe_tpu_torch.models import DeepFNet, GoodCorresNet
 from deepfepe_tpu_torch.train import config_from_dict, load_checkpoint, save_checkpoint
 from deepfepe_tpu_torch.loader import model_loader
 from deepfepe_tpu_torch.utils.weights import deepfnet_state_from_flax
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = (376, 1241)
 B, N, DEPTH = 2, 64, 3
@@ -80,10 +81,29 @@ def _randomize(params, seed=1):
     return jax.tree_util.tree_map_with_path(f, params)
 
 
+_JAX_RUNS = {}
+
+
+def _jax_run(flag, jb):
+    """The JAX net of `flag`, its parameters, and in one compiled call its
+    forward outputs, F-loss and parameter gradients; computed once a flag
+    for the forward and gradient tests."""
+    if flag not in _JAX_RUNS:
+        jnet = JDeepFNet(depth=DEPTH, image_size=SIZE, if_quality=True, sign_canonical=True,
+                         mlp_dtype=jnp.float64, **{flag: True})
+        params = _randomize(jax.jit(jnet.init)(jax.random.PRNGKey(0), jb))
+
+        def jloss(p):
+            out = jnet.apply(p, jb)
+            return jf_loss(out, jb["pts1_virt"], jb["pts2_virt"], jb["Ks"], 0.02)["loss_F"], out
+
+        (jl, oj), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
+        _JAX_RUNS[flag] = jnet, params, oj, jl, jg
+    return _JAX_RUNS[flag]
+
+
 def _nets(flag, jb):
-    jnet = JDeepFNet(depth=DEPTH, image_size=SIZE, if_quality=True, sign_canonical=True,
-                     mlp_dtype=jnp.float64, **{flag: True})
-    params = _randomize(jnet.init(jax.random.PRNGKey(0), jb))
+    jnet, params = _jax_run(flag, jb)[:2]
     net = DeepFNet(depth=DEPTH, image_size=SIZE, if_quality=True, sign_canonical=True,
                    mlp_dtype=torch.float64, **{flag: True}).double()
     net.load_state_dict(deepfnet_state_from_flax(params), strict=True)
@@ -104,7 +124,7 @@ def batch():
 def test_variant_forward_matches_jax_f64(flag, batch):
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     jnet, params, net = _nets(flag, jb)
-    oj = jax.jit(jnet.apply)(params, jb)
+    oj = _jax_run(flag, jb)[2]
     with torch.no_grad():
         ot = net({k: torch.from_numpy(v) for k, v in batch.items()})
     tol = 1e-10
@@ -128,12 +148,7 @@ def test_variant_gradients_match_jax_f64(flag, batch):
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     loss = f_loss(net(tb), tb["pts1_virt"], tb["pts2_virt"], tb["Ks"], 0.02)["loss_F"]
     loss.backward()
-
-    def jloss(p):
-        return jf_loss(jnet.apply(p, jb), jb["pts1_virt"], jb["pts2_virt"], jb["Ks"],
-                       0.02)["loss_F"]
-
-    jl, jg = jax.value_and_grad(jloss)(params)
+    jl, jg = _jax_run(flag, jb)[3:]
     assert abs(float(loss) - float(jl)) <= 1e-10 * abs(float(jl))
     ref = {k: v.numpy() for k, v in deepfnet_state_from_flax(jg).items()}
     grads = dict(net.named_parameters())
