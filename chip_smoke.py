@@ -154,7 +154,27 @@ and for the VO slice:
   infer    the serving entry on two 376x1240 PNG frames with the gauss2
            SuperPoint of val_feature (b) and the flagship solver, K = 1000,
            the conv switch on K5: the pose JSON, R a rotation, exact launches
-           (K5 6, K4 1, eigh9 5, K3 4) and the call's ms.
+           (K5 6, K4 1, eigh9 5, K3 4) and the call's ms;
+and for the BA slice (bundle adjustment and pose-graph fusion):
+  eval_vo_ba  `eval_vo` with the flagship in three modes, --refine_ba,
+           --pose_graph and both: exact launches (the (i, i + 2) sweep adds
+           eigh9 40 and K3 40; the polish and the pose graph none), finite
+           reports, the fused rot deg/100 m the chained one's within
+           PG_ROT_TOL; then the first batch's refined poses on the card
+           against the CPU replay of the polish on the card's solver
+           outputs, within REFINE_BAR_DEG (rotation and translation
+           direction, by chords), the same pairs accepted but near ties,
+           and the polish and its factorizations timed;
+  eval_good_ba  `eval_good` on the flagship config, without and with
+           --refine_ba (B = 8, N = 1000, 5 batches): exact launches, finite
+           summaries, the gt sanity;
+  bench_ba  tools/bench_ba.py: the Schur BA at C = 100, P = 10,000, the
+           square-root BA at C = 32, P = 10,000, the two-stage pose graph
+           at 1,000 and 10,000 frames (CG): convergence, ms an iteration,
+           peak memory, no kernel launched;
+  vo_pose_graph  tools/vo_pose_graph.py at its defaults (30 frames at
+           240x320, the repo's sp_joint_11000 SuperPoint, the flagship
+           solver, K5 and K4 on): exact launches, finite metrics.
 
 The line before the card's name line is the kernels' JSON summary (eigh9,
 K2, K2b, K5, K4, K5b, K3 and its backward, X1-X4, the bf16 K5 and K5b, each
@@ -182,6 +202,11 @@ centre tap, or its weight gradient summing dscale and dbias from a float32
 dz) and runs only that kernel's checks, printing their readings; it exits 1 when a check
 caught the fault. `--plant none` runs every set and gives the sound
 readings the bars are set against.
+
+    python3 chip_smoke.py --phases eval_vo_ba,bench_ba
+
+builds and runs only the named phases of ALONE_PHASES (the BA slice's),
+a quicker look at those paths; it prints no kernels line.
 
     python3 chip_smoke.py --window '["NAME", ARG, ...]'
 
@@ -4320,6 +4345,288 @@ def phase_infer(ph: Phases) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The BA slice: eval_vo's two-view polish and pose-graph fusion, eval_good's
+# polish, the BA benchmark and the SuperPoint VO pose-graph tool.
+# ---------------------------------------------------------------------------
+
+SP_FULL_CKPT = os.path.join("experiments", "sp_full", "sp_joint_11000.msgpack")
+VO_SKIP_PAIRS = VO_FRAMES - 2  # the (i, i + 2) sweep of --pose_graph: 58 pairs in 8 batches
+VO_BA_MODES = {"refine_ba": {"refine_ba": True}, "pose_graph": {"pose_graph": True},
+               "refine_ba_pose_graph": {"refine_ba": True, "pose_graph": True}}
+# The two-stage solve freezes the rotations in its translation stage and
+# averages them in its first: rot deg/100 m of the fused trajectory stays
+# the chained one's within this.
+PG_ROT_TOL = 0.02
+# The card's refined poses of the first batch against the CPU replay of the
+# polish on the card's solver outputs (matches, weights, R, t): the same
+# float32 Gauss-Newton steps in cuSOLVER and LAPACK, 4e-6 deg apart in
+# rotation and 1.5e-5 deg in direction (PERF.md §6). A pair whose
+# acceptance differs must be a near tie (the polished and the initial robust
+# cost within TIE_REL on a device). The whole path's gap is reported only:
+# the polish stops where a step is rejected, and from the solver's bf16
+# rounding (held in `eval_vo`) it made up to 0.14 deg and 4 deg.
+REFINE_BAR_DEG = 1e-3
+TIE_REL = 1e-4
+# eval_good on the flagship config: a batch's five fits, the RANSAC fan-out
+# and its refit (eigh9 7), K3 5; the polish launches no kernel.
+EVAL_GOOD_PER_BATCH = {"eigh9": 7, "epi_residual": 5}
+# tools/vo_pose_graph.py at its defaults: 30 frames at 240x320 (29 + 28 pairs
+# in 4 + 4 batches of 8), the plain SuperPointNet (K5 on its four layers of
+# >= 16,384 px, both frames of a batch in one pass), K4 once a batch, the
+# solver's fits (eigh9 5) and K3 5 (four in DeepFNet, one in the F-loss).
+VOPG_BATCHES = 8
+VOPG_PER_BATCH = {"conv3x3_affine_relu": 4, "mutual_nn_kernel": 1, "eigh9": 5,
+                  "epi_residual": 5}
+BENCH_BA_ARGS = ["--points", "10000", "--cams", "100", "--sqrt_cams", "32",
+                 "--pg_frames", "1000", "10000", "--iters", "8", "--device", "cuda"]
+
+
+def finite_report(rep: dict) -> bool:
+    import numpy as np
+
+    vals = [v for v in rep.values() if isinstance(v, float)]
+    vals += [v for v in rep.get("pose_graph", {}).values() if isinstance(v, float)]
+    return all(np.isfinite(vals))
+
+
+def vo_refined(cfg, batch, dev: str):
+    """The port's eval_vo path on one batch on `dev`, the flagship solver
+    then the two-view polish (`cli.refine_batch`): the refined [B, 3, 4]
+    forward poses (float64 numpy), the polish's inputs (float32, on the
+    CPU) and its info (numpy)."""
+    import torch
+
+    from deepfepe_tpu_torch import cli
+    from deepfepe_tpu_torch.eval import val_rt_batch
+    from deepfepe_tpu_torch.loader import model_loader
+    from deepfepe_tpu_torch.train import eval_step, load_checkpoint
+    from deepfepe_tpu_torch.utils.device import batch_to_device
+
+    device = torch.device(dev)
+    net = model_loader(cfg, device)
+    load_checkpoint(FLAGSHIP_CKPT, net)
+    tb = batch_to_device(batch, device)
+    metrics = eval_step(net, tb, cfg)
+    with torch.no_grad():
+        rt = val_rt_batch(metrics["E_ests"], tb["Ks"], tb["matches_xy_ori"], tb["E_gts"],
+                          tb["delta_Rtijs_4_4"], ransac=False)
+        R, t, info = cli.refine_batch(tb, metrics, rt["M_est"], 200)
+    inputs = {k: v.float().cpu() for k, v in (
+        ("matches", tb["matches_xy_ori"]), ("weights", metrics["weights"]), ("Ks", tb["Ks"]),
+        ("M", rt["M_est"]))}
+    return (torch.cat([R, t[..., None]], dim=-1).double().cpu().numpy(), inputs,
+            {k: v.cpu().numpy() for k, v in info.items()})
+
+
+def refine_timing(x: dict) -> dict:
+    """ms of one polish of the first batch on the card (its inputs `x`), and
+    of the batched factorizations inside one of its five square-root steps,
+    alone at their shapes: the complete QR of the [B, N, 7, 3] landmark
+    blocks, the reduced QR of the [B, 4N + 12, 12] pose system and the
+    [B, N, 3, 3] triangular solve (CUDA events, 3 calls after one warm)."""
+    import torch
+
+    from deepfepe_tpu_torch.eval import refine
+
+    d = {k: v.cuda() for k, v in x.items()}
+    B, N = d["matches"].shape[:2]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    blocks = torch.randn(B, N, 7, 3, device="cuda", generator=gen)
+    system = torch.randn(B, 4 * N + 12, 12, device="cuda", generator=gen)
+    tri = torch.randn(B, N, 3, 3, device="cuda", generator=gen).triu() + 3 * torch.eye(
+        3, device="cuda")
+    rhs = torch.randn(B, N, 3, 1, device="cuda", generator=gen)
+    cases = {
+        "polish (5 steps)": lambda: refine.refine_two_view_batch(
+            d["matches"], d["weights"], d["Ks"], d["M"][:, :3, :3], d["M"][:, :3, 3], iters=5,
+            min_matches=200),
+        "complete QR [B, N, 7, 3]": lambda: torch.linalg.qr(blocks, mode="complete"),
+        "reduced QR [B, 4N + 12, 12]": lambda: torch.linalg.qr(system, mode="reduced"),
+        "solve_triangular [B, N, 3, 3]": lambda: torch.linalg.solve_triangular(tri, rhs,
+                                                                               upper=True),
+    }
+    return {name: cuda_time_ms(fn, 3, warmup=1) for name, fn in cases.items()}
+
+
+def chordal_gaps(a, b):
+    """Degrees between the rotations, and between the translation
+    directions, of [B, 3, 4] poses a and b, from chords (2 asin(|x - y| /
+    2) on unit vectors, the rotations' over sqrt(2) columns): exact at 0,
+    where acos of a float32 trace has a floor of a few 0.01 deg."""
+    import numpy as np
+
+    rot = 2 * np.arcsin(np.clip(np.linalg.norm(a[:, :3, :3] - b[:, :3, :3], axis=(1, 2))
+                                / np.sqrt(8.0), 0, 1))
+    ua = a[:, :3, 3] / np.linalg.norm(a[:, :3, 3], axis=-1, keepdims=True)
+    ub = b[:, :3, 3] / np.linalg.norm(b[:, :3, 3], axis=-1, keepdims=True)
+    direction = 2 * np.arcsin(np.clip(np.linalg.norm(ua - ub, axis=-1) / 2, 0, 1))
+    return np.degrees(rot), np.degrees(direction)
+
+
+def phase_eval_vo_ba(ph: Phases) -> dict:
+    """The port's eval_vo with the flagship on the 60-frame sequence in the
+    three BA modes (--refine_ba, --pose_graph, both): exact launches around
+    each run (the (i, i + 2) sweep adds eigh9 40 and K3 40; the polish and
+    the pose graph none), finite reports, the fused rot equal to the
+    chained; then the first batch's refined poses on the card against the
+    CPU replay of the polish on the card's solver outputs. Returns the
+    launch sums."""
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch import cli
+    from deepfepe_tpu_torch.data import SyntheticSequence
+    from deepfepe_tpu_torch.eval import refine
+    from deepfepe_tpu_torch.train.config import config_from_dict
+
+    check(os.path.exists(FLAGSHIP_CKPT), f"no {FLAGSHIP_CKPT} in the checkout")
+    cfg = config_from_dict(FLAGSHIP_VO)
+    bs = cfg.data.batch_size
+    total = dict.fromkeys(kernel_counters(), 0)
+    for mode, kw in VO_BA_MODES.items():
+        reset_counts()
+        rep = cli.eval_vo(cfg, f"smoke_vo_{mode}", pretrained=FLAGSHIP_CKPT,
+                          n_frames=VO_FRAMES, device="cuda", **kw)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        batches = -(-VO_PAIRS // bs) + (-(-VO_SKIP_PAIRS // bs) if "pose_graph" in kw else 0)
+        expected = expect(VO_PER_BATCH["net"], batches, counts)
+        ph.emit("eval_vo_ba", mode=mode, report=rep, batches=batches, launches=counts,
+                expected_launches=expected,
+                timed="host clock: `seconds` over the consecutive pairs' solver, pose recovery "
+                      "and polish, `skip_seconds` the (i, i + 2) sweep, `pose_graph_seconds` the "
+                      "fusion, each ending in a synchronize; the sequence made up front")
+        check(counts == expected, f"eval_vo {mode}: launches {counts}, expected {expected}")
+        check(rep["n_pairs"] == VO_PAIRS, f"eval_vo {mode}: {rep['n_pairs']} pairs")
+        check(finite_report(rep), f"eval_vo {mode}: non-finite report {rep}")
+        if "pose_graph" in kw:
+            gap = abs(rep["pose_graph"]["rot_err_deg_per_100m"] - rep["rot_err_deg_per_100m"])
+            check(gap <= PG_ROT_TOL, f"eval_vo {mode}: the fused rot moved {gap} deg/100 m "
+                  f"from the chained (tolerance {PG_ROT_TOL})")
+        for k, v in counts.items():
+            total[k] += v
+
+    # The first batch's refined poses: the card against the port's CPU
+    # replay of the polish on the card's solver outputs.
+    d = cfg.data
+    first = next(SyntheticSequence(n_frames=VO_FRAMES, good_num=d.good_num, noise_px=d.noise_px,
+                                   outlier_frac=d.outlier_frac, seed=123)
+                 .pair_batches(d.batch_size))
+    card, x, card_info = vo_refined(cfg, first, "cuda")
+    R, t, info = refine.refine_two_view_batch(x["matches"], x["weights"], x["Ks"],
+                                              x["M"][:, :3, :3], x["M"][:, :3, 3], iters=5,
+                                              min_matches=200)
+    info = {k: v.numpy() for k, v in info.items()}
+    rot, dirs = chordal_gaps(card, torch.cat([R, t[..., None]], -1).double().numpy())
+    same = card_info["accepted"] == info["accepted"]
+    tie = np.zeros_like(same)
+    for i in (card_info, info):
+        tie |= np.abs(i["cost_after"] - i["cost_before"]) <= TIE_REL * i["cost_before"]
+    # Reported, not held: the whole path on the CPU (solver and polish).
+    e2e_rot, e2e_dir = chordal_gaps(card, vo_refined(cfg, first, "cpu")[0])
+    ph.emit("eval_vo_ba", check="first batch: the polish on the card vs its CPU replay",
+            rotation_deg=rot.tolist(), direction_deg=dirs.tolist(), bar_deg=REFINE_BAR_DEG,
+            accepted_card=card_info["accepted"].tolist(), accepted_cpu=info["accepted"].tolist(),
+            near_ties=tie.tolist(), whole_path_vs_cpu={"rotation_deg": e2e_rot.tolist(),
+                                                       "direction_deg": e2e_dir.tolist()},
+            ms=refine_timing(x), ms_timed="CUDA events, 3 calls after a warm one")
+    check(bool(np.all(same | tie)), f"eval_vo --refine_ba: acceptance differs off a near tie: "
+          f"card {card_info['accepted']}, CPU {info['accepted']}")
+    check(float(rot[same].max(initial=0)) <= REFINE_BAR_DEG
+          and float(dirs[same].max(initial=0)) <= REFINE_BAR_DEG,
+          f"eval_vo --refine_ba: the polish on the card and its CPU replay differ by "
+          f"{rot.max()} deg (rotation), {dirs.max()} deg (direction); bar {REFINE_BAR_DEG}")
+    return total
+
+
+def phase_eval_good_ba(ph: Phases) -> dict:
+    """The port's eval_good on the flagship config (B = 8, N = 1000, 5
+    batches), without and with --refine_ba: exact launches, finite
+    summaries, the gt sanity. Returns the launch sums."""
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch import cli
+    from deepfepe_tpu_torch.train.config import config_from_dict
+
+    total = dict.fromkeys(kernel_counters(), 0)
+    out = {}
+    for refine_ba in (False, True):
+        cfg = config_from_dict(FLAGSHIP_VO)
+        reset_counts()
+        s = cli.eval_good(cfg, EVAL_BATCHES, device="cuda", pretrained=FLAGSHIP_CKPT,
+                          exper_name=f"smoke_eval_good_refine_{int(refine_ba)}",
+                          refine_ba=refine_ba)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expected = expect(EVAL_GOOD_PER_BATCH, EVAL_BATCHES, counts)
+        out[refine_ba] = s
+        ph.emit("eval_good_ba", refine_ba=refine_ba, summary=s, launches=counts,
+                expected_launches=expected, pairs_per_s=s["pairs"] / s["seconds"])
+        check(counts == expected, f"eval_good refine_ba={refine_ba}: launches {counts}, "
+              f"expected {expected}")
+        check(all(np.isfinite(v) for v in s.values() if isinstance(v, float)),
+              f"eval_good refine_ba={refine_ba}: non-finite {s}")
+        check(s["median_err_q_gt"] < 1e-3, f"eval_good: median_err_q_gt {s['median_err_q_gt']}")
+        for k, v in counts.items():
+            total[k] += v
+    ph.emit("eval_good_ba", median_err_q=[out[False]["median_err_q"], out[True]["median_err_q"]],
+            median_err_t=[out[False]["median_err_t"], out[True]["median_err_t"]])
+    return total
+
+
+def phase_bench_ba(ph: Phases) -> None:
+    """tools/bench_ba.py at C = 100, P = 10,000 (the square-root rows at C =
+    32), the pose graph at 1,000 and 10,000 frames: every BA row converged,
+    every number finite, no kernel launched."""
+    import numpy as np
+
+    from deepfepe_tpu_torch.tools import bench_ba
+
+    reset_counts()
+    rows = bench_ba.main(BENCH_BA_ARGS)
+    counts = read_counts()
+    ph.emit("bench_ba", rows=rows, launches=counts,
+            timed="CUDA events over 8 chained steps (4 for sqrt_ba) after two warm ones; the "
+                  "pose graph's host clock over a whole solve, ending in a synchronize")
+    check(not any(counts.values()), f"bench_ba: BA launched kernels {counts}")
+    for r in rows:
+        nums = [v for v in r.values() if isinstance(v, float)]
+        check(all(np.isfinite(nums)), f"bench_ba: non-finite row {r}")
+        if "converged" in r:
+            check(r["converged"], f"bench_ba: {r['solver']} P={r['P']} did not converge")
+
+
+def phase_vo_pose_graph(ph: Phases) -> dict:
+    """tools/vo_pose_graph.py at its defaults with the repo's SuperPoint
+    (sp_joint_11000) and the flagship solver: exact launches (K5, K4,
+    eigh9, K3), finite metrics. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch.tools import vo_pose_graph
+
+    check(os.path.exists(SP_FULL_CKPT), f"no {SP_FULL_CKPT} in the checkout")
+    reset_counts()
+    summary = vo_pose_graph.main(["--sp", SP_FULL_CKPT, "--deepf", FLAGSHIP_CKPT,
+                                  "--device", "cuda", "--out",
+                                  os.path.join("logs", "smoke_vo_pose_graph")])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expected = expect(VOPG_PER_BATCH, VOPG_BATCHES, counts)
+    ph.emit("vo_pose_graph", summary=summary, launches=counts, expected_launches=expected)
+    check(counts == expected, f"vo_pose_graph: launches {counts}, expected {expected}")
+    for name in ("chained", "pose_graph"):
+        check(all(np.isfinite(list(summary[name].values()))),
+              f"vo_pose_graph: non-finite {name} {summary[name]}")
+    return counts
+
+
+ALONE_PHASES = {"eval_vo_ba": phase_eval_vo_ba, "eval_good_ba": phase_eval_good_ba,
+                "bench_ba": phase_bench_ba, "vo_pose_graph": phase_vo_pose_graph}
+
+
 def plant(fault: str) -> None:
     """Install a deliberate fault for `--plant`. Wiring faults wrap the MLP
     autograd Function's backward; kernel faults (SOURCE_FAULTS) build a
@@ -4417,6 +4724,8 @@ def main(argv=None) -> int:
                     "(exit 1 when caught); 'none' gives the sound readings")
     ap.add_argument("--window", help="a JSON list [name, *args]: run WINDOWS[name](*args), "
                     "one profiled window, and print its JSON result (fresh_window)")
+    ap.add_argument("--phases", help="a comma list of ALONE_PHASES to run by themselves after "
+                    "the build (a quicker look at those paths; no kernels line)")
     ap.add_argument("--fresh-windows", action="store_true",
                     help="take every profiled window that a check reads again in a fresh "
                     "process (fresh_window), to exercise each retake")
@@ -4449,6 +4758,15 @@ def main(argv=None) -> int:
     if args.plant:
         build_all(ph)
         return run_planted(ph, args.plant)
+    if args.phases:
+        try:
+            build_all(ph)
+            for name in args.phases.split(","):
+                ALONE_PHASES[name](ph)
+        except CheckFailed as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
+            return 1
+        return 0
     try:
         build_all(ph)
         row = phase_kernels(ph)
@@ -4475,6 +4793,10 @@ def main(argv=None) -> int:
         sp_dump_counts = phase_kitti_sp_dump(ph)
         vo_counts = phase_eval_vo(ph)
         infer_counts = phase_infer(ph)
+        vo_ba_counts = phase_eval_vo_ba(ph)
+        eval_good_ba_counts = phase_eval_good_ba(ph)
+        phase_bench_ba(ph)
+        vopg_counts = phase_vo_pose_graph(ph)
         phase_check(ph, cfg)
         phase_check_train(ph)
         phase_check_sample(ph)
@@ -4508,6 +4830,9 @@ def main(argv=None) -> int:
         r["launches_joint_bf16"] = joint_bf16_counts[r["name"]]
         r["launches_eval_vo"] = vo_counts[r["name"]]
         r["launches_infer"] = infer_counts[r["name"]]
+        r["launches_eval_vo_ba"] = vo_ba_counts[r["name"]]
+        r["launches_eval_good_ba"] = eval_good_ba_counts[r["name"]]
+        r["launches_vo_pose_graph"] = vopg_counts[r["name"]]
         if r["launches"] <= 0:
             print(f"chip_smoke: FAILED: {r['name']} never launched on {path}",
                   file=sys.stderr, flush=True)

@@ -4,13 +4,15 @@
         [--train_iter k] [--pretrained ckpt.pth.tar] [--profile_dir dir]
         [--device cpu|cuda]
     python -m deepfepe_tpu_torch.cli eval_good <config.yaml> <exper_name>
-        [--max_batches k] [--pretrained ckpt.pth.tar] [--device cpu|cuda]
+        [--max_batches k] [--pretrained ckpt.pth.tar] [--refine_ba]
+        [--refine_min_matches m] [--device cpu|cuda]
     python -m deepfepe_tpu_torch.cli val_feature <exper_name> [--config c.yaml]
         [--max_batches k] [--pretrained sp.pth.tar] [--rand_noise s]
         [--device cpu|cuda]
     python -m deepfepe_tpu_torch.cli eval_vo <config.yaml> <exper_name>
         [--pretrained ckpt] [--baseline] [--n_frames n] [--scene s]
-        [--lengths 5,10] [--device cpu|cuda]
+        [--lengths 5,10] [--pose_graph] [--refine_ba] [--refine_min_matches m]
+        [--device cpu|cuda]
     python -m deepfepe_tpu_torch.cli infer img1.png img2.png --pretrained ckpt
         --pretrained_SP sp.pth.tar [--K fx,fy,cx,cy] [--config c.yaml]
         [--good_num n] [--out pose.json] [--device cpu|cuda]
@@ -36,7 +38,8 @@ whole test split in order, `--max_batches` 0 for all of it), scores each
 pair against the ground truth and the RANSAC baseline (8-point, or
 five-point with `exps.five_point`), writes the reference's npz dumps
 logs/<exper_name>/{our_name,base_name}_<filename> and prints the JAX
-package's summary keys as one JSON line. `val_feature` runs the
+package's summary keys as one JSON line; `--refine_ba` polishes each
+solver pose by two-view square-root BA first. `val_feature` runs the
 SuperPoint frontend on synthetic image pairs, or with `--config` on the
 config's test split with its frames, and prints the share of matches
 within 0.1, 0.5, 1 and 2 px of their ground-truth epipolar lines and the
@@ -45,7 +48,10 @@ match count, also written to logs/<exper_name>/result_dict_all.npz.
 sequence, or a dump tree's test split in frame order) with the solver or
 `--baseline`, chains them and prints the KITTI metrics (trans %, rot
 deg/100 m, ATE, RPE) as one JSON line, with
-logs/<exper_name>/{trajectory_est,trajectory_gt,result}.txt. `infer` is
+logs/<exper_name>/{trajectory_est,trajectory_gt,result}.txt;
+`--refine_ba` polishes each pair's pose, `--pose_graph` fuses a second
+sweep of (i, i + 2) pairs with the first in a pose graph
+(trajectory_pose_graph.txt, the report's 'pose_graph'). `infer` is
 the serving entry: two PNG frames through SuperPoint and the solver to
 one JSON line of R, t_unit and E. `export_torch` writes a flax `.msgpack`
 checkpoint as the reference's `.pth.tar`; `verify_dump` checks a dump
@@ -70,23 +76,26 @@ from typing import Dict, Iterable, Sequence
 import numpy as np
 import torch
 
+from .ba import graph_from_odometry, optimize_pose_graph_two_stage
 from .data import KittiCorrDataset, SyntheticImagePairs, SyntheticSequence
 from .data.prefetch import prefetch_batches
 from .eval import (chain_relative_poses, export_poses_kitti, frontend_epidist_eval,
                    kitti_odometry, val_rt_batch)
+from .eval.refine import refine_two_view_batch
 from .frontend import (FrontendParams, SuperPointNet, SuperPointNetGauss2,
                        frontend_params_from_config, get_matches_from_sp)
 from .frontend.superpoint import reset_superpoint
+from .geometry.basic import rt_inverse
+from .geometry.rotations import rotation_angle_error, vector_angle
 from .loader import data_loader, model_loader
 from .train import (MetricLogger, Trainer, eval_step, load_checkpoint, load_config,
                     qt_clamps, save_checkpoint)
 from .train.config import Config
 from .train.joint import joint_train_step, make_joint_state
 from .train.loop import scalars, start_profile, stop_profile
-from .utils.device import batch_to_device, resolve_device
+from .utils.device import batch_to_device, no_tf32, resolve_device
 from .utils.weights import load_superpoint, save_superpoint
 
-BA_ITEM = "needs bundle adjustment (ba/), not ported yet (ROADMAP Queue 1 item 7)"
 SIFT_ITEM = ("needs OpenCV's SIFT detector and matcher, which the port does not use "
              "(ROADMAP Queue 1 item 8); give a SuperPoint checkpoint with --pretrained_SP")
 # BASELINE.md's targets: the reference's committed kitti-odom-eval outputs
@@ -124,12 +133,15 @@ def pad_batch(batch: Dict[str, np.ndarray], batch_size: int) -> Dict[str, np.nda
 def evaluate(cfg: Config, net, batch_iter: Iterable[Dict[str, np.ndarray]],
              device: torch.device, generator: torch.Generator | None = None,
              ransac_idxs: Sequence[torch.Tensor] | None = None,
-             pad_to: int | None = None) -> Dict[str, np.ndarray]:
+             pad_to: int | None = None, refine_min_matches: int | None = None
+             ) -> Dict[str, np.ndarray]:
     """Per-pair errors, poses and epipolar distances over `batch_iter`, with
     each batch's `Rt_cam2_gt` (identity where it has none). With `pad_to`,
     a shorter batch is padded to it and its padding trimmed (eval_good's
     tail, as the JAX CLI runs it). The RANSAC hypotheses of batch i are
-    `ransac_idxs[i]` when given, else drawn from `generator`."""
+    `ransac_idxs[i]` when given, else drawn from `generator`. With
+    `refine_min_matches` the solver's forward poses are polished
+    (`refine_batch`) before their errors and camera poses are taken."""
     per_pair = {k: [] for k in (*PER_PAIR, "Rt_cam2_gt")}
     losses = []
     for i, batch in enumerate(batch_iter):
@@ -144,6 +156,16 @@ def evaluate(cfg: Config, net, batch_iter: Iterable[Dict[str, np.ndarray]],
                 tb["delta_Rtijs_4_4"],
                 ransac_idxs=None if ransac_idxs is None else ransac_idxs[i],
                 generator=generator, five_point=cfg.exps.five_point)
+            if refine_min_matches is not None:
+                # The forward (i -> j) pose is refined; the dumps and errors
+                # take the camera convention (its inverse), as val_rt's do.
+                R, t, _ = refine_batch(tb, metrics, rt["M_est"], refine_min_matches)
+                M_cam = rt_inverse(torch.cat([R, t[..., None]], dim=-1))
+                eq, et = refined_errors(M_cam[:, :3, :3], M_cam[:, :3, 3],
+                                        np.linalg.inv(np.asarray(batch["delta_Rtijs_4_4"],
+                                                                 np.float64)))
+                rt = {**rt, "M_cam_est": M_cam, "err_q_est": torch.from_numpy(eq),
+                      "err_t_est": torch.from_numpy(et)}
         for k in PER_PAIR:
             per_pair[k].append(rt[k].cpu().numpy()[:n_real])
         per_pair["Rt_cam2_gt"].append(np.asarray(batch.get(
@@ -363,10 +385,13 @@ def eval_batches(cfg: Config, ds, max_batches: int) -> list:
 
 
 def eval_good(cfg: Config, max_batches: int, device=None, pretrained: str = "",
-              exper_name: str = "") -> Dict[str, float]:
+              exper_name: str = "", refine_ba: bool = False,
+              refine_min_matches: int = 200) -> Dict[str, float]:
     """Weights seeded from `cfg.training.seed`, or read from a checkpoint
     (`pretrained`), on the config's test data (`eval_batches`). With
-    `exper_name`, writes logs/<exper_name>/config.yml and the npz dumps."""
+    `exper_name`, writes logs/<exper_name>/config.yml and the npz dumps.
+    `refine_ba` polishes the solver's poses by two-view square-root BA
+    before they are scored and dumped (`evaluate`)."""
     device = resolve_device(device)
     seed = cfg.training.seed
     net = model_loader(cfg, device, torch.Generator().manual_seed(seed))
@@ -377,7 +402,8 @@ def eval_good(cfg: Config, max_batches: int, device=None, pretrained: str = "",
     data = eval_batches(cfg, data_loader(cfg, "test"), max_batches)
     t0 = time.perf_counter()
     res = evaluate(cfg, net, data, device, generator=torch.Generator().manual_seed(seed),
-                   pad_to=cfg.data.batch_size)
+                   pad_to=cfg.data.batch_size,
+                   refine_min_matches=refine_min_matches if refine_ba else None)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
@@ -450,17 +476,33 @@ def val_feature(exper_name: str, max_batches: int = 0, pretrained: str = "",
 
 def vo_batches(cfg: Config, n_frames: int = 0, scene: str = ""):
     """eval_vo's data: (frame-ordered pair batches, gt trajectory or None,
-    segment lengths or None). On 'synthetic' the JAX CLI's sequence
-    (`n_frames`, else 60, seed 123) with lengths of 5-40 m; on a dump tree
-    its test split (one scene or all) in frame order, the gt trajectory
-    chained from the pairs' gt poses and KITTI's 100-800 m."""
+    segment lengths or None, skip_batches). On 'synthetic' the JAX CLI's
+    sequence (`n_frames`, else 60, seed 123) with lengths of 5-40 m; on a
+    dump tree its test split (one scene or all) in frame order, the gt
+    trajectory chained from the pairs' gt poses and KITTI's 100-800 m.
+    `skip_batches()` gives the (i, i + 2) pairs in the same order: the
+    sequence's, drawn after the consecutive pairs as the JAX CLI draws
+    them, or a second loader with `delta_ij` 2 over the tree."""
     d = cfg.data
     if d.dataset == "synthetic":
         seq = SyntheticSequence(n_frames=n_frames or 60, good_num=d.good_num,
                                 noise_px=d.noise_px, outlier_frac=d.outlier_frac, seed=123)
-        return seq.pair_batches(d.batch_size), seq.gt_trajectory(), (5.0, 10.0, 20.0, 40.0)
+        return (seq.pair_batches(d.batch_size), seq.gt_trajectory(), (5.0, 10.0, 20.0, 40.0),
+                lambda: seq.pair_batches(d.batch_size, delta=2))
+
+    def skip_batches():
+        cfg2 = dataclasses.replace(cfg, data=dataclasses.replace(d, delta_ij=2))
+        ds2 = data_loader(cfg2, "test")
+        if len(ds2) == 0:
+            raise SystemExit(
+                f"--pose_graph needs delta-2 pairs but the dump tree {d.dump_root} has no "
+                "ij_match_quality_{i}-{i+2}_* files; re-dump with delta_ijs=(1, 2) "
+                "(data/dump_kitti.dump_sequence)")
+        return ds2.ordered_pair_batches(d.batch_size, scene_name=scene or None)
+
     ds = data_loader(cfg, "test")
-    return ds.ordered_pair_batches(d.batch_size, scene_name=scene or None), None, None
+    return ds.ordered_pair_batches(d.batch_size, scene_name=scene or None), None, None, \
+        skip_batches
 
 
 def write_result_txt(path: str, scene: str, report: Dict[str, float]) -> None:
@@ -474,56 +516,128 @@ def write_result_txt(path: str, scene: str, report: Dict[str, float]) -> None:
         f.write(f"RPE (deg): \t {report['RPE_deg']:.3f} \n")
 
 
+def refined_errors(R: torch.Tensor, t: torch.Tensor, gt: np.ndarray):
+    """Rotation and sign-free translation angle errors (degrees, numpy) of
+    refined forward poses (R [B, 3, 3], unit t [B, 3]) against gt [B, 4, 4]."""
+    gt = torch.as_tensor(np.asarray(gt), dtype=R.dtype, device=R.device)
+    eq = rotation_angle_error(R, gt[:, :3, :3]).cpu().numpy()
+    et = vector_angle(t, gt[:, :3, 3]).cpu().numpy()
+    return eq, np.minimum(et, 180.0 - et)
+
+
+def refine_batch(tb: Dict[str, torch.Tensor], metrics: Dict[str, torch.Tensor],
+                 M: torch.Tensor, min_matches: int):
+    """The two-view square-root BA polish of forward poses M [B, 3, 4]
+    (`eval.refine`, 5 iterations), in float32 on their device, the
+    solver's weights as residual weights; returns (R, t, info)."""
+    return refine_two_view_batch(tb["matches_xy_ori"].float(), metrics["weights"].float(),
+                                 tb["Ks"].float(), M[:, :3, :3].float(), M[:, :3, 3].float(),
+                                 iters=5, min_matches=min_matches)
+
+
+def scaled_poses(rels: Sequence[np.ndarray], scales: Sequence[float]) -> np.ndarray:
+    """[n, 4, 4] float32 relative poses with each unit translation scaled to
+    its pair's gt length (the monocular convention)."""
+    out = []
+    for M, s in zip(rels, scales):
+        T = np.eye(4)
+        T[:3, :3] = M[:3, :3]
+        tn = M[:3, 3]
+        T[:3, 3] = tn / max(np.linalg.norm(tn), 1e-9) * s
+        out.append(T)
+    return np.stack(out).astype(np.float32)
+
+
+def fuse_pose_graph(rels1, scales1, rels2, scales2, device: torch.device) -> np.ndarray:
+    """The JAX CLI's multi-frame fusion: odometry edges (weight 1) and
+    (i, i + 2) skip edges weighted on translation only, gt-scaled, solved
+    by the two-stage pose graph (Huber 0.05) on `device`; returns the fused
+    camera-to-world trajectory [n, 4, 4]."""
+    n = len(rels1) + 1
+    graph = graph_from_odometry(
+        torch.as_tensor(scaled_poses(rels1, scales1), device=device),
+        loop_edges=torch.as_tensor(np.stack([np.arange(n - 2), np.arange(2, n)], -1),
+                                   device=device),
+        loop_measurements=torch.as_tensor(scaled_poses(rels2, scales2), device=device),
+        odo_weight=1.0, loop_weight=torch.tensor([1.0, 1.0, 1.0, 0.0, 0.0, 0.0]))
+    graph, _ = optimize_pose_graph_two_stage(graph, huber_delta=0.05)
+    with no_tf32():
+        return torch.linalg.inv(graph.poses).cpu().numpy()
+
+
 def eval_vo(cfg: Config, exper_name: str, pretrained: str = "", baseline: bool = False,
             scene: str = "", n_frames: int = 0, lengths: Sequence[float] | None = None,
-            pose_graph: bool = False, refine_ba: bool = False, device=None,
-            ransac_idxs: Sequence[torch.Tensor] | None = None) -> Dict[str, float]:
+            pose_graph: bool = False, refine_ba: bool = False, refine_min_matches: int = 200,
+            device=None, ransac_idxs: Sequence[torch.Tensor] | None = None) -> Dict[str, float]:
     """Sequence VO, the JAX CLI's `cmd_eval_vo`: every consecutive pair
     estimated in frame order (`vo_batches`) by the solver, or with
     `baseline` by the RANSAC baseline of `val_rt_batch` (the config's
-    8-point or five-point; hypotheses `ransac_idxs[i]` for batch i, else
-    drawn from a generator seeded 0), padded duplicates skipped by
-    `frame_i`, the poses chained and written as KITTI trajectories
-    (logs/<exper_name>/trajectory_{est,gt}.txt), scored with
+    8-point or five-point; hypotheses `ransac_idxs[i]` for the i-th batch of
+    the run, else drawn from a generator seeded 0), padded duplicates
+    skipped by `frame_i`, the poses chained and written as KITTI
+    trajectories (logs/<exper_name>/trajectory_{est,gt}.txt), scored with
     `evaluate_sequence(align='scale')` (`lengths`, else the source's) and
     written as result.txt. Weights seeded from `training.seed`, or read
-    from `pretrained` (`.pth.tar` or flax `.msgpack`). Returns the report
-    with median_err_q/err_t, n_pairs, `seconds` (host clock over the solver
-    and its evaluation, ending in a synchronize; data made up front),
-    pairs_per_s and `device`."""
-    if pose_graph or refine_ba:
-        raise NotImplementedError(f"eval_vo --pose_graph and --refine_ba {BA_ITEM}")
+    from `pretrained` (`.pth.tar` or flax `.msgpack`).
+
+    `refine_ba` polishes each solver pose by two-view square-root BA
+    (`refine_batch`; a pair keeps its pose unless the polish lowers its
+    robust cost with >= `refine_min_matches` effective matches) and scores
+    the refined poses. `pose_graph` adds a sweep of (i, i + 2) pairs (the
+    same polish) and fuses both in the two-stage pose graph
+    (`fuse_pose_graph`): trajectory_pose_graph.txt and report['pose_graph'].
+    Returns the report with median_err_q/err_t, n_pairs, `seconds` (host
+    clock over the consecutive pairs' solver, evaluation and polish, ending
+    in a synchronize; data made up front), pairs_per_s, `device`, and with
+    `pose_graph` `skip_seconds` (the second sweep) and `pose_graph_seconds`
+    (the fusion)."""
     device = resolve_device(device)
     save_dir = _snapshot_config(cfg, exper_name)
     net = model_loader(cfg, device, torch.Generator().manual_seed(cfg.training.seed))
     if pretrained:
         load_checkpoint(pretrained, net)
-    batch_iter, gt_traj, default_lengths = vo_batches(cfg, n_frames, scene)
+    batch_iter, gt_traj, default_lengths, skip_batches = vo_batches(cfg, n_frames, scene)
     data = list(batch_iter)
     lengths = tuple(lengths) if lengths else default_lengths
     generator = torch.Generator().manual_seed(0)
     tag = "base" if baseline else "est"
-    rels_est, rels_gt, errqs, errts = [], [], [], []
+    run_batches = itertools.count()
+
+    def sweep(batches):
+        """Per-pair forward poses [3, 4], gt poses, errors and gt scales."""
+        rels_est, rels_gt, errqs, errts, scales = [], [], [], [], []
+        for batch in batches:
+            i = next(run_batches)
+            tb = batch_to_device(batch, device)
+            metrics = eval_step(net, tb, cfg)
+            with torch.no_grad():
+                rt = val_rt_batch(metrics["E_ests"], tb["Ks"], tb["matches_xy_ori"], tb["E_gts"],
+                                  tb["delta_Rtijs_4_4"], ransac=baseline,
+                                  ransac_idxs=None if ransac_idxs is None else ransac_idxs[i],
+                                  generator=generator, five_point=cfg.exps.five_point)
+                if refine_ba and not baseline:
+                    R, t, _ = refine_batch(tb, metrics, rt["M_est"], refine_min_matches)
+                    M = torch.cat([R, t[..., None]], dim=-1).cpu().numpy()
+                    eq, et = refined_errors(R, t, batch["delta_Rtijs_4_4"])
+                else:
+                    M, eq, et = (rt[f"{k}_{tag}"].cpu().numpy() for k in ("M", "err_q", "err_t"))
+            frames = batch.get("frame_i")
+            for j in range(len(M)):
+                fidx = int(frames[j]) if frames is not None else len(rels_est)
+                if fidx == len(rels_est):  # padded duplicates repeat an earlier frame
+                    rels_est.append(M[j])
+                    rels_gt.append(batch["delta_Rtijs_4_4"][j])
+                    errqs.append(float(eq[j]))
+                    errts.append(float(et[j]))
+                    scales.append(float(np.asarray(batch["t_scene_scale"][j]).reshape(-1)[0])
+                                  if "t_scene_scale" in batch else
+                                  float(np.linalg.norm(batch["delta_Rtijs_4_4"][j][:3, 3])))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return rels_est, rels_gt, errqs, errts, scales
+
     t0 = time.perf_counter()
-    for i, batch in enumerate(data):
-        tb = batch_to_device(batch, device)
-        metrics = eval_step(net, tb, cfg)
-        with torch.no_grad():
-            rt = val_rt_batch(metrics["E_ests"], tb["Ks"], tb["matches_xy_ori"], tb["E_gts"],
-                              tb["delta_Rtijs_4_4"], ransac=baseline,
-                              ransac_idxs=None if ransac_idxs is None else ransac_idxs[i],
-                              generator=generator, five_point=cfg.exps.five_point)
-        M, eq, et = (rt[f"{k}_{tag}"].cpu().numpy() for k in ("M", "err_q", "err_t"))
-        frames = batch.get("frame_i")
-        for j in range(len(M)):
-            fidx = int(frames[j]) if frames is not None else len(rels_est)
-            if fidx == len(rels_est):  # padded duplicates repeat an earlier frame
-                rels_est.append(M[j])
-                rels_gt.append(batch["delta_Rtijs_4_4"][j])
-                errqs.append(float(eq[j]))
-                errts.append(float(et[j]))
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    rels_est, rels_gt, errqs, errts, scales1 = sweep(data)
     seconds = time.perf_counter() - t0
     traj_est = chain_relative_poses(np.stack(rels_est))
     if gt_traj is None:
@@ -534,8 +648,25 @@ def eval_vo(cfg: Config, exper_name: str, pretrained: str = "", baseline: bool =
     report = kitti_odometry.evaluate_sequence(gt_traj, traj_est, align="scale", **kw)
     report.update(median_err_q=float(np.median(errqs)), median_err_t=float(np.median(errts)),
                   n_pairs=len(rels_est))
+    extra = {}
+    if pose_graph:
+        skip = list(skip_batches())
+        t0 = time.perf_counter()
+        rels2, _, _, _, scales2 = sweep(skip)
+        extra["skip_seconds"] = time.perf_counter() - t0
+        if len(rels2) != len(rels_est) - 1:
+            raise SystemExit(
+                f"pose graph needs a delta-2 edge per frame triple: got {len(rels2)} skip edges "
+                f"for {len(rels_est)} odometry edges (incomplete delta-2 dump?)")
+        t0 = time.perf_counter()
+        traj_fused = fuse_pose_graph(rels_est, scales1, rels2, scales2, device)
+        extra["pose_graph_seconds"] = time.perf_counter() - t0
+        export_poses_kitti(traj_fused, os.path.join(save_dir, "trajectory_pose_graph.txt"))
+        fused = kitti_odometry.evaluate_sequence(gt_traj, traj_fused, align="scale", **kw)
+        report["pose_graph"] = {k: round(float(v), 4) for k, v in fused.items()}
     write_result_txt(os.path.join(save_dir, "result.txt"), scene, report)
-    report.update(seconds=seconds, pairs_per_s=len(rels_est) / seconds, device=str(device))
+    report.update(seconds=seconds, pairs_per_s=len(rels_est) / seconds, device=str(device),
+                  **extra)
     return report
 
 
@@ -766,7 +897,8 @@ def cmd_train(args) -> Dict[str, float]:
 
 def cmd_eval(args) -> Dict[str, float]:
     cfg = load_config(args.config)
-    summary = eval_good(cfg, args.max_batches, args.device, args.pretrained, args.exper_name)
+    summary = eval_good(cfg, args.max_batches, args.device, args.pretrained, args.exper_name,
+                        args.refine_ba, args.refine_min_matches)
     summary["exper_name"] = args.exper_name
     print(json.dumps(summary))
     return summary
@@ -783,7 +915,7 @@ def cmd_eval_vo(args) -> Dict[str, float]:
     report = eval_vo(load_config(args.config), args.exper_name, args.pretrained, args.baseline,
                      args.scene, args.n_frames,
                      [float(x) for x in args.lengths.split(",")] if args.lengths else None,
-                     args.pose_graph, args.refine_ba, args.device)
+                     args.pose_graph, args.refine_ba, args.refine_min_matches, args.device)
     print(json.dumps({k: round(v, 4) if isinstance(v, float) else v for k, v in report.items()}))
     return report
 
@@ -831,6 +963,10 @@ def main(argv=None):
     p.add_argument("--max_batches", type=int, default=5,
                    help="batches to evaluate; 0 walks a dump tree's whole test split")
     p.add_argument("--pretrained", default="")
+    p.add_argument("--refine_ba", action="store_true",
+                   help="polish each pair's pose by two-view square-root BA before scoring")
+    p.add_argument("--refine_min_matches", type=int, default=200,
+                   help="polish only pairs with at least this many effective matches")
     p.add_argument("--device", choices=("cpu", "cuda"), default=None)
     p.set_defaults(fn=cmd_eval)
     p = sub.add_parser("val_feature", help="frontend matches against gt epipolar geometry")
@@ -853,8 +989,13 @@ def main(argv=None):
                         "the synthetic sequence)")
     p.add_argument("--baseline", action="store_true",
                    help="the RANSAC baseline in place of the net")
-    p.add_argument("--pose_graph", action="store_true")
-    p.add_argument("--refine_ba", action="store_true")
+    p.add_argument("--pose_graph", action="store_true",
+                   help="fuse a second sweep of (i, i + 2) pairs in the two-stage pose graph")
+    p.add_argument("--refine_ba", action="store_true",
+                   help="polish each pair's pose by two-view square-root BA (a pair keeps its "
+                        "pose unless the polish lowers its robust cost)")
+    p.add_argument("--refine_min_matches", type=int, default=200,
+                   help="polish only pairs with at least this many effective matches")
     p.add_argument("--device", choices=("cpu", "cuda"), default=None)
     p.set_defaults(fn=cmd_eval_vo)
     p = sub.add_parser("infer", help="two images -> relative pose JSON")

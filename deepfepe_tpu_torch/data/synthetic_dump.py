@@ -7,19 +7,21 @@ a camera with KITTI's intrinsics and its cam0 -> cam2 offset, and per
 consecutive pair the projections of random 3D points, with Gaussian pixel
 noise and a share of outliers, in the `ij_match_quality_{i}-{j}_{good,all}`
 files that `data.kitti.KittiCorrDataset` reads (two quality columns, as the
-reference's SIFT dumps carry). Optional extras: per-frame descriptor
+reference's SIFT dumps carry). `deltas` adds the pairs (i, i + delta) of
+wider gaps (the reference's trees carry delta 1, 2, 3, 5, 8 and 10), each
+gap from its own RandomState, so the delta-1 files do not depend on them. Optional extras: per-frame descriptor
 files with match indices (`with_sift_des`) and lidar clouds (`with_X`).
 
     python -m deepfepe_tpu_torch.data.synthetic_dump OUT_DIR [--scenes 2]
         [--frames 11] [--matches 1200] [--noise_px 0.5] [--outlier_frac 0.15]
-        [--seed 0]
+        [--seed 0] [--deltas 1,2]
 """
 
 from __future__ import annotations
 
 import argparse
 from pathlib import Path
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 
@@ -76,13 +78,35 @@ def pair_matches(rng: np.random.RandomState, rel: np.ndarray, K: np.ndarray, n: 
     return np.concatenate([m, q0[:, None], q1[:, None]], 1).astype(np.float32)
 
 
+def _write_pair(scene: Path, rng: np.random.RandomState, P: np.ndarray, i: int, j: int,
+                matches: int, image_size: Tuple[int, int], noise_px: float,
+                outlier_frac: float, extra_all: int, with_sift_des: bool) -> None:
+    """The match files of frames (i, j) of a scene with cam0 poses P."""
+    rel0 = np.linalg.inv(rt_pad_np(P[j])) @ rt_pad_np(P[i])
+    rel = KITTI_RT_CAM2 @ rel0 @ np.linalg.inv(KITTI_RT_CAM2)  # the cam2 frame
+    good = pair_matches(rng, rel, KITTI_K, matches, image_size, noise_px, outlier_frac)
+    H, W = image_size
+    extra = np.concatenate([rng.uniform(0, W, (extra_all, 1)), rng.uniform(0, H, (extra_all, 1)),
+                            rng.uniform(0, W, (extra_all, 1)), rng.uniform(0, H, (extra_all, 1)),
+                            rng.uniform(50, 400, (extra_all, 1)),
+                            rng.uniform(0.3, 1.0, (extra_all, 1))], 1)
+    np.save(scene / f"ij_match_quality_{i}-{j}_good.npy", good)
+    np.save(scene / f"ij_match_quality_{i}-{j}_all.npy",
+            np.concatenate([good, extra.astype(np.float32)]))
+    if with_sift_des:
+        idx = np.stack([rng.permutation(matches), rng.permutation(matches)], 1)
+        np.save(scene / f"ij_idx_{i}-{j}_good_ij.npy", idx.astype(np.int32))
+
+
 def write_corr_dump(root, scenes: int = 2, frames: int = 11, matches: int = 1200,
                     image_size: Tuple[int, int] = (376, 1241), noise_px: float = 0.5,
                     outlier_frac: float = 0.15, seed: int = 0, with_sift_des: bool = False,
-                    with_X: bool = False, extra_all: int = 100) -> list:
+                    with_X: bool = False, extra_all: int = 100,
+                    deltas: Sequence[int] = (1,)) -> list:
     """Write `scenes` scene directories '00', '01', ... under `root`, each of
     `frames` frames; returns the scene names. The 'all' match files hold the
-    good matches and `extra_all` more random rows."""
+    good matches and `extra_all` more random rows. Pairs of each gap in
+    `deltas` beyond 1 are drawn from RandomState([seed, scene, delta])."""
     root = Path(root)
     rng = np.random.RandomState(seed)
     names = []
@@ -95,24 +119,11 @@ def write_corr_dump(root, scenes: int = 2, frames: int = 11, matches: int = 1200
         np.save(scene / "poses.npy", poses.astype(np.float32))
         np.save(scene / "Rt_cam2_gt.npy", KITTI_RT_CAM2)
         P = poses.astype(np.float32).astype(np.float64)
-        for i in range(frames - 1):
-            j = i + 1
-            rel0 = np.linalg.inv(rt_pad_np(P[j])) @ rt_pad_np(P[i])
-            rel = KITTI_RT_CAM2 @ rel0 @ np.linalg.inv(KITTI_RT_CAM2)  # the cam2 frame
-            good = pair_matches(rng, rel, KITTI_K, matches, image_size, noise_px, outlier_frac)
-            H, W = image_size
-            extra = np.concatenate([rng.uniform(0, W, (extra_all, 1)),
-                                    rng.uniform(0, H, (extra_all, 1)),
-                                    rng.uniform(0, W, (extra_all, 1)),
-                                    rng.uniform(0, H, (extra_all, 1)),
-                                    rng.uniform(50, 400, (extra_all, 1)),
-                                    rng.uniform(0.3, 1.0, (extra_all, 1))], 1)
-            np.save(scene / f"ij_match_quality_{i}-{j}_good.npy", good)
-            np.save(scene / f"ij_match_quality_{i}-{j}_all.npy",
-                    np.concatenate([good, extra.astype(np.float32)]))
-            if with_sift_des:
-                idx = np.stack([rng.permutation(matches), rng.permutation(matches)], 1)
-                np.save(scene / f"ij_idx_{i}-{j}_good_ij.npy", idx.astype(np.int32))
+        for delta in sorted(set(deltas) | {1}):
+            r = rng if delta == 1 else np.random.RandomState([seed, s, delta])
+            for i in range(frames - delta):
+                _write_pair(scene, r, P, i, i + delta, matches, image_size, noise_px,
+                            outlier_frac, extra_all, with_sift_des)
         for f in range(frames):
             if with_sift_des:
                 np.save(scene / f"sift_{f:06d}.npy",
@@ -133,10 +144,12 @@ def main(argv=None) -> None:
     ap.add_argument("--noise_px", type=float, default=0.5)
     ap.add_argument("--outlier_frac", type=float, default=0.15)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--deltas", default="1", help="comma list of frame gaps to write")
     args = ap.parse_args(argv)
     names = write_corr_dump(args.out_dir, args.scenes, args.frames, args.matches,
                             noise_px=args.noise_px, outlier_frac=args.outlier_frac,
-                            seed=args.seed)
+                            seed=args.seed,
+                            deltas=tuple(int(d) for d in args.deltas.split(",")))
     print(f"wrote scenes {names} under {args.out_dir}")
 
 

@@ -37,14 +37,16 @@ class FrontendParams:
     the JAX package, and the module forward elsewhere; 'fused' and 'flax'
     (the JAX name, kept: the nn.Module forward) force a side. `conv_impl`
     picks the fused forward's conv implementation ('xla' or 'pallas';
-    None reads DEEPFEPE_SP_CONV_IMPL); it is not an SP_params key. `remat`
+    None reads DEEPFEPE_SP_CONV_IMPL); it is not an SP_params key, nor is
+    `matcher`, the route of the mutual-NN matching (`matching.route`:
+    'auto', 'xla' or 'pallas'; None reads DEEPFEPE_MATCHER_IMPL). `remat`
     ('none', 'block' or 'full') reruns the SuperPoint forward, or each of
     its encoder blocks, in the backward (`run_superpoint`)."""
 
     def __init__(self, out_num_points: int = 1000, patch_size: int = 5, nms_dist: int = 4,
                  conf_thresh: float = 0.015, nn_thresh: float = 1.0,
                  conv_backend: str = "auto", remat: str = "none",
-                 conv_impl: str | None = None):
+                 conv_impl: str | None = None, matcher: str | None = None):
         if conv_backend not in CONV_BACKENDS:
             raise ValueError(f"conv_backend {conv_backend!r} is not one of {CONV_BACKENDS}")
         if remat not in REMATS:
@@ -57,6 +59,7 @@ class FrontendParams:
         self.conv_backend = conv_backend
         self.remat = remat
         self.conv_impl = conv_impl
+        self.matcher = matcher
 
 
 def frontend_params_from_config(cfg) -> FrontendParams:
@@ -139,7 +142,7 @@ def get_matches_from_sp(net, imgs_grey: Tuple[torch.Tensor, torch.Tensor], fp: F
     kk = run_superpoint(net, both, fp, bn_train=bn_train, bn_groups=2 if bn_train else 1)
     k1, k2 = kk.split(B)
     m = mutual_nn_match(k1.desc, k2.desc, k1.valid, k2.valid, nn_thresh=fp.nn_thresh,
-                        num_matches=fp.out_num_points)
+                        num_matches=fp.out_num_points, backend=fp.matcher)
     matches_xy = gather_matches(k1.xy + k1.offsets, k2.xy + k2.offsets, m)
     quality = torch.where(m.valid, 1.0 - m.scores / fp.nn_thresh,
                           torch.zeros_like(m.scores))[..., None]

@@ -64,3 +64,32 @@ def vector_angle(v1: torch.Tensor, v2: torch.Tensor, eps: float = 1e-10) -> torc
     cos = torch.clamp(dot / (n1 * n2 + eps), -1.0, 1.0)
     return torch.rad2deg(torch.arccos(cos))
 
+
+
+def q_to_R(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion [..., 4] (w, x, y, z) -> rotation matrix [..., 3, 3]
+    (normalized first)."""
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    w2, x2, y2, z2 = w * w, x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    row0 = torch.stack([w2 + x2 - y2 - z2, 2 * (xy - wz), 2 * (wy + xz)], dim=-1)
+    row1 = torch.stack([2 * (wz + xy), w2 - x2 + y2 - z2, 2 * (yz - wx)], dim=-1)
+    row2 = torch.stack([2 * (xz - wy), 2 * (wx + yz), w2 - x2 - y2 + z2], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def qmul(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Quaternion product q r, both [..., 4] (w, x, y, z)."""
+    w1, x1, y1, z1 = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    w2, x2, y2, z2 = r[..., 0], r[..., 1], r[..., 2], r[..., 3]
+    return torch.stack([w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+                        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+                        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2], dim=-1)
+
+
+def l2_error(t0: torch.Tensor, t1: torch.Tensor) -> torch.Tensor:
+    """||t0 - t1||_2 over the last axis."""
+    return torch.linalg.vector_norm(t0 - t1, dim=-1)

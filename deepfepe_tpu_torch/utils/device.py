@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import numpy as np
@@ -22,3 +23,17 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
 def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """float32 products in full float32 inside the block (also as a function
+    decorator): cuBLAS and cuDNN may otherwise take TF32 paths on the card,
+    whose 10-bit mantissa stalls a Gauss-Newton solve. The CPU has no such
+    path."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

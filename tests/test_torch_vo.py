@@ -645,13 +645,18 @@ def test_eval_vo_on_a_dump_tree_walks_one_scene_in_frame_order(tree, tmp_path, m
 
 
 def test_eval_vo_refuses_what_is_not_ported_and_needs_the_card(tmp_path, monkeypatch):
+    """Every eval_vo option is ported (--pose_graph and --refine_ba since the
+    BA slice; their runs: tests/test_torch_refine_vo*.py): the flags reach
+    `eval_vo`. Without a card it refuses to run, and writes nothing."""
     monkeypatch.chdir(tmp_path)
     cfg = load_config(str(FLAGSHIP / "vo_net" / "config.yml"))
-    for flag in ("--pose_graph", "--refine_ba"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            cli.main(["eval_vo", str(FLAGSHIP / "vo_net" / "config.yml"), "x", flag,
-                      "--device", "cpu"])
+    real = cli.eval_vo
+    seen = []
+    monkeypatch.setattr(cli, "eval_vo", lambda *a: seen.append(a) or {})
+    cli.main(["eval_vo", str(FLAGSHIP / "vo_net" / "config.yml"), "x", "--pose_graph",
+              "--refine_ba", "--refine_min_matches", "150", "--device", "cpu"])
+    assert seen[0][1] == "x" and seen[0][7:] == (True, True, 150, "cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        cli.eval_vo(cfg, "x")
+        real(cfg, "x", pose_graph=True, refine_ba=True)
     assert not (tmp_path / "logs").exists()
