@@ -174,7 +174,32 @@ and for the BA slice (bundle adjustment and pose-graph fusion):
            peak memory, no kernel launched;
   vo_pose_graph  tools/vo_pose_graph.py at its defaults (30 frames at
            240x320, the repo's sp_joint_11000 SuperPoint, the flagship
-           solver, K5 and K4 on): exact launches, finite metrics.
+           solver, K5 and K4 on): exact launches, finite metrics;
+and for the SuperPoint training slice (conv switch on K5 throughout):
+  sp_train  tools/train_sp_full.py at its widths (SuperPointNet, B = 32,
+           120x160, lr 1e-3, desc_weight 1e-4) from seeded weights: 50
+           detector steps, 20 warped joint steps, stage C (16 HA images x
+           24 homographies, 10 fine-tune steps), final_eval; exact launches
+           around each stage (the train steps and HA take the module
+           forward: none; final_eval K5 2), every loss finite, the
+           detector CE's last 10 steps' mean under its first 10's, images/s
+           a stage; final_eval of the run's checkpoint and of
+           sp_joint_11000 held against the CPU's (SP_FINETUNE_BARS);
+  sp_finetune  tools/finetune_sp_corners.py, 10 iterations from
+           sp_joint_11000 and with --gauss2 from sp_corners_gauss2:
+           eval_before and eval_after (K5 8 each), eval_before held against
+           the CPU's (SP_FINETUNE_BARS);
+  sp_homography  `val_feature --homography 8` with sp_joint_11000 at K =
+           300 and K = 1000: exact launches (K5 2 a pass; K4 1 an epipolar
+           batch and 1 a homography pair at K = 1000), every h_* metric
+           finite, the rates in [0, 1];
+  check_sp  one warped joint step as the tools run it (module route,
+           float32, no TF32, no cuDNN) on the card against the CPU in
+           float32 and float64 (at most CHECK_SP_FLIPS hinge sides
+           differing between the two float32 steps), each
+           term and gradient leaf within 4x the CPU float32 step's error
+           plus 1e-6 of its largest; the HA heatmap (2 images x 4 views)
+           within 1e-5 of the CPU's.
 
 The line before the card's name line is the kernels' JSON summary (eigh9,
 K2, K2b, K5, K4, K5b, K3 and its backward, X1-X4, the bf16 K5 and K5b, each
@@ -205,7 +230,8 @@ readings the bars are set against.
 
     python3 chip_smoke.py --phases eval_vo_ba,bench_ba
 
-builds and runs only the named phases of ALONE_PHASES (the BA slice's),
+builds and runs only the named phases of ALONE_PHASES (the BA slice's and
+the SuperPoint training slice's),
 a quicker look at those paths; it prints no kernels line.
 
     python3 chip_smoke.py --window '["NAME", ARG, ...]'
@@ -4623,8 +4649,331 @@ def phase_vo_pose_graph(ph: Phases) -> dict:
     return counts
 
 
+# ------------------------------------------------- SuperPoint training slice
+
+SP_G2_CKPT = os.path.join("experiments", "g2_corners", "sp_corners_gauss2.msgpack")
+# tools/train_sp_full.py at its defaults (SuperPointNet, B = 32, 120x160,
+# lr 1e-3, desc_weight 1e-4), cut in depth: 50 detector steps, 20 warped
+# joint steps, stage C with 16 HA images x 24 homographies and 10 fine-tune
+# steps, then final_eval; a 128-image pool (rendering the default 3,000
+# costs ~20 s of host time, nothing of the card's).
+SP_TRAIN_ARGS = ["--det_iters", "50", "--joint_iters", "20", "--batch", "32", "--pool", "128",
+                 "--ha_iters", "10", "--ha_images", "16", "--ha_homographies", "24",
+                 "--seed", "0"]
+# K5 launches a stage under the conv switch: the train steps and HA take the
+# module forward (none); final_eval's one [16, 120, 160] frontend pass
+# takes K5 on conv1a and conv1b. K4 stays off at K = 200 (< 768).
+SP_TRAIN_LAUNCHES = {"det": {}, "joint": {}, "ha_labels": {}, "ha_finetune": {},
+                     "final_eval": {"conv3x3_affine_relu": 2}}
+SP_FINETUNE_ITERS = 10
+SP_FINETUNE_RUNS = {"plain": ["--sp", SP_FULL_CKPT],
+                    "gauss2": ["--sp", SP_G2_CKPT, "--gauss2"]}
+# Each evaluation: 4 batches of 8 pairs at 120x160, one [16] pass a batch,
+# K5 on the two 120x160 layers (conv1a/b, or gauss2's inc); K = 200.
+SP_FINETUNE_PER_EVAL = {"conv3x3_affine_relu": 8}
+# eval_before on the card against the same evaluation on the CPU (means
+# over 32 pairs; float32 frontends, keypoints and matches equal but at
+# near-ties).
+SP_FINETUNE_BARS = {"num_matches": 0.5, "ratio": 0.02}
+# val_feature --homography 8 with sp_joint_11000: the CLI's default
+# FrontendParams (K = 300) and K = 1000. The epipolar part is 5 batches of 2
+# pairs, one [4] pass and one match a batch; each homography pair one [2]
+# pass and one match, which serves matching_score_and_map and the
+# correctness; K4 at K >= 768 only.
+SP_H_PAIRS = 8
+SP_H_RUNS = {"default": 300, "k1000": 1000}
+SP_H_IN_UNIT = ("repeatability", "mscore", "mAP", "match_inlier_ratio", "correct@1.0",
+                "correct@3.0", "correct@5.0")
+# check_sp: one warped joint step of sp_joint_11000 on 8 pairs at 120x160.
+# Each of loss, det, desc and every gradient leaf (max abs error, against
+# the CPU's float64 step on the same run's hinge sides: HingeSides) within
+# 4x the CPU float32 step's own error plus 1e-6 of the float64 value's
+# largest; the HA heatmap (2 images x 4 views) within 1e-5 of the CPU's.
+CHECK_SP = {"batch": 8, "seed": 3, "ha_images": 2, "ha_views": 4}
+CHECK_SP_FACTOR, CHECK_SP_FLOOR, CHECK_SP_HA = 4.0, 1e-6, 1e-5
+# Hinge sides that may differ between the card's and the CPU's float32 step:
+# rounding ties, a few of the B N^2 = 720,000 pairs a hinge call (1 in the
+# first run). More is a fault of the step, not rounding.
+CHECK_SP_FLIPS = 8
+
+
+def phase_sp_train(ph: Phases) -> dict:
+    """tools/train_sp_full.py (SP_TRAIN_ARGS) with the conv switch on K5:
+    exact launches around each stage, every loss finite, the detector CE's
+    last 10 steps' mean under its first 10's, images/s a stage, final_eval.
+    Returns the launch counts of the whole run."""
+    import numpy as np
+
+    from deepfepe_tpu_torch.tools import train_sp_full
+    from deepfepe_tpu_torch.utils.weights import load_superpoint
+
+    out = os.path.join("logs", "smoke_sp_train")
+    shutil.rmtree(out, ignore_errors=True)
+    steps, per_stage = {}, {}
+    total = dict.fromkeys(kernel_counters(), 0)
+
+    def on_step(stage, it, o):
+        steps.setdefault(stage, []).append(o)
+
+    def on_stage(name):
+        per_stage[name] = read_counts()
+        for k, v in per_stage[name].items():
+            total[k] += v
+        reset_counts()
+
+    reset_counts()
+    with conv_switch("pallas"):
+        summary = train_sp_full.main([*SP_TRAIN_ARGS, "--out", out, "--device", "cuda"],
+                                     on_step=on_step, on_stage=on_stage)
+    losses = {st: [{k: float(v) for k, v in o.items()} if isinstance(o, dict)
+                   else {"loss": float(o)} for o in outs] for st, outs in steps.items()}
+    det = [r["loss"] for r in losses["det"]]
+    expected = {st: expect(per, 1, total) for st, per in SP_TRAIN_LAUNCHES.items()}
+    ph.emit("sp_train", args=SP_TRAIN_ARGS, stages=summary["stages"],
+            final_eval=summary["final_eval"], launches=per_stage, expected_launches=expected,
+            det_ce_first10=float(np.mean(det[:10])), det_ce_last10=float(np.mean(det[-10:])),
+            loss_first_last={st: [v[0], v[-1]] for st, v in losses.items()},
+            timed="host clock a stage, ending in a synchronize")
+    check(per_stage == expected, f"sp_train: launches {per_stage}, expected {expected}")
+    check(all(np.isfinite(x) for v in losses.values() for r in v for x in r.values()),
+          "sp_train: a non-finite loss")
+    check(np.mean(det[-10:]) < np.mean(det[:10]),
+          f"sp_train: the detector CE did not fall: {det[:10]} ... {det[-10:]}")
+    # final_eval on the card against the same evaluation on the CPU: of the
+    # run's checkpoint (80 steps from seeded weights leave the detector on
+    # the dustbin, 0 matches, as the JAX package's CPU run of the command
+    # gives) and of the trained sp_joint_11000, whose matches are not 0.
+    evals = {"run": (summary["checkpoint"], summary["final_eval"])}
+    with conv_switch("pallas"):
+        evals["sp_joint_11000"] = (SP_FULL_CKPT, train_sp_full.final_eval(
+            load_superpoint(SP_FULL_CKPT, "cuda")))
+    held = {}
+    for name, (ckpt, card) in evals.items():
+        cpu = train_sp_full.final_eval(load_superpoint(ckpt, "cpu"))
+        diff = {k: abs(card[k] - v) for k, v in cpu.items()}
+        held[name] = {"card": {k: card[k] for k in cpu}, "cpu": cpu, "diff": diff,
+                      "ok": all(np.isfinite(card[k]) and d <= SP_FINETUNE_BARS[
+                          "num_matches" if k == "num_matches" else "ratio"]
+                          for k, d in diff.items())}
+    ph.emit("sp_train_final_eval", evals=held, bars=SP_FINETUNE_BARS)
+    for name, h in held.items():
+        check(h["ok"], f"sp_train: final_eval of {name} on the card {h['card']}, on the CPU "
+              f"{h['cpu']}")
+    check(held["sp_joint_11000"]["cpu"]["num_matches"] > 0,
+          f"sp_train: final_eval of sp_joint_11000 found no match: {held['sp_joint_11000']}")
+    return total
+
+
+def phase_sp_finetune(ph: Phases) -> dict:
+    """tools/finetune_sp_corners.py for SP_FINETUNE_ITERS iterations from
+    sp_joint_11000 and, with --gauss2, from sp_corners_gauss2, conv switch
+    on K5: eval_before and eval_after, exact launches, eval_before held
+    against the same evaluation on the CPU (SP_FINETUNE_BARS). Returns the
+    launch counts of both runs."""
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch.tools import finetune_sp_corners
+    from deepfepe_tpu_torch.utils.weights import load_superpoint
+
+    total = dict.fromkeys(kernel_counters(), 0)
+    for run, argv in SP_FINETUNE_RUNS.items():
+        check(os.path.exists(argv[1]), f"no {argv[1]} in the checkout")
+        out = os.path.join("logs", f"smoke_sp_finetune_{run}")
+        shutil.rmtree(out, ignore_errors=True)
+        reset_counts()
+        with conv_switch("pallas"):
+            r = finetune_sp_corners.main([*argv, "--iters", str(SP_FINETUNE_ITERS), "--out", out,
+                                          "--device", "cuda"])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expected = expect(SP_FINETUNE_PER_EVAL, 2, counts)
+        cpu = finetune_sp_corners.eval_frontend(load_superpoint(argv[1], "cpu"), 60)
+        diff = {k: abs(r["eval_before"][k] - cpu[k]) for k in cpu}
+        within = all(v <= SP_FINETUNE_BARS["num_matches" if k == "num_matches" else "ratio"]
+                     for k, v in diff.items())
+        records = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+        ph.emit("sp_finetune", run=run, checkpoint=argv[1], iters=SP_FINETUNE_ITERS,
+                eval_before=r["eval_before"], eval_after=r["eval_after"],
+                eval_before_cpu=cpu, diff_card_cpu=diff, bars=SP_FINETUNE_BARS,
+                train=r["train"], losses=[(x["loss"], x["det_ce"]) for x in records
+                                          if x["stage"] == "train"],
+                launches=counts, expected_launches=expected)
+        check(counts == expected, f"sp_finetune ({run}): launches {counts}, expected {expected}")
+        check(within, f"sp_finetune ({run}): eval_before on the card {r['eval_before']}, on the "
+              f"CPU {cpu}")
+        check(all(np.isfinite(list(e.values())).all() for e in (r["eval_before"], r["eval_after"]))
+              and all(np.isfinite(x["loss"]) for x in records if x["stage"] == "train"),
+              f"sp_finetune ({run}): non-finite {records}")
+        for k, v in counts.items():
+            total[k] += v
+    return total
+
+
+def phase_sp_homography(ph: Phases) -> dict:
+    """`val_feature --homography 8` with sp_joint_11000 at the CLI's default
+    K and at K = 1000 (K4), conv switch on K5: exact launches, every `h_*`
+    metric finite, the rates in [0, 1]. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch import cli
+    from deepfepe_tpu_torch.frontend import FrontendParams
+
+    total = dict.fromkeys(kernel_counters(), 0)
+    for run, K in SP_H_RUNS.items():
+        reset_counts()
+        with conv_switch("pallas"):
+            summary = cli.val_feature(f"smoke_sp_h_{run}", pretrained=SP_FULL_CKPT,
+                                      homography=SP_H_PAIRS,
+                                      fp=FrontendParams(out_num_points=K, conf_thresh=1e-3),
+                                      device="cuda")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        k4 = K >= 768
+        expected = expect({"conv3x3_affine_relu": 2}, 5 + SP_H_PAIRS, counts)
+        expected["mutual_nn_kernel"] = (5 + SP_H_PAIRS) if k4 else 0
+        h = {k: v for k, v in summary.items() if k.startswith("h_")}
+        ph.emit("sp_homography", run=run, K=K, pairs=SP_H_PAIRS, summary=summary,
+                launches=counts, expected_launches=expected,
+                pairs_per_s=(summary["pairs"] + SP_H_PAIRS) / summary["seconds"],
+                timed="host clock over the 10 epipolar and 8 homography pairs, ending in a "
+                "synchronize")
+        check(counts == expected, f"sp_homography ({run}): launches {counts}, expected {expected}")
+        check(len(h) >= 12 and all(np.isfinite(v) for v in h.values()),
+              f"sp_homography ({run}): {h}")
+        check(all(0.0 <= h[f"h_{k}"] <= 1.0 for k in SP_H_IN_UNIT),
+              f"sp_homography ({run}): a rate outside [0, 1]: {h}")
+        for k, v in counts.items():
+            total[k] += v
+    return total
+
+
+class HingeSides:
+    """The descriptor loss's hinge sides (`frontend.train_sp._hinge`): a
+    float32 step records which pairs were active (x > 0) or on the kink (x
+    = 0), call by call; a float64 step replays them, so it differentiates
+    on the float32 run's side of each hinge. A dot product within float32
+    rounding of a margin lands on either side, on any device, and moves a
+    descriptor-head gradient by about desc_weight / (B N^2) a pair (the
+    solver's kinks: SolverBranches)."""
+
+    def __init__(self, replay: list | None = None):
+        self.calls = [] if replay is None else list(replay)
+        self.replay = replay is not None
+
+    def __enter__(self):
+        import torch
+
+        from deepfepe_tpu_torch.frontend import train_sp
+
+        self.saved = train_sp._hinge
+
+        def hinge(x):
+            if not self.replay:
+                self.calls.append(((x > 0).cpu(), (x == 0).cpu()))
+                return self.saved(x)
+            pos, tie = (m.to(x.device) for m in self.calls.pop(0))
+            return torch.where(pos, x, torch.where(tie, 0.5 * x, torch.zeros_like(x)))
+
+        train_sp._hinge = hinge
+        return self
+
+    def __exit__(self, *exc):
+        from deepfepe_tpu_torch.frontend import train_sp
+
+        train_sp._hinge = self.saved
+
+
+def sp_step_report(dev: str, f64: bool, batch: dict, sides: list | None = None) -> dict:
+    """One warped joint step of sp_joint_11000 on `dev` (module route,
+    float32 or float64), run as the tools run it: the step takes its own
+    conv backend (`ops.conv.step_convs`: no TF32, no cuDNN) and the matmuls
+    PyTorch's default, no TF32. Its metrics, gradients and hinge sides
+    (float64 replays `sides`)."""
+    from deepfepe_tpu_torch.frontend.train_sp import adam, make_warped_joint_train_step
+    from deepfepe_tpu_torch.utils.weights import load_superpoint
+
+    net = load_superpoint(SP_FULL_CKPT, dev)
+    if f64:
+        net = net.double()
+    step = make_warped_joint_train_step(net, adam(net, 1e-3))
+    with HingeSides(sides) as h:
+        m = step(batch)
+    return {"metrics": {k: float(v) for k, v in m.items()}, "sides": h.calls,
+            "grads": {k: p.grad.detach().double().cpu() for k, p in net.named_parameters()}}
+
+
+def hinge_flips(a: list, b: list) -> int:
+    """Pairs whose hinge side differs between two recorded steps."""
+    return sum(int((pa != pb).sum() + (ta != tb).sum()) for (pa, ta), (pb, tb) in zip(a, b))
+
+
+def phase_check_sp(ph: Phases) -> None:
+    """check_sp: one warped joint step on the card against the CPU in
+    float32 and float64 (CHECK_SP, CHECK_SP_FACTOR, CHECK_SP_FLOOR; the
+    float64 steps replay each float32 run's hinge sides), and homographic
+    adaptation's heatmap on the card against the CPU's."""
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch.frontend.train_sp import (SyntheticShapes, homographic_adaptation,
+                                                      sample_homography)
+    from deepfepe_tpu_torch.tools.train_sp_full import batch_from_pool
+    from deepfepe_tpu_torch.utils.weights import load_superpoint
+
+    c = CHECK_SP
+    ds = SyntheticShapes(seed=c["seed"])
+    batch = batch_from_pool(ds, None, np.random.RandomState(c["seed"]), c["batch"], True)
+    r = {"card": sp_step_report("cuda", False, batch), "cpu": sp_step_report("cpu", False, batch)}
+    # Float64 on each float32 run's hinge sides.
+    r["f64_card"] = sp_step_report("cpu", True, batch, r["card"]["sides"])
+    r["f64_cpu"] = sp_step_report("cpu", True, batch, r["cpu"]["sides"])
+    ref = r["f64_card"]
+    terms = {}
+    for k, want in ref["metrics"].items():
+        e_card = abs(r["card"]["metrics"][k] - want)
+        e_cpu = abs(r["cpu"]["metrics"][k] - r["f64_cpu"]["metrics"][k])
+        limit = CHECK_SP_FACTOR * e_cpu + CHECK_SP_FLOOR * abs(want)
+        terms[k] = {"card": e_card, "cpu": e_cpu, "limit": limit, "ok": e_card <= limit}
+    leaves = {}
+    for k, want in ref["grads"].items():
+        top = want.abs().max().item()
+        e_card = (r["card"]["grads"][k] - want).abs().max().item()
+        e_cpu = (r["cpu"]["grads"][k] - r["f64_cpu"]["grads"][k]).abs().max().item()
+        limit = CHECK_SP_FACTOR * e_cpu + CHECK_SP_FLOOR * top
+        leaves[k] = {"card": e_card, "cpu": e_cpu, "limit": limit, "ok": e_card <= limit}
+    worst = max(leaves, key=lambda k: leaves[k]["card"] / max(leaves[k]["limit"], 1e-300))
+    flips = hinge_flips(r["card"]["sides"], r["cpu"]["sides"])
+    rng = np.random.RandomState(c["seed"] + 1)
+    imgs = np.stack([ds.sample()[0] for _ in range(c["ha_images"])])
+    Hs = np.stack([sample_homography(rng, (ds.H, ds.W)) for _ in range(c["ha_views"])])
+    heat = {}
+    for dev in ("cpu", "cuda"):
+        net = load_superpoint(SP_FULL_CKPT, dev)
+        heat[dev] = homographic_adaptation(net, torch.as_tensor(imgs, device=dev),
+                                           torch.as_tensor(Hs, device=dev)).cpu()
+    ha_err = (heat["cuda"] - heat["cpu"]).abs().max().item()
+    ok = (all(t["ok"] for t in terms.values()) and all(v["ok"] for v in leaves.values())
+          and ha_err <= CHECK_SP_HA and flips <= CHECK_SP_FLIPS)
+    ph.emit("check_sp", metrics={k: {"card": r["card"]["metrics"][k], "cpu": r["cpu"]["metrics"][k],
+                                     "f64": ref["metrics"][k]} for k in ref["metrics"]},
+            terms=terms, leaves=len(leaves), leaves_ok=sum(v["ok"] for v in leaves.values()),
+            worst_leaf={worst: leaves[worst]},
+            failing_leaves={k: v for k, v in leaves.items() if not v["ok"]},
+            hinge_flips_card_cpu=flips, ha_max_abs=ha_err,
+            ha_max=heat["cpu"].abs().max().item(),
+            bars={"each": f"card vs float64 <= {CHECK_SP_FACTOR} x CPU float32 vs float64 + "
+                  f"{CHECK_SP_FLOOR} x max |float64|, float64 on each run's hinge sides",
+                  "ha": CHECK_SP_HA, "hinge_flips": CHECK_SP_FLIPS}, within_bars=ok)
+    check(ok, f"check_sp: the card's SuperPoint step disagrees with the CPU: terms {terms}, "
+          f"worst leaf {worst} {leaves[worst]}, HA {ha_err}, hinge flips {flips}")
+
+
 ALONE_PHASES = {"eval_vo_ba": phase_eval_vo_ba, "eval_good_ba": phase_eval_good_ba,
-                "bench_ba": phase_bench_ba, "vo_pose_graph": phase_vo_pose_graph}
+                "bench_ba": phase_bench_ba, "vo_pose_graph": phase_vo_pose_graph,
+                "sp_train": phase_sp_train, "sp_finetune": phase_sp_finetune,
+                "sp_homography": phase_sp_homography, "check_sp": phase_check_sp}
 
 
 def plant(fault: str) -> None:
@@ -4797,6 +5146,10 @@ def main(argv=None) -> int:
         eval_good_ba_counts = phase_eval_good_ba(ph)
         phase_bench_ba(ph)
         vopg_counts = phase_vo_pose_graph(ph)
+        sp_train_counts = phase_sp_train(ph)
+        sp_finetune_counts = phase_sp_finetune(ph)
+        sp_h_counts = phase_sp_homography(ph)
+        phase_check_sp(ph)
         phase_check(ph, cfg)
         phase_check_train(ph)
         phase_check_sample(ph)
@@ -4833,6 +5186,9 @@ def main(argv=None) -> int:
         r["launches_eval_vo_ba"] = vo_ba_counts[r["name"]]
         r["launches_eval_good_ba"] = eval_good_ba_counts[r["name"]]
         r["launches_vo_pose_graph"] = vopg_counts[r["name"]]
+        r["launches_sp_train"] = sp_train_counts[r["name"]]
+        r["launches_sp_finetune"] = sp_finetune_counts[r["name"]]
+        r["launches_sp_homography"] = sp_h_counts[r["name"]]
         if r["launches"] <= 0:
             print(f"chip_smoke: FAILED: {r['name']} never launched on {path}",
                   file=sys.stderr, flush=True)

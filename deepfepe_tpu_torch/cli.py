@@ -8,7 +8,7 @@
         [--refine_min_matches m] [--device cpu|cuda]
     python -m deepfepe_tpu_torch.cli val_feature <exper_name> [--config c.yaml]
         [--max_batches k] [--pretrained sp.pth.tar] [--rand_noise s]
-        [--device cpu|cuda]
+        [--homography n] [--device cpu|cuda]
     python -m deepfepe_tpu_torch.cli eval_vo <config.yaml> <exper_name>
         [--pretrained ckpt] [--baseline] [--n_frames n] [--scene s]
         [--lengths 5,10] [--pose_graph] [--refine_ba] [--refine_min_matches m]
@@ -43,7 +43,10 @@ solver pose by two-view square-root BA first. `val_feature` runs the
 SuperPoint frontend on synthetic image pairs, or with `--config` on the
 config's test split with its frames, and prints the share of matches
 within 0.1, 0.5, 1 and 2 px of their ground-truth epipolar lines and the
-match count, also written to logs/<exper_name>/result_dict_all.npz.
+match count, also written to logs/<exper_name>/result_dict_all.npz;
+`--homography n` adds the detector and descriptor metrics (repeatability,
+matching score, mAP, homography correctness) of n homography-warped
+pairs as `h_*` keys.
 `eval_vo` estimates every consecutive pair of a sequence (the synthetic
 sequence, or a dump tree's test split in frame order) with the solver or
 `--baseline`, chains them and prints the KITTI metrics (trans %, rot
@@ -81,6 +84,7 @@ from .data import KittiCorrDataset, SyntheticImagePairs, SyntheticSequence
 from .data.prefetch import prefetch_batches
 from .eval import (chain_relative_poses, export_poses_kitti, frontend_epidist_eval,
                    kitti_odometry, val_rt_batch)
+from .eval.frontend_eval import evaluate_homography_pair
 from .eval.refine import refine_two_view_batch
 from .frontend import (FrontendParams, SuperPointNet, SuperPointNetGauss2,
                        frontend_params_from_config, get_matches_from_sp)
@@ -94,6 +98,7 @@ from .train.config import Config
 from .train.joint import joint_train_step, make_joint_state
 from .train.loop import scalars, start_profile, stop_profile
 from .utils.device import batch_to_device, no_tf32, resolve_device
+from .utils.warp import get_perspective_transform
 from .utils.weights import load_superpoint, save_superpoint
 
 SIFT_ITEM = ("needs OpenCV's SIFT detector and matcher, which the port does not use "
@@ -415,6 +420,23 @@ def eval_good(cfg: Config, max_batches: int, device=None, pretrained: str = "",
     return summary
 
 
+def homography_pairs(n: int) -> list:
+    """`val_feature --homography n`'s (image, H_gt) pairs, drawn as the JAX
+    CLI draws them: the first frame of `SyntheticImagePairs(seed=100 + j)`
+    (120x160), and the homography that moves its corners by up to 8% of the
+    image's size (`RandomState(7)`), by `get_perspective_transform` (the
+    numpy `cv2.getPerspectiveTransform`)."""
+    rng = np.random.RandomState(7)
+    out = []
+    for j in range(n):
+        img = SyntheticImagePairs(seed=100 + j).batch(1)["imgs_grey"][0, 0]
+        Hh, Ww = img.shape
+        pert = rng.uniform(-0.08, 0.08, (4, 2)) * [Ww, Hh]
+        src = np.array([[0, 0], [Ww, 0], [0, Hh], [Ww, Hh]], np.float32)
+        out.append((img, get_perspective_transform(src, (src + pert).astype(np.float32))))
+    return out
+
+
 def val_feature(exper_name: str, max_batches: int = 0, pretrained: str = "",
                 rand_noise: float = 0.0, config: str | Config = "", homography: int = 0,
                 fp: FrontendParams | None = None, image_size=(120, 160), batch_size: int = 2,
@@ -427,13 +449,13 @@ def val_feature(exper_name: str, max_batches: int = 0, pretrained: str = "",
     or a flax `.msgpack`; gauss2 when it has BatchNorm keys) or seeded (seed 0); keypoints and
     mutual-NN matches under `fp`, else the config's SP_params, else the JAX
     CLI's FrontendParams(out_num_points=300, conf_thresh=1e-3). Returns the
-    mean per batch of `ratio@{0.1,0.5,1.0,2.0}` and `num_matches`, with
-    `pairs`, `seconds` (host clock over the frontend and its scoring, ending
-    in a synchronize; data is made up front) and `device`."""
+    mean per batch of `ratio@{0.1,0.5,1.0,2.0}` and `num_matches`; with
+    `homography` n, also the means over n homography-warped pairs
+    (`homography_pairs`) of `evaluate_homography_pair`'s metrics, each
+    under its name with an `h_` prefix; with `pairs`, `seconds` (host clock
+    over the frontend and its scoring, ending in a synchronize; data is
+    made up front) and `device`."""
     device = resolve_device(device)
-    if homography:
-        raise NotImplementedError("val_feature --homography needs a numpy perspective warp in "
-                                  "place of cv2, not ported yet (ROADMAP Queue 1 item 3)")
     n_batches = max_batches or 5
     if config:
         cfg = load_config(config) if isinstance(config, str) else config
@@ -452,7 +474,9 @@ def val_feature(exper_name: str, max_batches: int = 0, pretrained: str = "",
     else:
         net = reset_superpoint(SuperPointNet(), torch.Generator().manual_seed(0))
         net = net.eval().to(device)
+    hpairs = homography_pairs(homography)
     accum: Dict[str, list] = {}
+    hp: Dict[str, list] = {}
     t0 = time.perf_counter()
     for i, batch in enumerate(data):
         imgs = torch.as_tensor(batch["imgs_grey"], device=device)
@@ -463,10 +487,14 @@ def val_feature(exper_name: str, max_batches: int = 0, pretrained: str = "",
         for k, v in out.items():
             if k.startswith("ratio") or k == "num_matches":
                 accum.setdefault(k, []).append(float(np.mean(v)))
+    for img, H_gt in hpairs:
+        for k, v in evaluate_homography_pair(net, img, H_gt, fp).items():
+            hp.setdefault(k, []).append(float(v))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
     summary = {k: float(np.mean(v)) for k, v in accum.items()}
+    summary.update({f"h_{k}": float(np.mean(v)) for k, v in hp.items()})
     save_dir = os.path.join("logs", exper_name)
     os.makedirs(save_dir, exist_ok=True)
     np.savez(os.path.join(save_dir, "result_dict_all.npz"), **summary)

@@ -1,5 +1,5 @@
 """Geometry: homogeneous helpers, epipolar core, rotations, the SO(3)/SE(3)
-maps, correction, E decomposition."""
+maps, correction, E decomposition, homographies."""
 
 from .basic import (dehomo, homo, rt_depad, rt_inverse, rt_pad, safe_norm, se3_compose,
                     se3_inverse, skew)
@@ -18,6 +18,7 @@ from .epipolar import (
     sampson_dist,
     sym_epi_dist,
 )
+from .homography import homography_from_points, homography_transfer_error
 from .lie import se3_exp, se3_log, so3_exp, so3_log
 from .rotations import R_to_q, l2_error, q_to_R, qmul, rotation_angle_error, vector_angle
 

@@ -25,9 +25,10 @@ A float32 convolution on the card goes through cuDNN in TF32 by default
 (`torch.backends.cudnn.allow_tf32` is True), and on the CPU through oneDNN;
 `full_f32` turns off both, and the plain versions and the SuperPoint
 modules run under it, so every conv of the port is float32 end to end, as
-the kernels are. The joint train step of a float32 SuperPoint runs forward and backward
-under `exact_convs`: `full_f32` and, on the card, no cuDNN, whose weight
-gradient takes Winograd for some layers.
+the kernels are. A SuperPoint train step (the joint step, `frontend/
+train_sp.py`'s steps) takes `step_convs`: a float32 net runs forward and
+backward under `exact_convs`, `full_f32` and, on the card, no cuDNN, whose
+weight gradient takes Winograd for some layers.
 
 bf16 activations take the bf16 kernels instead (`ops/conv_bf16.py`,
 `csrc/conv3x3_bf16.cu`): `conv3x3_affine_relu` dispatches on x's dtype,
@@ -90,6 +91,14 @@ def exact_convs():
             yield
     finally:
         torch.backends.cudnn.enabled = saved
+
+
+def step_convs(net: torch.nn.Module):
+    """The conv block of a SuperPoint train step: `exact_convs` for a
+    float32 net (a float64 one too: `net.dtype` is its compute dtype),
+    `full_f32` for a bf16 one, whose plain convs take the library's bf16
+    conv, the counterpart of the JAX package's XLA convs."""
+    return exact_convs() if getattr(net, "dtype", torch.float32) == torch.float32 else full_f32()
 
 
 def conv3x3_affine_relu_ref(x, w, scale, bias):

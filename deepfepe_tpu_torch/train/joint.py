@@ -34,7 +34,8 @@ production point) takes the library's bf16 conv for its plain and module
 convs, the counterpart of the JAX package's XLA convs: cuDNN on the card
 (PyTorch's own CUDA conv, which `exact_convs` would fall back to, is an
 im2col and a GEMM a layer), PyTorch's CPU conv on the CPU. Its step runs
-under `full_f32` (TF32 and oneDNN off), which leaves cuDNN on.
+under `full_f32` (TF32 and oneDNN off), which leaves cuDNN on
+(`ops.conv.step_convs` picks).
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ from typing import Dict
 import torch
 
 from ..frontend import FrontendParams, get_matches_from_sp
-from ..ops.conv import exact_convs, full_f32
+from ..ops.conv import step_convs
 from .config import Config
 from .engine import compute_losses, make_optimizer
 
@@ -109,8 +110,7 @@ def joint_train_step(state: JointState, batch: Dict[str, torch.Tensor], fp: Fron
     sp_params = [p for p in sp_net.parameters() if p.requires_grad]
     for p in (*deepf_params, *sp_params):
         p.grad = None
-    convs = exact_convs if getattr(sp_net, "dtype", torch.float32) == torch.float32 else full_f32
-    with convs():
+    with step_convs(sp_net):
         sp_out = get_matches_from_sp(sp_net, _frames(batch), fp, bn_train=bn_train)
         loss, metrics = compute_losses(deepf_net, build_solver_batch(sp_out, batch), cfg,
                                        q_clamp, t_clamp)

@@ -11,7 +11,8 @@ checkpoints are read without flax (`utils/msgpack_io.py`):
 same two functions. `to_reference_layout` goes the other way, for the
 checkpoints the port writes. `save_superpoint` writes a SuperPoint net as
 the reference's `.pth.tar` (BatchNorm buffers included), and
-`load_superpoint` reads one, a reference `.pth` or a flax `.msgpack`.
+`load_superpoint` reads one, a reference `.pth` or a flax `.msgpack`
+(`superpoint_state_from_file` gives its state_dict).
 """
 
 from __future__ import annotations
@@ -184,22 +185,28 @@ def save_superpoint(path: str, net: torch.nn.Module, n_iter: int,
                 "loss": float(loss)}, path)
 
 
-def load_superpoint(path: str, device=None, dtype=torch.float32) -> torch.nn.Module:
-    """A SuperPoint checkpoint -> the matching net, in eval mode, computing
-    in `dtype` (its parameters float32, as in the file): a reference `.pth`
-    state dict or `.pth.tar` with `model_state_dict`, or the JAX package's
-    flax `.msgpack` variables. `SuperPointNetGauss2` when the file has
-    BatchNorm keys (batch statistics), else `SuperPointNet`."""
-    from ..frontend.superpoint import SuperPointNet, SuperPointNetGauss2
-
+def superpoint_state_from_file(path: str) -> Dict[str, torch.Tensor]:
+    """A SuperPoint checkpoint's state_dict in this package's keys: a
+    reference `.pth` state dict or `.pth.tar` with `model_state_dict`
+    (`module.` prefixes dropped), or the JAX package's flax `.msgpack`
+    variables."""
     if str(path).endswith(MSGPACK):
         from .msgpack_io import load_params_msgpack
 
-        sd = superpoint_state_from_flax(load_params_msgpack(path))
-    else:
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
-        sd = ckpt.get("model_state_dict", ckpt)
-        sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+        return superpoint_state_from_flax(load_params_msgpack(path))
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("model_state_dict", ckpt)
+    return {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+
+
+def load_superpoint(path: str, device=None, dtype=torch.float32) -> torch.nn.Module:
+    """A SuperPoint checkpoint (`superpoint_state_from_file`) -> the
+    matching net, in eval mode, computing in `dtype` (its parameters
+    float32, as in the file): `SuperPointNetGauss2` when the file has
+    BatchNorm keys (batch statistics), else `SuperPointNet`."""
+    from ..frontend.superpoint import SuperPointNet, SuperPointNetGauss2
+
+    sd = superpoint_state_from_file(path)
     gauss2 = any(k.endswith("running_mean") for k in sd)
     net = SuperPointNetGauss2(dtype=dtype) if gauss2 else SuperPointNet(dtype=dtype)
     net.load_state_dict(sd, strict=True)

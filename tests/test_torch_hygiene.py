@@ -75,7 +75,8 @@ def test_importing_the_port_loads_no_jax():
               "eval.metrics_summary", "utils.msgpack_io", "data.synthetic_sequence",
               "eval.vo", "eval.kitti_odometry", "eval.tum", "eval.results",
               "eval.opencv_baseline", "run_eval", "utils.io", "utils.logging",
-              "utils.profiling"):
+              "utils.profiling", "utils.warp", "geometry.homography", "frontend.train_sp",
+              "tools.train_sp_full", "tools.finetune_sp_corners"):
         assert f"deepfepe_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -13,7 +13,8 @@
   reference layout: the summary is the JAX `frontend_epidist_eval`'s
   means over the same batches, within the same bars, and
   logs/<exper_name>/result_dict_all.npz holds it. A gauss2 checkpoint
-  (BatchNorm keys) builds the gauss2 net.
+  (BatchNorm keys) builds the gauss2 net. `--homography` runs on the CPU
+  and returns the `h_*` keys.
 """
 
 import numpy as np
@@ -114,7 +115,11 @@ def test_val_feature_builds_gauss2_from_batchnorm_keys(tmp_path):
 
 
 def test_val_feature_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """Its one case, --homography, is ported: it runs on the CPU without
+    cv2 and adds the `h_*` keys (their values against the JAX CLI:
+    tests/test_torch_frontend_homography.py)."""
     monkeypatch.chdir(tmp_path)
-    for kw, what in ((dict(homography=2), "cv2"),):
-        with pytest.raises(NotImplementedError, match=what):
-            cli.val_feature("x", device="cpu", **kw)
+    summary = cli.val_feature("x", max_batches=1, homography=1, device="cpu")
+    hkeys = {k for k in summary if k.startswith("h_")}
+    assert {"h_repeatability", "h_mscore", "h_mAP", "h_correct@3.0"} <= hkeys
+    assert all(np.isfinite(summary[k]) for k in hkeys if k != "h_localization_error")
