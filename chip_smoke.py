@@ -201,6 +201,29 @@ and for the SuperPoint training slice (conv switch on K5 throughout):
            plus 1e-6 of its largest; the HA heatmap (2 images x 4 views)
            within 1e-5 of the CPU's.
 
+and for the staged joint recipe and SuperPoint VO slice:
+  joint_full  tools/train_joint_full.py at the production point of
+           experiments/r5_frozen_qsched (bf16 gauss2 SuperPoint, 376x1240,
+           N = 1000, 4 pairs a step, frozen BN, qt loss with the quantile
+           clamp scheduler, two Adams clipped to 1.0) from the committed
+           joint_fullres_train_qt3 pair, 3 steps a stage: exact launches
+           around each evaluation and stage, no skipped update, the
+           checkpoints; then a train-mode BN leg with recalibration at
+           96x128 on the card and the CPU (JF_CPU_BARS);
+  joint_ckpts  tools/eval_joint_ckpts.py over joint_full's pairs and the
+           committed pair: exact launches, the committed pair's record
+           equal to joint_full's eval_init line, the script's defaults at 2
+           batches (the JAX package's CPU run in PERF.md), and 120x160 card
+           vs CPU, also the solver and RANSAC on the card's own matches;
+  vo_superpoint  tools/vo_superpoint.py at its defaults with sp_joint_11000
+           and the flagship solver, without and with --refine_ba: exact
+           launches, the same match count in both, 17 frames card vs CPU;
+  des_fusion  train_good and eval_good with model.if_img_des_to_pointnet on
+           a tree with 128-wide SIFT descriptors (C_in 261 and 264): exact
+           launches, no K2 or K2b with use_pallas_mlp, card vs CPU;
+  dsac     models/dsac.py on 1,000 matches, the card against the CPU on the
+           same draws (DSAC_BARS), eigh9 2 a call.
+
 The line before the card's name line is the kernels' JSON summary (eigh9,
 K2, K2b, K5, K4, K5b, K3 and its backward, X1-X4, the bf16 K5 and K5b, each
 with its launches
@@ -230,8 +253,8 @@ readings the bars are set against.
 
     python3 chip_smoke.py --phases eval_vo_ba,bench_ba
 
-builds and runs only the named phases of ALONE_PHASES (the BA slice's and
-the SuperPoint training slice's),
+builds and runs only the named phases of ALONE_PHASES (the BA slice's, the
+SuperPoint training slice's and the joint recipe slice's),
 a quicker look at those paths; it prints no kernels line.
 
     python3 chip_smoke.py --window '["NAME", ARG, ...]'
@@ -4970,10 +4993,629 @@ def phase_check_sp(ph: Phases) -> None:
           f"worst leaf {worst} {leaves[worst]}, HA {ha_err}, hinge flips {flips}")
 
 
+# ------------------------ the staged joint recipe, SuperPoint VO, if_des, DSAC
+
+JF_DIR = os.path.join("experiments", "joint_fullres_train_qt3")
+JF_SP = os.path.join(JF_DIR, "superPoint_stage2_end_to_end.msgpack")
+JF_DEEPF = os.path.join(JF_DIR, "deepF_stage2_end_to_end.msgpack")
+# tools/train_joint_full.py at the production point of experiments/
+# r5_frozen_qsched (the bf16 gauss2 SuperPoint at 376x1240, N = 1000, 4
+# pairs a step, the corner-dense pairs of experiments/joint_fullres_train_qt
+# (800 blobs, 400 corner stamps: the default textures leave the detector
+# about one match a pair at this size), frozen BN, the qt loss under the
+# 0.7-quantile clamp scheduler, lr 1e-4 / 1e-6, clip 1.0) from the
+# committed pair, cut in depth: 2 steps a stage, a checkpoint every 2 (the
+# tag <stage>_it2 beside the stage's own), one evaluation batch. A step
+# there takes about 10 s of host clock, the batches rendered by three host
+# threads.
+JF_STEPS = 2
+JF_DATA = ["--n_blobs", "800", "--n_corners", "400"]
+JF_ARGS = ["--sp", JF_SP, "--deepf", JF_DEEPF, "--gauss2", "--image", "376", "1240",
+           "--npts", "1000", "--batch", "4", *JF_DATA, "--bn_mode", "frozen", "--qt",
+           "--clamp_quantile", "0.7", "--lr_deepf", "1e-4", "--lr_sp", "1e-6",
+           "--grad_clip", "1.0", "--stage1_iters", str(JF_STEPS), "--stage2_iters",
+           str(JF_STEPS), "--save_every", "2", "--eval_batches", "1"]
+# Per evaluation batch (8 pairs, one [16, 376, 1240] pass): the bf16 K5 on
+# the six layers of >= 16,384 px, K4 1, eigh9 5 + 2 (RANSAC's fan-out and
+# refit), K3 4 + 1 (DeepFNet's feedbacks and the F-loss).
+JF_PER_EVAL = {"conv3x3_affine_relu_bf16": 6, "mutual_nn_kernel": 1, "eigh9": 7,
+               "epi_residual": 5}
+# Per train step with frozen BN, in both stages (the fused forward; stage 1
+# differentiates SuperPoint too): the bf16 K5 and K5b 6 each, K4 1, eigh9 5,
+# K3 5 forward and 4 backward (the qt loss reaches DeepFNet's four only).
+JF_PER_STEP = {"conv3x3_affine_relu_bf16": 6, "conv3x3_affine_relu_bwd_bf16": 6,
+               "mutual_nn_kernel": 1, "eigh9": 5, "epi_residual": 5, "epi_residual_bwd": 4}
+# The train-mode BN leg at 96x128 (no layer reaches 16,384 px: no K5) with
+# 60 corner stamps a plane (about 60 matches a pair), run on the card and
+# on the CPU with one prefetch thread (the seed-1000 one) so both take the
+# same batches: one stage-1 step, BN recalibration over one batch, one
+# train-mode stage-2 step (the module forward).
+JF_BN_ARGS = ["--sp", JF_SP, "--deepf", JF_DEEPF, "--gauss2", "--image", "96", "128",
+              "--npts", "200", "--batch", "2", "--n_corners", "60", "--bn_mode", "train",
+              "--bn_recalib", "1", "--qt", "--stage1_iters", "1", "--stage2_iters", "1",
+              "--eval_batches", "1"]
+JF_BN_LAUNCHES = {
+    "eval_init": {"mutual_nn_kernel": 1, "eigh9": 7, "epi_residual": 5},
+    "stage1_frozen_sp": {"mutual_nn_kernel": 1, "eigh9": 5, "epi_residual": 5,
+                         "epi_residual_bwd": 4},
+    "bn_recalib_before_stage2_end_to_end": {"mutual_nn_kernel": 1},
+    "stage2_end_to_end": {"mutual_nn_kernel": 1, "eigh9": 5, "epi_residual": 5,
+                          "epi_residual_bwd": 4}}
+# Card against CPU on the same weights, data and RANSAC draws, both with a
+# bf16 SuperPoint and a bf16 weight MLP, whose products round in another
+# order on each device, so the two frontends give slightly other matches:
+# match counts within 10% + 1 (score ties at the detector's threshold; the
+# leg at 60 corner stamps and the 120x160 joint_ckpts run on an H100:
+# 4.7% at most, train mode's recalibration count 29 / 30), the share of
+# matches within 1 px of the true epipolar line within 0.05 (0.013
+# measured), losses within 5% (2.2% measured), the solver's median err_q
+# over the 8 pairs within 0.1 deg + 30% (measured: the leg's evaluations
+# 1.209 / 1.058, 0.761 / 0.970 and 2.003 / 1.807 deg, the 120x160 run
+# 6.811 / 5.504: a median of 8 pairs moves with a few pairs' other
+# matches); the rest finite. Median err_t (32-105 deg on both devices:
+# these small frames leave the translation direction unrecovered), RANSAC's
+# medians and the gradient norms are held finite only; on the card's own
+# matches (JC_SAME_BATCHES) the solver is held closer, free of the
+# frontends' rounding.
+JF_CPU_BARS = {"matches_rel": 0.1, "matches_abs": 1.0, "inlier": 0.05, "loss_rel": 0.05,
+               "err_q_abs": 0.1, "err_q_rel": 0.3}
+# eval_joint_ckpts over joint_full's four pairs and over the committed pair
+# with train_joint_full's data and frontend flags (JC_FLAGS), one batch: the
+# committed pair must give joint_full's eval_init line (the same weights and
+# the first batch of the same stream) but for RANSAC's medians (another
+# generator); the committed pair at the script's defaults with the
+# production data and --eval_batches 2, as the JAX package's CPU run of it
+# in PERF.md; and at 120x160 on the card and the CPU.
+JC_FLAGS = ["--gauss2", "--depth_jitter", "0.0", *JF_DATA, "--conf", "0.010",
+            "--nn_thresh", "0.9"]
+JC_FULL = ["--image", "376", "1240", "--npts", "1000"]
+JC_SMALL = ["--image", "120", "160", "--npts", "200", "--eval_batches", "1"]
+# The committed pair at JC_SMALL, the card's frontend giving the matches of
+# JC_SAME_BATCHES evaluation batches (16 pairs), the solver and RANSAC (one
+# generator seed, the same draws) run on them on the card and on the CPU:
+# the solver's median err_q within VOSP_ERR_Q (the bf16 MLP's products
+# round in another order on each device; 4.752 / 4.863 deg on an H100);
+# RANSAC's refit inlier count equal on the card and the CPU in at least
+# JC_RANSAC_SAME of the pairs (14 of 16 measured). Its median err_q
+# is not held: on the same draws the devices' float32 fits put a few
+# matches on the other side of the 1 px threshold, and in 2 of the 16
+# pairs another hypothesis wins (refit counts 71 / 56 and 56 / 62; median
+# err_q 2.194 / 1.701 deg). Median err_t is reported only (72.54 / 72.47
+# deg: these frames leave the translation unrecovered).
+JC_SAME_BATCHES = 2
+JC_RANSAC_SAME = 0.75
+# tools/vo_superpoint.py at its defaults (SuperPointNet, 120x160, N = 200,
+# 60 frames: 59 pairs in 8 batches) with sp_joint_11000 and the flagship
+# solver, without and with --refine_ba: per batch K5 on conv1a/b, K4 1,
+# eigh9 5 + 2 (RANSAC), K3 4 + 1; the polish launches none. Then 17 frames
+# (2 batches) on the card and the CPU.
+VOSP_BATCHES = 8
+VOSP_PER_BATCH = {"conv3x3_affine_relu": 2, "mutual_nn_kernel": 1, "eigh9": 7,
+                  "epi_residual": 5}
+VOSP_CHECK_FRAMES = 17
+# The float32 frontend on both devices: match means within SP_FINETUNE_BARS'
+# 0.5; the bf16 solver's median err_q within 0.1 deg + 10% (its products
+# round in another order on each device; 44 matches a pair).
+VOSP_ERR_Q = {"abs": 0.1, "rel": 0.1}
+# if_des: train_good and eval_good with model.if_img_des_to_pointnet on a
+# correspondence tree with 128-wide SIFT descriptors (the loader's 'des' is
+# 256 wide: C_in 261 and 264 with the quality column), the kitti_corr
+# values (B = 8, N = 1000, depth 5, use_pallas_mlp true, which the routing
+# keeps off K2 at these widths): per F-loss step eigh9 5, K3 5 and its
+# backward 5; per eval batch eigh9 7, K3 5. The card's eval summary against
+# the CPU's eval of the same checkpoint: medians within 0.1 deg + 10%
+# (the bf16 MLP's rounding), loss_F within 5%.
+DES_TRAIN_STEPS = 3
+DES_PER_STEP = {"eigh9": 5, "epi_residual": 5, "epi_residual_bwd": 5}
+DES_PER_EVAL = {"eigh9": 7, "epi_residual": 5}
+DES_BARS = {"deg_abs": 0.1, "rel": 0.1, "loss_rel": 0.05}
+# DSAC (models/dsac.py) on a synthetic pair of 1,000 K-normalized matches
+# (30% outliers, 0.5 px noise), 64 hypotheses of 10, the card's run against
+# the CPU's on the same draws: two eigh9 launches a call (the hypotheses,
+# the refit); the same best hypothesis; E_best (unit norm, sign-aligned)
+# within 1e-4 and exp_loss and top_loss within 1e-5 of the CPU's float32
+# run. Each hypothesis' E against the CPU's float64 run, within float32's
+# eps times the condition number of its fit, computed in float64 from the
+# inputs alone (`dsac_conditioning`: lambda_1 / (lambda_8 - lambda_9) of
+# its 8-point Gram matrix plus sigma_1 / (sigma_2 - sigma_3) of the 3x3
+# before the rank-2 projection): the CPU's float32 run keeps within 0.095
+# of that bar on every hypothesis, the H100 within 0.32. Hypotheses whose bar
+# passes 1e-2 are ill-posed and left out (6 of 64 here, none the best);
+# the best must not be one. Each soft score within 1e-5 of the largest of
+# the same score computed in float64 from the card's own E (1.5e-7 in the
+# CPU's float32 run): a steep sigmoid (beta 1e5) moves a score far on a
+# small change of its E, so the scores are held on the card's E, whose
+# error the E check bounds.
+DSAC = {"n": 1000, "hyps": 64, "sample_size": 10, "outliers": 0.3, "noise_px": 0.5,
+        "seed": 0, "calls": 3}
+DSAC_BARS = {"E": 1e-4, "loss": 1e-5, "E_per_cond": 1.0, "ill_posed": 1e-2, "score": 1e-5}
+
+
+def within_rel(card: float, cpu: float, rel: float, floor: float = 0.0) -> bool:
+    import numpy as np
+
+    return bool(np.isfinite(card)) and abs(card - cpu) <= floor + rel * abs(cpu)
+
+
+def jf_records_close(card: list, cpu: list) -> dict:
+    """train_joint_full records of the card's and the CPU's run, held at
+    JF_CPU_BARS: {record stage: {key: (card, cpu, ok)}}."""
+    import numpy as np
+
+    b = JF_CPU_BARS
+    out = {}
+    for c, p in zip(card, cpu):
+        row = {}
+        for k, v in p.items():
+            if k in ("stage", "elapsed_s", "tag", "iter", "iters", "q_clamp", "t_clamp",
+                     "skipped_total"):
+                ok = k in ("stage", "elapsed_s") or c[k] == v
+            elif k in ("mean_num_matches", "num_matches", "train_mode_matches"):
+                ok = within_rel(c[k], v, b["matches_rel"], b["matches_abs"])
+            elif k == "gt_epi_inlier_1px":
+                ok = within_rel(c[k], v, 0.0, b["inlier"])
+            elif k == "loss":
+                ok = within_rel(c[k], v, b["loss_rel"])
+            elif k == "median_err_q":
+                ok = within_rel(c[k], v, b["err_q_rel"], b["err_q_abs"])
+            else:
+                ok = bool(np.isfinite(c[k]))
+            row[k] = (c[k], v, ok)
+        out[p["stage"]] = row
+    return out
+
+
+def phase_joint_full(ph: Phases) -> dict:
+    """tools/train_joint_full.py at the production point (JF_ARGS): exact
+    launches around each evaluation and stage, no skipped update, the
+    checkpoints; then the train-mode BN leg (JF_BN_ARGS) on the card and
+    the CPU, held at JF_CPU_BARS. Returns the production run's launches."""
+    import unittest.mock
+
+    import numpy as np
+
+    from deepfepe_tpu_torch.tools import train_joint_full
+
+    check(os.path.exists(JF_SP) and os.path.exists(JF_DEEPF), f"no {JF_DIR} pair in the checkout")
+    out = os.path.join("logs", "smoke_joint_full")
+    shutil.rmtree(out, ignore_errors=True)
+    per_stage, total = {}, dict.fromkeys(kernel_counters(), 0)
+
+    def on_stage(name):
+        per_stage[name] = read_counts()
+        for k, v in per_stage[name].items():
+            total[k] += v
+        reset_counts()
+
+    reset_counts()
+    summary = train_joint_full.main([*JF_ARGS, "--out", out, "--device", "cuda"],
+                                    on_stage=on_stage)
+    expected = {name: expect(JF_PER_STEP if name.startswith("stage") else JF_PER_EVAL,
+                             JF_STEPS if name.startswith("stage") else 1, total)
+                for name in per_stage}
+    recs = summary["records"]
+    ckpts = sorted(n for n in os.listdir(out) if n.endswith(".pth.tar"))
+    ph.emit("joint_full", args=JF_ARGS, records=recs, stages=summary["stages"],
+            launches=per_stage, expected_launches=expected, checkpoints=ckpts,
+            timed="host clock a stage (steps only, batches rendered by three host threads), "
+                  "ending in a synchronize")
+    check(per_stage == expected, f"joint_full: launches {per_stage}, expected {expected}")
+    check(all(np.isfinite(v) for r in recs for v in r.values() if isinstance(v, float)),
+          f"joint_full: a non-finite record {recs}")
+    check(all(s["skipped"] == 0 for s in summary["stages"].values()),
+          f"joint_full: skipped updates {summary['stages']}")
+    want = {f"{n}_{t}.pth.tar" for n in ("deepF", "superPoint")
+            for t in ("stage1_frozen_sp", "stage1_frozen_sp_it2", "stage2_end_to_end",
+                      "stage2_end_to_end_it2")}
+    check(set(ckpts) == want, f"joint_full: checkpoints {ckpts}")
+
+    # The train-mode BN leg, on the card (launches) and the CPU.
+    legs = {}
+    with unittest.mock.patch.object(train_joint_full, "WORKER_SEEDS", (1000,)):
+        for dev in ("cuda", "cpu"):
+            leg_out = os.path.join("logs", f"smoke_joint_full_bn_{dev}")
+            shutil.rmtree(leg_out, ignore_errors=True)
+            per = {}
+
+            def leg_stage(name, per=per):
+                per[name] = read_counts()
+                reset_counts()
+
+            reset_counts()
+            legs[dev] = {"summary": train_joint_full.main(
+                [*JF_BN_ARGS, "--out", leg_out, "--device", dev], on_stage=leg_stage),
+                "launches": per}
+    card = legs["cuda"]["launches"]
+    expected_bn = {name: expect(JF_BN_LAUNCHES.get(name, JF_BN_LAUNCHES["eval_init"]), 1,
+                                card[name]) for name in card}
+    held = jf_records_close(legs["cuda"]["summary"]["records"], legs["cpu"]["summary"]["records"])
+    ph.emit("joint_full", leg="bn_train", args=JF_BN_ARGS, launches=card,
+            expected_launches=expected_bn, card_vs_cpu=held, bars=JF_CPU_BARS)
+    check(card == expected_bn, f"joint_full bn leg: launches {card}, expected {expected_bn}")
+    bad = {s: {k: v for k, v in row.items() if not v[2]} for s, row in held.items()}
+    check(not any(bad.values()), f"joint_full bn leg: card vs CPU off the bars: {bad}")
+    check([r["stage"] for r in legs["cuda"]["summary"]["records"]] ==
+          [r["stage"] for r in legs["cpu"]["summary"]["records"]], "joint_full bn leg: records")
+    return total
+
+
+def phase_joint_ckpts(ph: Phases) -> dict:
+    """tools/eval_joint_ckpts.py over joint_full's output and over the
+    committed pair: exact launches, the run's stage-2 pair equal to its own
+    eval line but for RANSAC, the committed pair at 120x160 on the card and
+    the CPU. Returns the launch sums."""
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch.tools import eval_joint_ckpts
+
+    run_dir = os.path.join("logs", "smoke_joint_full")
+    total = dict.fromkeys(kernel_counters(), 0)
+    out = {}
+    for name, argv, n_evals in (
+            ("run", ["--dir", run_dir, *JC_FLAGS, *JC_FULL, "--eval_batches", "1"], 4),
+            ("committed", ["--dir", JF_DIR, *JC_FLAGS, *JC_FULL, "--eval_batches", "1"], 1),
+            ("committed_production", ["--dir", JF_DIR, "--gauss2", *JC_FULL, *JF_DATA,
+                                      "--eval_batches", "2"], 2)):
+        reset_counts()
+        t0 = time.perf_counter()
+        recs = eval_joint_ckpts.main([*argv, "--device", "cuda"])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = read_counts()
+        expected = expect(JF_PER_EVAL, n_evals, counts)
+        out[name] = recs
+        ph.emit("joint_ckpts", run=name, args=argv, records=recs, launches=counts,
+                expected_launches=expected, seconds_host=sec)
+        check(counts == expected, f"joint_ckpts ({name}): launches {counts}, expected {expected}")
+        check(all("error" not in r and all(np.isfinite(v) for v in r.values()
+                                           if isinstance(v, float)) for r in recs),
+              f"joint_ckpts ({name}): {recs}")
+        for k, v in counts.items():
+            total[k] += v
+    tags = [r["tag"] for r in out["run"]]
+    check(tags == ["stage1_frozen_sp_it2", "stage2_end_to_end_it2", "stage1_frozen_sp",
+                   "stage2_end_to_end"], f"joint_ckpts: tags {tags}")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        own = json.loads(f.readline())
+    swept = out["committed"][0]
+    same = {k: (swept[k], own[k]) for k in ("median_err_q", "median_err_t", "mean_num_matches",
+                                             "gt_epi_inlier_1px")}
+    ph.emit("joint_ckpts", check="the committed pair against joint_full's eval_init line",
+            values=same)
+    check(all(a == b for a, b in same.values()), f"joint_ckpts: the sweep's record of the "
+          f"committed pair {swept} is not joint_full's eval_init line {own}")
+    small = {dev: eval_joint_ckpts.main(["--dir", JF_DIR, *JC_FLAGS, *JC_SMALL, "--device", dev])[0]
+             for dev in ("cuda", "cpu")}
+    held = jf_records_close([dict(small["cuda"], stage="committed")],
+                            [dict(small["cpu"], stage="committed")])
+    ph.emit("joint_ckpts", check="committed pair at 120x160, card vs CPU", card_vs_cpu=held,
+            bars=JF_CPU_BARS)
+    bad = {k: v for k, v in held["committed"].items() if not v[2]}
+    check(not bad, f"joint_ckpts: card vs CPU off the bars: {bad}")
+    same = jc_solver_on_card_matches()
+    c, p = same["cuda"], same["cpu"]
+    same_inl = float(np.mean(c["ransac_inliers"] == p["ransac_inliers"]))
+    held = {"median_err_q": (c["median_err_q"], p["median_err_q"], within_rel(
+                c["median_err_q"], p["median_err_q"], VOSP_ERR_Q["rel"], VOSP_ERR_Q["abs"])),
+            "ransac_inliers_equal_share": (same_inl, None, same_inl >= JC_RANSAC_SAME)}
+    ph.emit("joint_ckpts", check="committed pair at 120x160, the solver and RANSAC on the "
+            "card's matches, card vs CPU", held=held,
+            card={k: v for k, v in c.items() if k != "ransac_inliers"},
+            cpu={k: v for k, v in p.items() if k != "ransac_inliers"},
+            ransac_inliers=[c["ransac_inliers"].tolist(), p["ransac_inliers"].tolist()],
+            bars={"median_err_q": VOSP_ERR_Q, "ransac_inliers_equal_share": JC_RANSAC_SAME})
+    check(all(v[2] for v in held.values()), f"joint_ckpts: on the card's matches {held}")
+    return total
+
+
+def jc_solver_on_card_matches() -> dict:
+    """The committed pair at JC_SMALL: the card's bf16 frontend gives the
+    matches of JC_SAME_BATCHES evaluation batches, and the solver (the
+    curriculum's final clamps, as `joint_eval_step`) and RANSAC (one
+    generator seed a device: the same draws) run on them on the card and on
+    the CPU -> {device: the medians of evaluate's four pose errors, and
+    'ransac_inliers', each pair's RANSAC winner's inlier count}."""
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch.eval.val_rt import val_rt_batch
+    from deepfepe_tpu_torch.frontend import get_matches_from_sp
+    from deepfepe_tpu_torch.tools import eval_joint_ckpts
+    from deepfepe_tpu_torch.tools.sp_pipeline import (frontend_params, load_frontend,
+                                                      load_solver, solver_config)
+    from deepfepe_tpu_torch.tools.train_joint_full import EVAL_PAIRS
+    from deepfepe_tpu_torch.train.engine import compute_losses
+    from deepfepe_tpu_torch.train.joint import build_solver_batch
+    from deepfepe_tpu_torch.utils.device import batch_to_device
+
+    args = eval_joint_ckpts.build_parser().parse_args(["--dir", JF_DIR, *JC_FLAGS, *JC_SMALL])
+    cfg = solver_config(args.npts, args.batch, tuple(args.image))
+    fp = frontend_params(args.npts, args.conf, args.nn_thresh)
+    sp_net = load_frontend(JF_SP, "cuda", gauss2=True)
+    nets = {dev: load_solver(cfg, JF_DEEPF, dev) for dev in ("cuda", "cpu")}
+    gens = {dev: torch.Generator().manual_seed(eval_joint_ckpts.RANSAC_SEED) for dev in nets}
+    keys = {"median_err_q": "err_q_est", "median_err_t": "err_t_est",
+            "median_err_q_ransac": "err_q_base", "median_err_t_ransac": "err_t_base"}
+    errs = {dev: {k: [] for k in [*keys, "ransac_inliers"]} for dev in nets}
+    q, t = (float(v[-1]) for v in (cfg.training.clamp_q_params, cfg.training.clamp_t_params))
+    ds = eval_joint_ckpts.eval_stream(args)
+    with torch.no_grad():
+        for _ in range(JC_SAME_BATCHES):
+            b = batch_to_device(ds.batch(EVAL_PAIRS), "cuda")
+            sp_out = get_matches_from_sp(sp_net, (b["imgs_grey"][:, 0], b["imgs_grey"][:, 1]), fp)
+            for dev, net in nets.items():
+                bd = {k: v.to(dev) for k, v in b.items()}
+                so = {k: v.to(dev) for k, v in sp_out.items() if isinstance(v, torch.Tensor)}
+                _, m = compute_losses(net, build_solver_batch(so, bd), cfg, q, t)
+                rt = val_rt_batch(m["E_ests"], bd["Ks"], so["matches_xy_ori"], bd["E_gts"],
+                                  bd["delta_Rtijs_4_4"], generator=gens[dev])
+                for k, src in keys.items():
+                    errs[dev][k].append(rt[src].cpu().numpy())
+                errs[dev]["ransac_inliers"].append(rt["base_inliers"].cpu().numpy())
+    return {dev: {k: np.concatenate(v) if k == "ransac_inliers" else
+                  float(np.median(np.concatenate(v))) for k, v in e.items()}
+            for dev, e in errs.items()}
+
+
+def phase_vo_superpoint(ph: Phases) -> dict:
+    """tools/vo_superpoint.py at its defaults with sp_joint_11000 and the
+    flagship solver, without and with --refine_ba: exact launches, finite
+    summaries, the same match count in both; then 17 frames on the card and
+    the CPU. Returns the launch sums."""
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch.tools import vo_superpoint
+
+    check(os.path.exists(SP_FULL_CKPT), f"no {SP_FULL_CKPT} in the checkout")
+    base = ["--sp", SP_FULL_CKPT, "--deepf", FLAGSHIP_CKPT]
+    total = dict.fromkeys(kernel_counters(), 0)
+    runs = {}
+    for name, extra in (("plain", []), ("refine_ba", ["--refine_ba"])):
+        reset_counts()
+        s = vo_superpoint.main([*base, *extra, "--out", os.path.join("logs", f"smoke_vosp_{name}"),
+                                "--device", "cuda"])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expected = expect(VOSP_PER_BATCH, VOSP_BATCHES, counts)
+        runs[name] = s
+        ph.emit("vo_superpoint", run=name, summary=s, launches=counts,
+                expected_launches=expected, pairs_per_s=s["n_pairs"] / s["seconds"],
+                timed="host clock over the sweep (frontend, solver, RANSAC, polish), ending "
+                      "in a synchronize; frames rendered inside it")
+        check(counts == expected, f"vo_superpoint ({name}): launches {counts}, expected {expected}")
+        check(s["n_pairs"] == VO_PAIRS, f"vo_superpoint ({name}): {s['n_pairs']} pairs")
+        check(all(np.isfinite(list(s[k].values())).all() for k in ("est", "base")),
+              f"vo_superpoint ({name}): non-finite {s}")
+        for k, v in counts.items():
+            total[k] += v
+    check(runs["plain"]["mean_num_matches"] == runs["refine_ba"]["mean_num_matches"],
+          f"vo_superpoint: match counts {runs['plain']['mean_num_matches']} and "
+          f"{runs['refine_ba']['mean_num_matches']} in the two runs")
+    short = {dev: vo_superpoint.main([*base, "--n_frames", str(VOSP_CHECK_FRAMES), "--out",
+                                      os.path.join("logs", f"smoke_vosp_check_{dev}"),
+                                      "--device", dev]) for dev in ("cuda", "cpu")}
+    c, p = short["cuda"], short["cpu"]
+    held = {"mean_num_matches": (c["mean_num_matches"], p["mean_num_matches"],
+                                 within_rel(c["mean_num_matches"], p["mean_num_matches"], 0.0,
+                                            SP_FINETUNE_BARS["num_matches"])),
+            "median_err_q": (c["est"]["median_err_q"], p["est"]["median_err_q"],
+                             within_rel(c["est"]["median_err_q"], p["est"]["median_err_q"],
+                                        VOSP_ERR_Q["rel"], VOSP_ERR_Q["abs"]))}
+    ph.emit("vo_superpoint", check=f"{VOSP_CHECK_FRAMES} frames, card vs CPU", held=held,
+            card=c, cpu=p)
+    check(all(v[2] for v in held.values()), f"vo_superpoint: card vs CPU {held}")
+    return total
+
+
+def phase_des_fusion(ph: Phases) -> dict:
+    """train_good and eval_good with model.if_img_des_to_pointnet on a tree
+    with 128-wide SIFT descriptors: exact launches (no K2 or K2b at C_in 261
+    and 264 with use_pallas_mlp), finite, the card's eval against the CPU's.
+    Returns the launch sums."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch import cli
+    from deepfepe_tpu_torch.data.synthetic_dump import write_corr_dump
+    from deepfepe_tpu_torch.loader import model_loader
+    from deepfepe_tpu_torch.train.config import config_from_dict
+
+    total = dict.fromkeys(kernel_counters(), 0)
+    model = {"if_img_des_to_pointnet": True, "if_quality": True, "quality_size": 1}
+    read = {"with_quality": True, "with_pose": True, "with_sift_des": True}
+    with tempfile.TemporaryDirectory(prefix="smoke_des_") as root:
+        write_corr_dump(root, **KITTI_TREE, with_sift_des=True, sift_dim=128)
+        for exp in ("smoke_des_train", "smoke_des_eval"):
+            shutil.rmtree(os.path.join(REPO, "logs", exp), ignore_errors=True)
+        tcfg = config_from_dict({**KITTI_CORR, "model": {**KITTI_CORR["model"], **model},
+                                 "data": {**KITTI_CORR["data"], "dump_root": root,
+                                          "read_what": read}})
+        net = model_loader(tcfg, torch.device("cpu"))
+        widths = [net.input_weights.fw[0].in_features, net.update_weights.fw[0].in_features]
+        reset_counts()
+        last = cli.train_good(tcfg, "smoke_des_train", train_iter=DES_TRAIN_STEPS, device="cuda")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expected = expect(DES_PER_STEP, DES_TRAIN_STEPS, counts)
+        ph.emit("des_fusion", run="train_good", weight_net_inputs=widths, last=last,
+                launches=counts, expected_launches=expected)
+        check(widths == [261, 264], f"des_fusion: weight-net inputs {widths}")
+        check(counts == expected, f"des_fusion train_good: launches {counts}, expected {expected}")
+        check(all(np.isfinite(v) for v in last.values()) and last["nonfinite"] == 0.0,
+              f"des_fusion train_good: {last}")
+        for k, v in counts.items():
+            total[k] += v
+        ckpt = os.path.join("logs", "smoke_des_train", "checkpoints",
+                            f"deepFNet_{DES_TRAIN_STEPS}_checkpoint.pth.tar")
+        ecfg = {**KITTI_EVAL, "model": {**KITTI_EVAL["model"], **model},
+                "data": {**KITTI_EVAL["data"], "dump_root": root, "read_what": read}}
+        batches = -(-KITTI_PAIRS // KITTI_EVAL["data"]["batch_size"])
+        summaries = {}
+        for dev in ("cuda", "cpu"):
+            reset_counts()
+            summaries[dev] = cli.eval_good(config_from_dict(ecfg), 0, device=dev, pretrained=ckpt,
+                                           exper_name="smoke_des_eval" if dev == "cuda" else "")
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                counts = read_counts()
+    expected = expect(DES_PER_EVAL, batches, counts)
+    c, p = summaries["cuda"], summaries["cpu"]
+    b = DES_BARS
+    held = {k: (c[k], p[k], within_rel(c[k], p[k], b["loss_rel"] if k == "loss_F" else b["rel"],
+                                        0.0 if k == "loss_F" else b["deg_abs"]))
+            for k in ("median_err_q", "median_err_t", "median_err_q_base", "loss_F")}
+    ph.emit("des_fusion", run="eval_good", summary=c, launches=counts, expected_launches=expected,
+            card_vs_cpu=held, bars=DES_BARS, pairs_per_s=c["pairs"] / c["seconds"])
+    check(counts == expected, f"des_fusion eval_good: launches {counts}, expected {expected}")
+    check(c["pairs"] == KITTI_PAIRS and c["median_err_q_gt"] < 1e-3,
+          f"des_fusion eval_good: {c}")
+    check(all(v[2] for v in held.values()), f"des_fusion: card vs CPU {held}")
+    for k, v in counts.items():
+        total[k] += v
+    return total
+
+
+def dsac_inputs():
+    """A synthetic pair of DSAC['n'] matches in K-normalized coordinates
+    (numpy, seeded) and its unit-norm ground-truth E."""
+    import numpy as np
+
+    rng = np.random.RandomState(DSAC["seed"])
+    n, f = DSAC["n"], 718.856
+    ang = np.radians(rng.uniform(-3, 3, 3))
+    cx, cy, cz = np.cos(ang)
+    sx, sy, sz = np.sin(ang)
+    R = (np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+         @ np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+         @ np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]]))
+    t = np.array([0.1, 0.02, 1.0]) + 0.05 * rng.randn(3)
+    X = np.stack([rng.uniform(-10, 10, n), rng.uniform(-3, 3, n), rng.uniform(5, 40, n)], -1)
+    X2 = X @ R.T + t
+    x1, x2 = X[:, :2] / X[:, 2:], X2[:, :2] / X2[:, 2:]
+    x1 += rng.randn(n, 2) * DSAC["noise_px"] / f
+    x2 += rng.randn(n, 2) * DSAC["noise_px"] / f
+    out = rng.choice(n, int(DSAC["outliers"] * n), replace=False)
+    x2[out] = rng.uniform(-0.8, 0.8, (len(out), 2))
+    tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
+    E = tx @ R
+    return x1, x2, E / np.linalg.norm(E)
+
+
+def dsac_conditioning(x1, x2, idx) -> "np.ndarray":
+    """Each minimal set's condition number for its float32 E, in float64
+    from the points alone: lambda_1 / (lambda_8 - lambda_9) of the 8-point
+    Gram matrix that `weighted_eight_point` builds (Hartley-normalized,
+    rows normalized; its uniform weights leave the ratio as it is) plus
+    sigma_1 / (sigma_2 - sigma_3) of its null vector as a 3x3, which the
+    rank-2 projection needs apart."""
+    import torch
+
+    from deepfepe_tpu_torch.geometry.basic import homo
+    from deepfepe_tpu_torch.ops.fmatrix import epipolar_constraint_matrix, hartley_normalize
+
+    p1, p2 = (homo(torch.as_tensor(x, dtype=torch.float64))[idx] for x in (x1, x2))
+    X = epipolar_constraint_matrix(hartley_normalize(p1, None)[0], hartley_normalize(p2, None)[0])
+    X = X / torch.linalg.vector_norm(X, dim=-1, keepdim=True)
+    lam, V = torch.linalg.eigh(X.transpose(-1, -2) @ X)
+    s = torch.linalg.svdvals(V[..., 0].reshape(-1, 3, 3))
+    return (lam[:, -1] / (lam[:, 1] - lam[:, 0]) + s[:, 0] / (s[:, 1] - s[:, 2])).numpy()
+
+
+def dsac_scores(x1, x2, E_hyps) -> "np.ndarray":
+    """The soft scores of hypotheses E_hyps, in float64 on the CPU, with
+    dsac_essential's defaults (threshold 1e-4, beta 1e5)."""
+    import torch
+
+    from deepfepe_tpu_torch.geometry.epipolar import sampson_dist
+
+    E = torch.as_tensor(E_hyps, dtype=torch.float64)
+    a, b = (torch.as_tensor(x, dtype=torch.float64) for x in (x1, x2))
+    d = sampson_dist(E[:, None], a[None], b[None]).reshape(len(E), -1)
+    return (1 - torch.sigmoid(1e5 * (d - 1e-4))).sum(-1).numpy()
+
+
+def phase_dsac(ph: Phases) -> dict:
+    """models/dsac.py on the card against its CPU runs on the same draws:
+    two eigh9 launches a call, the outputs within DSAC_BARS, ms a call.
+    Returns the launch counts of the counted calls."""
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch.models import dsac_essential
+
+    x1, x2, E_gt = dsac_inputs()
+
+    def loss_fn(E_ref):
+        def f(E):
+            En = E / (torch.linalg.norm(E) + 1e-9)
+            return torch.minimum(((En - E_ref) ** 2).sum(), ((En + E_ref) ** 2).sum())
+        return f
+
+    idx = torch.randint(0, DSAC["n"], (DSAC["hyps"], DSAC["sample_size"]),
+                        generator=torch.Generator().manual_seed(DSAC["seed"]))
+    outs = {}
+    for dev, where, dt in (("cuda", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                           ("cpu64", "cpu", torch.float64)):
+        a, b = (torch.as_tensor(v, dtype=dt, device=where) for v in (x1, x2))
+        Eg = torch.as_tensor(E_gt, dtype=dt, device=where)
+        if dev == "cuda":
+            reset_counts()
+            for _ in range(DSAC["calls"]):
+                o = dsac_essential(a, b, loss_fn=loss_fn(Eg), idx=idx)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            ms = cuda_time_ms(lambda: dsac_essential(a, b, loss_fn=loss_fn(Eg), idx=idx), 20)
+        else:
+            o = dsac_essential(a, b, loss_fn=loss_fn(Eg), idx=idx)
+        outs[dev] = {k: v.detach().double().cpu().numpy() for k, v in o.items()}
+    c, p = outs["cuda"], outs["cpu"]
+
+    def unit(E):
+        E = E / np.linalg.norm(E)
+        return E * np.sign(E.flat[np.abs(E).argmax()])
+
+    e_gap = np.array([np.abs(unit(a) - unit(b)).max()
+                      for a, b in zip(c["E_hyps"], outs["cpu64"]["E_hyps"])])
+    e_bar = (DSAC_BARS["E_per_cond"] * np.finfo(np.float32).eps
+             * dsac_conditioning(x1, x2, idx.numpy()))
+    held = e_bar <= DSAC_BARS["ill_posed"]
+    top = np.abs(c["soft_scores"]).max()
+    score_gap = np.abs(c["soft_scores"] - dsac_scores(x1, x2, c["E_hyps"])) / top
+    worst = int(np.argmax(np.where(held, e_gap / e_bar, 0.0)))
+    errs = {"E_best": float(np.abs(unit(c["E_best"]) - unit(p["E_best"])).max()),
+            "E_hyps_held": int(held.sum()), "E_hyps_ill_posed": np.flatnonzero(~held).tolist(),
+            "E_worst": {"hypothesis": worst, "gap": float(e_gap[worst]),
+                        "bar": float(e_bar[worst])},
+            "E_hyps_within": bool((e_gap[held] <= e_bar[held]).all()),
+            "score_gap": float(score_gap.max()),
+            "best": [int(np.argmax(c["soft_scores"])), int(np.argmax(p["soft_scores"]))],
+            "exp_loss": float(abs(c["exp_loss"] - p["exp_loss"])),
+            "top_loss": float(abs(c["top_loss"] - p["top_loss"]))}
+    expected = expect({"eigh9": 2}, DSAC["calls"], counts)
+    ph.emit("dsac", case=DSAC, launches=counts, expected_launches=expected, errors=errs,
+            bars=DSAC_BARS, ms_per_call=ms, top_loss=float(c["top_loss"]),
+            exp_loss=float(c["exp_loss"]),
+            timed="CUDA events over 20 back-to-back calls (draws handed in)")
+    check(counts == expected, f"dsac: launches {counts}, expected {expected}")
+    check(errs["best"][0] == errs["best"][1] and held[errs["best"][0]]
+          and errs["E_best"] <= DSAC_BARS["E"] and errs["E_hyps_within"]
+          and errs["score_gap"] <= DSAC_BARS["score"] and errs["exp_loss"] <= DSAC_BARS["loss"]
+          and errs["top_loss"] <= DSAC_BARS["loss"], f"dsac: card vs CPU {errs}")
+    check(float(c["top_loss"]) < 0.5, f"dsac: the best hypothesis' loss {c['top_loss']}")
+    return counts
+
+
 ALONE_PHASES = {"eval_vo_ba": phase_eval_vo_ba, "eval_good_ba": phase_eval_good_ba,
                 "bench_ba": phase_bench_ba, "vo_pose_graph": phase_vo_pose_graph,
                 "sp_train": phase_sp_train, "sp_finetune": phase_sp_finetune,
-                "sp_homography": phase_sp_homography, "check_sp": phase_check_sp}
+                "sp_homography": phase_sp_homography, "check_sp": phase_check_sp,
+                "joint_full": phase_joint_full, "joint_ckpts": phase_joint_ckpts,
+                "vo_superpoint": phase_vo_superpoint, "des_fusion": phase_des_fusion,
+                "dsac": phase_dsac}
 
 
 def plant(fault: str) -> None:
@@ -5149,6 +5791,11 @@ def main(argv=None) -> int:
         sp_train_counts = phase_sp_train(ph)
         sp_finetune_counts = phase_sp_finetune(ph)
         sp_h_counts = phase_sp_homography(ph)
+        jf_counts = phase_joint_full(ph)
+        jc_counts = phase_joint_ckpts(ph)
+        vosp_counts = phase_vo_superpoint(ph)
+        des_counts = phase_des_fusion(ph)
+        dsac_counts = phase_dsac(ph)
         phase_check_sp(ph)
         phase_check(ph, cfg)
         phase_check_train(ph)
@@ -5189,6 +5836,11 @@ def main(argv=None) -> int:
         r["launches_sp_train"] = sp_train_counts[r["name"]]
         r["launches_sp_finetune"] = sp_finetune_counts[r["name"]]
         r["launches_sp_homography"] = sp_h_counts[r["name"]]
+        r["launches_joint_full"] = jf_counts[r["name"]]
+        r["launches_joint_ckpts"] = jc_counts[r["name"]]
+        r["launches_vo_superpoint"] = vosp_counts[r["name"]]
+        r["launches_des_fusion"] = des_counts[r["name"]]
+        r["launches_dsac"] = dsac_counts[r["name"]]
         if r["launches"] <= 0:
             print(f"chip_smoke: FAILED: {r['name']} never launched on {path}",
                   file=sys.stderr, flush=True)

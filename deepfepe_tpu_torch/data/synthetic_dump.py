@@ -14,7 +14,7 @@ files with match indices (`with_sift_des`) and lidar clouds (`with_X`).
 
     python -m deepfepe_tpu_torch.data.synthetic_dump OUT_DIR [--scenes 2]
         [--frames 11] [--matches 1200] [--noise_px 0.5] [--outlier_frac 0.15]
-        [--seed 0] [--deltas 1,2]
+        [--seed 0] [--deltas 1,2] [--with_sift_des [--sift_dim 128]]
 """
 
 from __future__ import annotations
@@ -102,11 +102,13 @@ def write_corr_dump(root, scenes: int = 2, frames: int = 11, matches: int = 1200
                     image_size: Tuple[int, int] = (376, 1241), noise_px: float = 0.5,
                     outlier_frac: float = 0.15, seed: int = 0, with_sift_des: bool = False,
                     with_X: bool = False, extra_all: int = 100,
-                    deltas: Sequence[int] = (1,)) -> list:
+                    deltas: Sequence[int] = (1,), sift_dim: int = 8) -> list:
     """Write `scenes` scene directories '00', '01', ... under `root`, each of
     `frames` frames; returns the scene names. The 'all' match files hold the
     good matches and `extra_all` more random rows. Pairs of each gap in
-    `deltas` beyond 1 are drawn from RandomState([seed, scene, delta])."""
+    `deltas` beyond 1 are drawn from RandomState([seed, scene, delta]).
+    With `with_sift_des` each frame's SIFT file holds `sift_dim`-wide random
+    descriptors (128 is SIFT's: the loader's 'des' is then 256 wide)."""
     root = Path(root)
     rng = np.random.RandomState(seed)
     names = []
@@ -127,7 +129,7 @@ def write_corr_dump(root, scenes: int = 2, frames: int = 11, matches: int = 1200
         for f in range(frames):
             if with_sift_des:
                 np.save(scene / f"sift_{f:06d}.npy",
-                        rng.rand(matches, 2 + 8).astype(np.float32))
+                        rng.rand(matches, 2 + sift_dim).astype(np.float32))
             if with_X:
                 for cam in ("cam0", "cam2"):
                     np.save(scene / f"X_{cam}_{f:06d}.npy",
@@ -145,11 +147,16 @@ def main(argv=None) -> None:
     ap.add_argument("--outlier_frac", type=float, default=0.15)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--deltas", default="1", help="comma list of frame gaps to write")
+    ap.add_argument("--with_sift_des", action="store_true",
+                    help="also the match index and SIFT descriptor files (model.if_des)")
+    ap.add_argument("--sift_dim", type=int, default=128,
+                    help="the descriptors' width with --with_sift_des (SIFT's 128)")
     args = ap.parse_args(argv)
     names = write_corr_dump(args.out_dir, args.scenes, args.frames, args.matches,
                             noise_px=args.noise_px, outlier_frac=args.outlier_frac,
                             seed=args.seed,
-                            deltas=tuple(int(d) for d in args.deltas.split(",")))
+                            deltas=tuple(int(d) for d in args.deltas.split(",")),
+                            with_sift_des=args.with_sift_des, sift_dim=args.sift_dim)
     print(f"wrote scenes {names} under {args.out_dir}")
 
 

@@ -61,6 +61,7 @@ def model_loader(cfg: Config, device: torch.device,
         if_quality=m.if_quality, quality_size=m.quality_size,
         mlp_dtype=torch.bfloat16 if m.mlp_dtype == "bfloat16" else torch.float32,
         if_learn_offsets=m.if_learn_offsets, if_img_w=m.if_img_w, if_des=m.if_des,
+        des_size=m.des_size,
         if_tri_depth=m.if_tri_depth, if_sample_loss=m.if_sample_loss,
         if_goodCorresArch=m.if_goodCorresArch, use_pallas_mlp=m.use_pallas_mlp,
     )

@@ -1,6 +1,10 @@
-"""Solver networks: the weight MLPs (ErrorEstimator, GoodCorresNet) and DeepFNet."""
+"""Solver networks: the weight MLPs (ErrorEstimator and its fusion heads,
+GoodCorresNet), DeepFNet and differentiable RANSAC (`dsac_essential`)."""
 
 from .deepfnet import DeepFNet
-from .error_estimator import ErrorEstimator, GoodCorresNet, InstanceNorm1d
+from .dsac import dsac_essential
+from .error_estimator import (ErrorEstimator, ErrorEstimatorFeatFusion,
+                              ErrorEstimatorFeatFusion2Head, GoodCorresNet, InstanceNorm1d)
 
-__all__ = ["DeepFNet", "ErrorEstimator", "GoodCorresNet", "InstanceNorm1d"]
+__all__ = ["DeepFNet", "ErrorEstimator", "ErrorEstimatorFeatFusion",
+           "ErrorEstimatorFeatFusion2Head", "GoodCorresNet", "InstanceNorm1d", "dsac_essential"]

@@ -17,15 +17,22 @@ Variants, as in the JAX package: `if_learn_offsets` (a 4-output
 ErrorEstimator moves the matches), `if_tri_depth` (each layer's
 triangulated depth of the matches as one more feature), `if_img_w`
 (weights times the batch's 'weights_im'), `if_goodCorresArch`
-(GoodCorresNet for both weight nets) and `if_sample_loss` (after every
+(GoodCorresNet for both weight nets), `if_sample_loss` (after every
 fit, the sampled minimal-subset fits of `models.sample_fit`, drawn from
-the forward's `generator`). `if_des` is not ported and raises.
+the forward's `generator`), `if_des` (the batch's per-match descriptors
+'des' [B, N, des_size] join the weight nets' input, as the JAX DeepFNet
+concatenates them: C_in = 4 + quality + des_size, so the dump loader's
+256-wide SIFT pairs give 261 and 264, past the fused MLP's 128) and
+`if_bn` (BatchNorm in both weight MLPs, run on its running statistics as
+the JAX DeepFNet calls them: build it so to load a reference checkpoint
+whose weight nets have BatchNorm).
 
 Launches on the card, per forward of depth d: eigh9 d times (2d with the
 sample loss: each layer's subset fits are one more batch); K3 (the
 epipolar residual) d - 1 times, and its backward as often in a backward;
-with `use_pallas_mlp` (and bfloat16 MLPs) K2 once per weight-MLP call (d,
-plus d - 1 for the learned offsets) and K2b as often in a backward.
+with `use_pallas_mlp` (and bfloat16 MLPs, no BatchNorm, C_in <= 128: not
+with `if_des`) K2 once per weight-MLP call (d, plus d - 1 for the learned
+offsets) and K2b as often in a backward.
 """
 
 from __future__ import annotations
@@ -52,6 +59,10 @@ class DeepFNet(nn.Module):
     # The JAX module's defaults, which no config changes: the triangulated
     # depth's clamp, and the sample loss's subset size and subsets a fit.
     DEPTH_CLAMP, SAMPLE_TOPK, SAMPLE_SELECTS = 200.0, 20, 100
+    # The descriptor width `if_des` takes when `des_size` is 0: the dump
+    # loader's 'des', two 128-wide SIFT descriptors a match (the JAX module
+    # sizes its layers from the batch; the port's are built up front).
+    DES_SIZE = 256
 
     def __init__(self, depth: int = 5, image_size=(376, 1241), if_quality: bool = False,
                  quality_size: int = 1, feature_clamp_at: float = 0.5,
@@ -59,10 +70,9 @@ class DeepFNet(nn.Module):
                  sign_canonical: bool = False, use_pallas_mlp: bool = False,
                  if_learn_offsets: bool = False, if_img_w: bool = False,
                  if_tri_depth: bool = False, if_sample_loss: bool = False,
-                 if_goodCorresArch: bool = False, if_des: bool = False):
+                 if_goodCorresArch: bool = False, if_des: bool = False, des_size: int = 0,
+                 if_bn: bool = False):
         super().__init__()
-        if if_des:
-            raise NotImplementedError("DeepFNet if_des is not ported yet")
         self.depth = depth
         self.image_size = tuple(image_size)
         self.if_quality = if_quality
@@ -74,16 +84,18 @@ class DeepFNet(nn.Module):
         self.if_img_w = if_img_w
         self.if_tri_depth = if_tri_depth
         self.if_sample_loss = if_sample_loss
-        in_ch = 4 + (quality_size if if_quality else 0)
+        self.if_des = if_des
+        self.des_size = (des_size or self.DES_SIZE) if if_des else 0
+        in_ch = 4 + (quality_size if if_quality else 0) + self.des_size
         update_ch = in_ch + 3 + (1 if if_tri_depth else 0)
         if if_goodCorresArch:
             self.input_weights = GoodCorresNet(in_ch, 1)
             self.update_weights = GoodCorresNet(update_ch, 1)
         else:
             self.input_weights = ErrorEstimator(in_ch, 1, dtype=mlp_dtype,
-                                                use_fused=use_pallas_mlp)
+                                                use_fused=use_pallas_mlp, if_bn=if_bn)
             self.update_weights = ErrorEstimator(update_ch, 1, dtype=mlp_dtype,
-                                                 use_fused=use_pallas_mlp)
+                                                 use_fused=use_pallas_mlp, if_bn=if_bn)
         if if_learn_offsets:
             self.update_offsets = ErrorEstimator(update_ch, 4, dtype=mlp_dtype,
                                                  use_fused=use_pallas_mlp)
@@ -102,6 +114,8 @@ class DeepFNet(nn.Module):
         feats = [(pts1_h[..., :2] + 1.0) / 2.0, (pts2_h[..., :2] + 1.0) / 2.0]
         if self.if_quality:
             feats.append(data_batch["quality"][..., : self.quality_size].to(pts.dtype))
+        if self.if_des:
+            feats.append(data_batch["des"].to(pts.dtype))
         return torch.cat(feats, dim=-1), pts1_h, pts2_h, T1, T2
 
     def _fit(self, pts1, pts2, weights):

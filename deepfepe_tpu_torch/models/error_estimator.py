@@ -1,19 +1,25 @@
-"""The PointNet-style per-correspondence weight network.
+"""The PointNet-style per-correspondence weight networks.
 
-Counterpart of the base `ErrorEstimator` and `InstanceNorm1d` of
-`deepfepe_tpu/models/error_estimator.py`. Layout is [B, N, C]: a 1x1
-Conv1d over points is a Linear over the channel axis.
+Counterpart of `deepfepe_tpu/models/error_estimator.py`: `ErrorEstimator`
+(with its BatchNorm variant), the descriptor-fusion heads
+`ErrorEstimatorFeatFusion` and `ErrorEstimatorFeatFusion2Head`, and
+`GoodCorresNet`. Layout is [B, N, C]: a 1x1 Conv1d over points is a Linear
+over the channel axis.
 
 Submodules follow the reference layout `fw.<i>` (Linear, InstanceNorm,
 LeakyReLU per hidden layer, then the final Linear at `fw.15`), so a
 reference-layout state_dict (Conv1d weights [out, in, 1]) loads with
-`strict=True`; the trailing kernel axis is dropped on load.
+`strict=True`; the trailing kernel axis is dropped on load. With `if_bn`
+each hidden layer is Linear, BatchNorm, InstanceNorm, LeakyReLU
+(`fw.<4i>` to `fw.<4i+3>`) and the final Linear, at `fw.20`, has no bias:
+the layout of the JAX package's `export_error_estimator(..., if_bn=True)`.
 
 `use_fused` routes the stack through `ops.mlp.fused_pointnet_mlp` (the
 K2/K2b kernels on the card) under the JAX package's conditions: bfloat16
-matmuls, C_in <= 128 and output_size <= 128; otherwise the layers run one
-by one. The parameters are the same either way; the fused route never
-reads the hidden Linear biases, so they get no gradient there.
+matmuls, no BatchNorm, C_in <= 128 and output_size <= 128; otherwise the
+layers run one by one (so DeepFNet's descriptor-fused inputs, C_in 261 and
+264, never reach K2). The parameters are the same either way; the fused
+route never reads the hidden Linear biases, so they get no gradient there.
 """
 
 from __future__ import annotations
@@ -51,28 +57,61 @@ def _drop_conv_kernel_axis(state_dict, prefix, *args):
             state_dict[k] = state_dict[k][..., 0]
 
 
+def _linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    y = x @ lin.weight.to(dtype).T
+    return y if lin.bias is None else y + lin.bias.to(dtype)
+
+
+def _lecun_normal_(lin: nn.Linear, generator: torch.Generator | None) -> None:
+    """The JAX package's Dense initializers: LeCun-normal kernels (truncated
+    at two standard deviations), zero biases."""
+    std = math.sqrt(1.0 / lin.in_features) / 0.87962566103423978
+    nn.init.trunc_normal_(lin.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+    if lin.bias is not None:
+        lin.bias.zero_()
+
+
+class BatchNorm(nn.BatchNorm1d):
+    """BatchNorm over the points and the batch of [B, N, C] (flax's
+    `nn.BatchNorm(axis=-1)`), the reference's BatchNorm1d on [B, C, N].
+    Batch statistics where `train`, else the running ones; the running
+    buffers take torch's momentum update, as in the reference."""
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = nn.functional.batch_norm(x.transpose(-1, -2), self.running_mean, self.running_var,
+                                     self.weight, self.bias, train, self.momentum, self.eps)
+        return y.transpose(-1, -2)
+
+
 class ErrorEstimator(nn.Module):
     """[B, N, C_in] -> [B, N, output_size] logits (float32 or wider).
 
     `dtype` is the matmul type (bfloat16 by default in the config).
     Parameters stay float32; InstanceNorm statistics are computed in at
-    least float32. Hidden Linear biases are kept.
+    least float32. Hidden Linear biases are kept. `if_bn` adds BatchNorm
+    before each InstanceNorm (`train` picks its statistics), computed in
+    at least float32 as the JAX module's (its float32 parameters promote a
+    bfloat16 input).
     """
 
     def __init__(self, in_features: int, output_size: int = 1,
                  features: Sequence[int] = FEATURES, negative_slope: float = 0.01,
-                 dtype: torch.dtype = torch.float32, use_fused: bool = False):
+                 dtype: torch.dtype = torch.float32, use_fused: bool = False,
+                 if_bn: bool = False):
         super().__init__()
         self.dtype = dtype
         self.use_fused = use_fused
+        self.if_bn = if_bn
         self.output_size = output_size
         self.negative_slope = negative_slope
         layers, c = [], in_features
         for f in features:
-            layers += [nn.Linear(c, f), InstanceNorm1d(f), nn.LeakyReLU(negative_slope)]
+            layers += ([nn.Linear(c, f)] + ([BatchNorm(f)] if if_bn else [])
+                       + [InstanceNorm1d(f), nn.LeakyReLU(negative_slope)])
             c = f
-        layers.append(nn.Linear(c, output_size))
+        layers.append(nn.Linear(c, output_size, bias=not if_bn))
         self.fw = nn.Sequential(*layers)
+        self.stride = 4 if if_bn else 3
         self._register_load_state_dict_pre_hook(_drop_conv_kernel_axis)
 
     @torch.no_grad()
@@ -81,17 +120,14 @@ class ErrorEstimator(nn.Module):
         standard deviations) kernels, zero biases, unit norm scales."""
         for m in self.fw:
             if isinstance(m, nn.Linear):
-                std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
-                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
-                                      generator=generator)
-                m.bias.zero_()
-            elif isinstance(m, InstanceNorm1d):
+                _lecun_normal_(m, generator)
+            elif isinstance(m, (InstanceNorm1d, BatchNorm)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if (self.use_fused and self.dtype == torch.bfloat16 and x.shape[-1] <= MAX_IN
-                and self.output_size <= MAX_IN):
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if (self.use_fused and not self.if_bn and self.dtype == torch.bfloat16
+                and x.shape[-1] <= MAX_IN and self.output_size <= MAX_IN):
             hidden = [self.fw[i] for i in range(0, len(self.fw) - 1, 3)]
             norms = [self.fw[i + 1] for i in range(0, len(self.fw) - 1, 3)]
             return fused_pointnet_mlp(
@@ -101,14 +137,106 @@ class ErrorEstimator(nn.Module):
         dt = self.dtype
         acc = torch.promote_types(dt, torch.float32)
         x = x.to(dt)
-        for i in range(0, len(self.fw) - 1, 3):
-            lin, norm = self.fw[i], self.fw[i + 1]
-            x = x @ lin.weight.to(dt).T + lin.bias.to(dt)
-            x = norm(x.to(acc)).to(dt)
+        for i in range(0, len(self.fw) - 1, self.stride):
+            x = _linear(x, self.fw[i], dt)
+            if self.if_bn:
+                x = self.fw[i + 1](x.to(acc), train)
+            x = self.fw[i + self.stride - 2](x.to(acc)).to(dt)
             x = nn.functional.leaky_relu(x, self.negative_slope)
-        lin = self.fw[-1]
-        x = x @ lin.weight.to(dt).T + lin.bias.to(dt)
-        return x.to(acc)
+        return _linear(x, self.fw[-1], dt).to(acc)
+
+
+class ErrorEstimatorFeatFusion(nn.Module):
+    """Early fusion of the point features and the descriptors (the JAX
+    package's `ErrorEstimatorFeatFusion`): their concatenation through
+    Linear + InstanceNorm + ReLU layers (`features`) and a final Linear, in
+    the layout of `ErrorEstimator` (`fw.<3i>`, `fw.<3i+1>`, `fw.15`). It
+    computes in its inputs' dtype.
+
+    pts_in [B, N, C_p], des_in [B, N, D] -> [B, N, output_size]."""
+
+    def __init__(self, in_features: int, des_features: int, output_size: int = 1,
+                 features: Sequence[int] = FEATURES):
+        super().__init__()
+        layers, c = [], in_features + des_features
+        for f in features:
+            layers += [nn.Linear(c, f), InstanceNorm1d(f), nn.ReLU()]
+            c = f
+        layers.append(nn.Linear(c, output_size))
+        self.fw = nn.Sequential(*layers)
+        self._register_load_state_dict_pre_hook(_drop_conv_kernel_axis)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        _reset(self, generator)
+
+    def forward(self, pts_in: torch.Tensor, des_in: torch.Tensor) -> torch.Tensor:
+        x = torch.cat([pts_in, des_in.to(pts_in.dtype)], dim=-1)
+        for i in range(0, len(self.fw) - 1, 3):
+            x = torch.relu(self.fw[i + 1](_linear(x, self.fw[i], x.dtype)))
+        return _linear(x, self.fw[-1], x.dtype)
+
+
+class ErrorEstimatorFeatFusion2Head(nn.Module):
+    """Late fusion (the JAX package's `ErrorEstimatorFeatFusion2Head`): a
+    point stem (Linear + InstanceNorm + LeakyReLU to 64, 128, 1024) and a
+    descriptor stem (Linear + LeakyReLU to 64, 128, 1024), concatenated,
+    then Linear + InstanceNorm + LeakyReLU to 512 and 256 and the final
+    Linear. Submodules `pts_fw` (Linear, InstanceNorm, LeakyReLU a layer),
+    `des_fw` (Linear, LeakyReLU a layer) and `fuse_fw` (Linear,
+    InstanceNorm, LeakyReLU a layer, then the final Linear); it computes in
+    its inputs' dtype.
+
+    pts_in [B, N, C_p], des_in [B, N, D] -> [B, N, output_size]."""
+
+    STEM, FUSE = (64, 128, 1024), (512, 256)
+
+    def __init__(self, in_features: int, des_features: int, output_size: int = 1,
+                 negative_slope: float = 0.01):
+        super().__init__()
+        self.negative_slope = negative_slope
+        pts, des, c, d = [], [], in_features, des_features
+        for f in self.STEM:
+            pts += [nn.Linear(c, f), InstanceNorm1d(f), nn.LeakyReLU(negative_slope)]
+            des += [nn.Linear(d, f), nn.LeakyReLU(negative_slope)]
+            c = d = f
+        fuse, c = [], 2 * self.STEM[-1]
+        for f in self.FUSE:
+            fuse += [nn.Linear(c, f), InstanceNorm1d(f), nn.LeakyReLU(negative_slope)]
+            c = f
+        fuse.append(nn.Linear(c, output_size))
+        self.pts_fw, self.des_fw = nn.Sequential(*pts), nn.Sequential(*des)
+        self.fuse_fw = nn.Sequential(*fuse)
+        self._register_load_state_dict_pre_hook(_drop_conv_kernel_axis)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        _reset(self, generator)
+
+    def _act(self, x: torch.Tensor) -> torch.Tensor:
+        return nn.functional.leaky_relu(x, self.negative_slope)
+
+    def forward(self, pts_in: torch.Tensor, des_in: torch.Tensor) -> torch.Tensor:
+        x, y = pts_in, des_in.to(pts_in.dtype)
+        for i in range(0, len(self.pts_fw), 3):
+            x = self._act(self.pts_fw[i + 1](_linear(x, self.pts_fw[i], x.dtype)))
+        for i in range(0, len(self.des_fw), 2):
+            y = self._act(_linear(y, self.des_fw[i], y.dtype))
+        z = torch.cat([x, y], dim=-1)
+        for i in range(0, len(self.fuse_fw) - 1, 3):
+            z = self._act(self.fuse_fw[i + 1](_linear(z, self.fuse_fw[i], z.dtype)))
+        return _linear(z, self.fuse_fw[-1], z.dtype)
+
+
+def _reset(net: nn.Module, generator: torch.Generator | None) -> None:
+    """The JAX package's initializers: LeCun-normal kernels, zero biases,
+    unit norm scales."""
+    for m in net.modules():
+        if isinstance(m, nn.Linear):
+            _lecun_normal_(m, generator)
+        elif isinstance(m, InstanceNorm1d):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
 
 
 class GoodCorresNet(nn.Module):
@@ -154,15 +282,7 @@ class GoodCorresNet(nn.Module):
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         """The JAX package's initializers (LeCun-normal kernels, zero
         biases, unit norm scales)."""
-        for m in self.modules():
-            if isinstance(m, nn.Linear):
-                std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
-                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
-                                      generator=generator)
-                m.bias.zero_()
-            elif isinstance(m, InstanceNorm1d):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
+        _reset(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         skips = []

@@ -4,18 +4,19 @@
         [--deepf DEEPF.msgpack] [--n_frames 30] [--image 240 320]
         [--n_corners 60] [--two_stage] [--device cuda|cpu] [--out DIR]
 
-The SuperPoint -> DeepF pipeline (`train.joint.joint_eval_step`) estimates
-the relative poses of a `SyntheticImageSequence` for frame gaps 1
-(odometry edges) and 2 (skip edges); `ba.pose_graph` fuses them by
-Gauss-Newton on se(3), jointly or with `--two_stage` (rotation averaging,
-then translation with the rotations frozen). Skip edges constrain the
-composition of two odometry edges and average down their independent
-noise. Each edge's translation takes the pair's gt length (t_scene_scale),
-the monocular convention. The checkpoints are the JAX package's flax
-files (or the reference's `.pth.tar`): `--sp` a SuperPointNet, `--deepf`
-the solver (seeded when absent; depth 5, the quality feature, bf16 MLP, as
-the JAX tool builds it). On the card the frontend takes the hand-written
-kernels: K5 on its layers of >= 16,384 pixels and K4 for the matching.
+The SuperPoint -> DeepF pipeline (`tools.sp_pipeline`, shared with
+`vo_superpoint`) estimates the relative poses of a
+`SyntheticImageSequence` for frame gaps 1 (odometry edges) and 2 (skip
+edges); `ba.pose_graph` fuses them by Gauss-Newton on se(3), jointly or
+with `--two_stage` (rotation averaging, then translation with the
+rotations frozen). Skip edges constrain the composition of two odometry
+edges and average down their independent noise. Each edge's translation
+takes the pair's gt length (t_scene_scale), the monocular convention. The
+checkpoints are the JAX package's flax files (or the reference's
+`.pth.tar`): `--sp` a SuperPointNet, `--deepf` the solver (seeded when
+absent; depth 5, the quality feature, bf16 MLP, as the JAX tool builds
+it). On the card the frontend takes the hand-written kernels: K5 on its
+layers of >= 16,384 pixels and K4 for the matching.
 
 Prints one JSON line: n_frames, the trajectory length, the Gauss-Newton
 residual before the first and last steps, the KITTI metrics of the chained
@@ -36,15 +37,10 @@ import numpy as np
 import torch
 
 from ..ba import graph_from_odometry, optimize_pose_graph, optimize_pose_graph_two_stage
-from ..data import SyntheticImageSequence
-from ..eval import chain_relative_poses, evaluate_sequence, export_poses_kitti, val_rt_batch
-from ..frontend import FrontendParams
-from ..loader import model_loader
-from ..train import load_checkpoint
-from ..train.config import Config
-from ..train.joint import joint_eval_step
-from ..utils.device import batch_to_device, no_tf32, resolve_device
+from ..eval import chain_relative_poses, evaluate_sequence, export_poses_kitti
+from ..utils.device import no_tf32, resolve_device
 from ..utils.weights import load_superpoint
+from .sp_pipeline import frontend_params, load_solver, pair_sweep, sequence, solver_config
 
 
 def main(argv=None) -> dict:
@@ -76,32 +72,17 @@ def main(argv=None) -> dict:
     os.makedirs(args.out, exist_ok=True)
     img = tuple(args.image)
 
-    seq = SyntheticImageSequence(
-        n_frames=args.n_frames, image_size=img, focal=140.0 * img[1] / 160.0,
-        step_length=args.step_scale * min(0.12, 0.6 * 12.0 / args.n_frames),
-        n_corners=args.n_corners, seed=args.seed)
-    cfg = Config()
-    cfg.model.depth = 5
-    cfg.model.if_quality = True
-    cfg.model.mlp_dtype = "bfloat16"
-    cfg.data.good_num = args.npts
-    cfg.data.batch_size = args.batch
-    cfg.data.resize = list(img)
+    seq = sequence(args.n_frames, img, args.step_scale, args.n_corners, args.seed)
+    cfg = solver_config(args.npts, args.batch, img)
     sp_net = load_superpoint(args.sp, device)
-    deepf_net = model_loader(cfg, device, torch.Generator().manual_seed(1))
-    if args.deepf:
-        load_checkpoint(args.deepf, deepf_net)
-    fp = FrontendParams(out_num_points=args.npts, conf_thresh=0.010, nn_thresh=0.9,
-                        conv_impl="pallas", matcher="pallas")
+    deepf_net = load_solver(cfg, args.deepf, device)
+    fp = frontend_params(args.npts, conf=0.010, nn_thresh=0.9)
 
     def estimate_rels(delta):
         """[n - delta, 4, 4] (i, i + delta) poses, gt-scaled translations."""
         rels = {}
-        for batch in seq.pair_batches(args.batch, delta=delta):
-            b = batch_to_device(batch, device)
-            m = joint_eval_step(deepf_net, sp_net, b, fp, cfg)
-            rt = val_rt_batch(m["E_ests"], b["Ks"], m["matches_xy"], b["E_gts"],
-                              b["delta_Rtijs_4_4"], ransac=False)
+        for batch, _, rt in pair_sweep(seq, args.batch, deepf_net, sp_net, fp, cfg, device,
+                                       delta=delta):
             Me = rt["M_est"].double().cpu().numpy()
             scale = np.asarray(batch["t_scene_scale"]).reshape(len(Me), -1)[:, 0]
             for i in range(len(Me)):

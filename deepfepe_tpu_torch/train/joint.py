@@ -24,7 +24,11 @@ statistics, as the reference puts the frozen net in eval mode.
 The update guard skips both updates, and restores the BatchNorm buffers,
 when the loss or a gradient norm is not finite or when the pair with the
 fewest matches has fewer than `training.min_matches`. The optimizers never
-see the buffers.
+see the buffers. With `JointState.grad_clip` > 0 each net's gradient is
+clipped to that global norm before its Adam steps, as optax's
+`clip_by_global_norm` chained before each Adam: g * max_norm / norm where
+norm >= max_norm (torch's `clip_grad_norm_` adds 1e-6 to the norm and
+would not give the same update).
 
 Convolutions outside the K5 kernels: a float32 SuperPoint's step runs
 under `exact_convs` (no TF32, no oneDNN, and on the card no cuDNN, whose
@@ -55,20 +59,29 @@ BN_MODES = ("train", "frozen")
 
 @dataclass
 class JointState:
-    """Both nets, their Adams and the step count."""
+    """Both nets, their Adams, the per-net global-norm clip (0: none) and
+    the step count."""
 
     deepf_net: torch.nn.Module
     sp_net: torch.nn.Module
     opt_deepf: torch.optim.Adam
     opt_sp: torch.optim.Adam
     n_iter: int = 0
+    grad_clip: float = 0.0
 
 
-def make_joint_state(deepf_net, sp_net, cfg: Config) -> JointState:
-    """Two Adams at `training.learning_rate` with optax's defaults, as the
-    JAX CLI builds them (a constant rate)."""
-    return JointState(deepf_net, sp_net, make_optimizer(deepf_net, cfg),
-                      make_optimizer(sp_net, cfg))
+def make_joint_state(deepf_net, sp_net, cfg: Config, lr_deepf: float | None = None,
+                     lr_sp: float | None = None, grad_clip: float = 0.0) -> JointState:
+    """Two Adams with optax's defaults at constant rates: `lr_deepf` and
+    `lr_sp`, each `training.learning_rate` where not given (the JAX CLI's),
+    each net clipped to `grad_clip` (the JAX `train_joint_full`'s
+    `optax.chain(clip_by_global_norm, adam)` a net)."""
+    opt_deepf, opt_sp = make_optimizer(deepf_net, cfg), make_optimizer(sp_net, cfg)
+    for opt, lr in ((opt_deepf, lr_deepf), (opt_sp, lr_sp)):
+        if lr is not None:
+            for group in opt.param_groups:
+                group["lr"] = lr
+    return JointState(deepf_net, sp_net, opt_deepf, opt_sp, grad_clip=grad_clip)
 
 
 def build_solver_batch(sp_out: Dict, batch: Dict) -> Dict:
@@ -84,6 +97,15 @@ def build_solver_batch(sp_out: Dict, batch: Dict) -> Dict:
 def global_norm(params) -> torch.Tensor:
     """optax.global_norm of the parameters' gradients."""
     return torch.sqrt(sum((p.grad.float() ** 2).sum() for p in params))
+
+
+@torch.no_grad()
+def clip_by_global_norm_(params, norm: torch.Tensor, max_norm: float) -> None:
+    """optax.clip_by_global_norm on the gradients in place: g / norm *
+    max_norm where norm >= max_norm (`norm` their global norm)."""
+    scale = norm >= max_norm
+    for p in params:
+        p.grad.copy_(torch.where(scale, p.grad / norm.to(p.grad.dtype) * max_norm, p.grad))
 
 
 def _frames(batch):
@@ -132,10 +154,13 @@ def joint_train_step(state: JointState, batch: Dict[str, torch.Tensor], fp: Fron
     metrics["skipped_update"] = (~ok).float()
     # One host read of one flag per step decides the updates.
     if bool(ok):
-        if train_deepf:
-            state.opt_deepf.step()
-        if train_sp:
-            state.opt_sp.step()
+        for train, opt, params, norm in ((train_deepf, state.opt_deepf, deepf_params,
+                                          metrics["g_deepf_norm"]),
+                                         (train_sp, state.opt_sp, sp_params, metrics["g_sp_norm"])):
+            if train:
+                if state.grad_clip > 0:
+                    clip_by_global_norm_(params, norm, state.grad_clip)
+                opt.step()
     elif bn_train:
         with torch.no_grad():
             for k, v in saved.items():

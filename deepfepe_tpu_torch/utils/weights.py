@@ -12,7 +12,10 @@ same two functions. `to_reference_layout` goes the other way, for the
 checkpoints the port writes. `save_superpoint` writes a SuperPoint net as
 the reference's `.pth.tar` (BatchNorm buffers included), and
 `load_superpoint` reads one, a reference `.pth` or a flax `.msgpack`
-(`superpoint_state_from_file` gives its state_dict).
+(`superpoint_state_from_file` gives its state_dict). The descriptor-fusion
+heads take the JAX package's trees through `feat_fusion_state_from_flax`
+and `feat_fusion_2head_state_from_flax`; a BatchNorm ErrorEstimator's
+through `error_estimator_state_from_flax` with its batch statistics.
 """
 
 from __future__ import annotations
@@ -35,22 +38,75 @@ def _np(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def error_estimator_state_from_flax(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+def _tensors(sd: Mapping) -> Dict[str, torch.Tensor]:
+    return {k: torch.tensor(np.ascontiguousarray(v)) if np.asarray(v).dtype == np.int64
+            else torch.tensor(np.ascontiguousarray(v), dtype=torch.float32)
+            for k, v in sd.items()}
+
+
+def _dense(sd: dict, key: str, p: Mapping) -> None:
+    """flax Dense {kernel [in, out][, bias]} -> '<key>.weight' [out, in] (and bias)."""
+    sd[f"{key}.weight"] = _np(p["kernel"]).T
+    if "bias" in p:
+        sd[f"{key}.bias"] = _np(p["bias"])
+
+
+def _affine(sd: dict, key: str, p: Mapping) -> None:
+    sd[f"{key}.weight"] = _np(p["scale"])
+    sd[f"{key}.bias"] = _np(p["bias"])
+
+
+def error_estimator_state_from_flax(tree: Mapping, prefix: str,
+                                    stats: Mapping | None = None) -> Dict[str, torch.Tensor]:
     """{'Dense_i': {kernel [in, out], bias}, 'InstanceNorm1d_i': {scale,
     bias}} -> '<prefix>.fw.<j>.{weight, bias}' ('fw.<j>...' without a
-    prefix)."""
+    prefix). A tree with 'BatchNorm_i' (the `if_bn` net; `stats` its
+    batch statistics {'BatchNorm_i': {mean, var}}) maps to the BatchNorm
+    layout: Linear at fw.<4i>, BatchNorm at fw.<4i+1>, InstanceNorm at
+    fw.<4i+2>, the final Linear (no bias) at fw.20."""
     pre = f"{prefix}.fw" if prefix else "fw"
+    bn = "BatchNorm_0" in tree
+    stride = 4 if bn else 3
     sd = {}
     for li in range(N_HIDDEN + 1):
-        dense = tree[f"Dense_{li}"]
-        sd[f"{pre}.{3 * li}.weight"] = _np(dense["kernel"]).T
-        sd[f"{pre}.{3 * li}.bias"] = _np(dense["bias"])
+        _dense(sd, f"{pre}.{stride * li}", tree[f"Dense_{li}"])
         if li < N_HIDDEN:
-            norm = tree[f"InstanceNorm1d_{li}"]
-            sd[f"{pre}.{3 * li + 1}.weight"] = _np(norm["scale"])
-            sd[f"{pre}.{3 * li + 1}.bias"] = _np(norm["bias"])
-    return {k: torch.tensor(np.ascontiguousarray(v), dtype=torch.float32)
-            for k, v in sd.items()}
+            _affine(sd, f"{pre}.{stride * li + stride - 2}", tree[f"InstanceNorm1d_{li}"])
+            if bn:
+                key = f"{pre}.{stride * li + 1}"
+                _affine(sd, key, tree[f"BatchNorm_{li}"])
+                s = (stats or {}).get(f"BatchNorm_{li}")
+                if s is None:
+                    raise KeyError(f"no batch statistics for {prefix} BatchNorm_{li}")
+                sd[f"{key}.running_mean"] = _np(s["mean"])
+                sd[f"{key}.running_var"] = _np(s["var"])
+                sd[f"{key}.num_batches_tracked"] = np.asarray(0, np.int64)
+    return _tensors(sd)
+
+
+def feat_fusion_state_from_flax(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A JAX `ErrorEstimatorFeatFusion` tree -> the port module's state
+    (the ErrorEstimator layout: Linear at fw.<3i>, InstanceNorm at
+    fw.<3i+1>, the final Linear at fw.15)."""
+    return error_estimator_state_from_flax(tree, prefix)
+
+
+def feat_fusion_2head_state_from_flax(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A JAX `ErrorEstimatorFeatFusion2Head` tree (Dense_0-2 and
+    InstanceNorm1d_0-2 the point stem, Dense_3-5 the descriptor stem,
+    Dense_6-8 and InstanceNorm1d_3-4 the fused layers, in flax's order of
+    creation) -> the port module's `pts_fw`, `des_fw` and `fuse_fw`."""
+    pre = f"{prefix}." if prefix else ""
+    sd: dict = {}
+    for i in range(3):
+        _dense(sd, f"{pre}pts_fw.{3 * i}", tree[f"Dense_{i}"])
+        _affine(sd, f"{pre}pts_fw.{3 * i + 1}", tree[f"InstanceNorm1d_{i}"])
+        _dense(sd, f"{pre}des_fw.{2 * i}", tree[f"Dense_{3 + i}"])
+    for i in range(2):
+        _dense(sd, f"{pre}fuse_fw.{3 * i}", tree[f"Dense_{6 + i}"])
+        _affine(sd, f"{pre}fuse_fw.{3 * i + 1}", tree[f"InstanceNorm1d_{3 + i}"])
+    _dense(sd, f"{pre}fuse_fw.6", tree["Dense_8"])
+    return _tensors(sd)
 
 
 def good_corres_state_from_flax(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
@@ -70,17 +126,19 @@ def good_corres_state_from_flax(tree: Mapping, prefix: str) -> Dict[str, torch.T
 
 
 def deepfnet_state_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """The JAX DeepFNet's params ({'params': {...}} or the inner dict) ->
-    this package's DeepFNet state_dict: the weight nets (ErrorEstimators
-    or GoodCorresNets) and, with learned offsets, `update_offsets`."""
+    """The JAX DeepFNet's variables ({'params': {...}[, 'batch_stats']} or
+    the inner parameter dict) -> this package's DeepFNet state_dict: the
+    weight nets (ErrorEstimators, with BatchNorm where the tree has it, or
+    GoodCorresNets) and, with learned offsets, `update_offsets`."""
+    stats = params.get("batch_stats", {})
     params = params.get("params", params)
     sd = {}
     for name in ("input_weights", "update_weights", "update_offsets"):
         if name not in params:
             continue
         tree = params[name]
-        sd.update(error_estimator_state_from_flax(tree, name) if "Dense_0" in tree
-                  else good_corres_state_from_flax(tree, name))
+        sd.update(error_estimator_state_from_flax(tree, name, stats.get(name))
+                  if "Dense_0" in tree else good_corres_state_from_flax(tree, name))
     return sd
 
 
@@ -157,9 +215,7 @@ def superpoint_state_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
             _conv_from_flax(sd, head, params[head])
         for head in ("bnPa", "bnPb", "bnDa", "bnDb"):
             _bn_from_flax(sd, head, params[head], stats[head])
-    return {k: torch.tensor(np.ascontiguousarray(v)) if v.dtype == np.int64
-            else torch.tensor(np.ascontiguousarray(v), dtype=torch.float32)
-            for k, v in sd.items()}
+    return _tensors(sd)
 
 
 def to_cpu(obj):

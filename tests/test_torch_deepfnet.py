@@ -128,21 +128,20 @@ def test_export_deepf_state_loads_strict_with_same_logits(batch):
         assert torch.equal(a[k], b[k]), k
 
 
-@pytest.mark.parametrize("flag", ["if_des"])
-def test_unported_variants_raise(flag):
-    with pytest.raises(NotImplementedError, match=flag):
-        DeepFNet(**{flag: True})
-
-
 def test_model_loader_rejects_the_unported_mlp_kernel():
     # The MLP kernel is ported now: use_pallas_mlp routes both weight MLPs
-    # to it, and the variants still unported are rejected.
+    # to it; if_des (ported too, the reference's if_img_des_to_pointnet)
+    # builds 261- and 264-wide inputs, which the routing keeps off it
+    # (tests/test_torch_weightnet_variants.py runs that forward).
     cfg = config_from_dict({"model": {"use_pallas_mlp": True}})
     net = model_loader(cfg, torch.device("cpu"))
     assert net.input_weights.use_fused and net.update_weights.use_fused
     assert not model_loader(config_from_dict({}), torch.device("cpu")).input_weights.use_fused
-    with pytest.raises(NotImplementedError, match="if_des"):
-        model_loader(config_from_dict({"model": {"if_des": True}}), torch.device("cpu"))
+    des = model_loader(config_from_dict({"model": {"if_img_des_to_pointnet": True,
+                                                   "if_quality": True, "use_pallas_mlp": True}}),
+                       torch.device("cpu"))
+    assert des.if_des and des.input_weights.fw[0].in_features == 261
+    assert des.update_weights.fw[0].in_features == 264
 
 
 def test_seeded_parameters_are_reproducible():

@@ -76,7 +76,9 @@ def test_importing_the_port_loads_no_jax():
               "eval.vo", "eval.kitti_odometry", "eval.tum", "eval.results",
               "eval.opencv_baseline", "run_eval", "utils.io", "utils.logging",
               "utils.profiling", "utils.warp", "geometry.homography", "frontend.train_sp",
-              "tools.train_sp_full", "tools.finetune_sp_corners"):
+              "tools.train_sp_full", "tools.finetune_sp_corners", "tools.train_joint_full",
+              "tools.eval_joint_ckpts", "tools.vo_superpoint", "tools.sp_pipeline",
+              "models.dsac"):
         assert f"deepfepe_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -129,6 +131,26 @@ def test_entry_points_default_to_the_card_and_never_fall_back(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["eval_good", str(REPO / "configs" / "synthetic_baseline.yaml"), "x"])
     assert deepfepe_tpu_torch.resolve_device is resolve_device
+
+
+@pytest.mark.parametrize("tool,argv", [
+    ("train_joint_full", ["--stage1_iters", "0", "--stage2_iters", "0"]),
+    ("eval_joint_ckpts", ["--dir", "."]),
+    ("vo_superpoint", ["--sp", "x.msgpack", "--cpu"]),
+])
+def test_joint_tools_need_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_path, tool, argv):
+    """Without a card the tools refuse before they read a file or draw a
+    batch; `--cpu` is vo_superpoint's spelling of `--device cpu`."""
+    import importlib
+
+    mod = importlib.import_module(f"deepfepe_tpu_torch.tools.{tool}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = [a for a in argv if a != "--cpu"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main([*argv, "--out", str(tmp_path)] if tool != "eval_joint_ckpts" else argv)
+    if tool == "vo_superpoint":
+        with pytest.raises(FileNotFoundError):  # the CPU path reaches the checkpoint
+            mod.main([*argv, "--out", str(tmp_path), "--cpu"])
 
 
 def test_train_good_needs_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
