@@ -151,7 +151,7 @@ and for the VO slice:
            with the baseline; K3 5), the net's median err_t under 5 deg, the
            baseline's median err_q under 0.5 deg, and the net's first batch's
            rotations against the port's CPU replay;
-  infer    the serving entry on two 376x1240 PNG frames with the gauss2
+  infer    the serving entry on two 376x1240 frames with the gauss2
            SuperPoint of val_feature (b) and the flagship solver, K = 1000,
            the conv switch on K5: the pose JSON, R a rotation, exact launches
            (K5 6, K4 1, eigh9 5, K3 4) and the call's ms;
@@ -201,6 +201,21 @@ and for the SuperPoint training slice (conv switch on K5 throughout):
            plus 1e-6 of its largest; the HA heatmap (2 images x 4 views)
            within 1e-5 of the CPU's.
 
+and for the JPEG frames slice:
+  jpeg     (right after the build) the native image codec built by g++ here:
+           every committed fixture of tests/fixtures/image_io decoded equal
+           to its committed cv2 decode, the decoder's and encoder's ms at
+           376x1240, 8 decodes in 4 threads equal, a deterministic encoder;
+  val_feature_s2d  val_feature (b) with the conv switch on the space-to-
+           depth route: K5 0 and K4 1 a batch, num_matches and ratios within
+           S2D_VF_BARS of the plain route's, keypoints equal but near ties;
+  val_pipeline  `eval.ValPipelineFrontend` in precomputed-match and
+           SuperPoint mode on the card against the CPU (VP_BARS), exact
+           launches (eigh9 7, K3 4; SuperPoint mode K5 6, K4 1 more);
+  kitti_sp_dump and infer now read JPEG frames: the dump writes `%06d.jpg`
+           (the loader's ms a batch on them and, rewritten as PNG, on PNG;
+           the decoder's ms a tree frame), infer takes two `.jpg` frames and
+           holds the card to the CPU within INFER_CPU_BARS;
 and for the staged joint recipe and SuperPoint VO slice:
   joint_full  tools/train_joint_full.py at the production point of
            experiments/r5_frozen_qsched (bf16 gauss2 SuperPoint, 376x1240,
@@ -271,6 +286,7 @@ retake.
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
 import math
 import os
@@ -1554,6 +1570,15 @@ MATCH_TIES = {"col": 60, "dup_cols": (70, 130), "row": 5, "dup_rows": (64, 190)}
 # normalization) within 1e-4; keypoints and validity equal; match sets
 # equal except at near-ties; ratios within 1 / num_matches.
 FRONT_BARS = {"desc": 1e-4, "offsets_px": 1e-4}
+# val_feature (b) under conv_impl='s2d': the 64-channel layers of
+# >= 16,384 px (inc's second conv, down1's two) take the space-to-depth
+# F.conv2d, every other layer the plain route; no K5, K4 1 a batch. Held
+# to the plain route on the card within the bars of
+# tests/test_torch_frontend.py's S2D_VF_BARS (there measured equal on the
+# CPU), keypoints equal but where a score lies within S2D_TIE of the cut.
+VF_PER_BATCH_S2D = {"mutual_nn_kernel": 1}
+S2D_VF_BARS = {"num_matches_rel": 0.005, "num_matches_abs": 1.0, "ratio_matches": 2.0}
+S2D_TIE = 1e-5
 
 
 def f32_gemm_bound_ms(macs: int, other_flops: int, nbytes: int) -> dict:
@@ -1889,6 +1914,79 @@ def phase_val_feature(ph: Phases) -> dict:
         for k, v in counts.items():
             total[k] += v
     return total
+
+
+def strong_keypoints(k, b: int, tie: float) -> set:
+    """Image b's valid keypoints whose score clears the lowest kept score
+    by more than `tie`: the ones no near-equal score can swap out."""
+    v = k.valid[b].cpu()
+    xy, sc = k.xy[b].cpu()[v], k.scores[b].cpu()[v]
+    cut = float(sc.min()) if len(sc) else 0.0
+    return {(int(x), int(y)) for (x, y), c in zip(xy.tolist(), sc.tolist()) if c > cut + tie}
+
+
+def phase_val_feature_s2d(ph: Phases) -> dict:
+    """val_feature (b) with the conv switch on the space-to-depth route
+    (F.conv2d in full float32 on the 64-channel layers of >= 16,384 px, no
+    K5), against the plain route on the card: exact launches (K5 0, K4 1 a
+    batch), num_matches and ratios within S2D_VF_BARS (the CPU test's,
+    tests/test_torch_frontend.py), the first batch's keypoints equal but
+    for near-equal scores. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch import cli
+    from deepfepe_tpu_torch.data import SyntheticImagePairs
+    from deepfepe_tpu_torch.frontend import FrontendParams, run_superpoint
+
+    spec = VF_RUNS["b"]
+    out = {"s2d": [], "xla": []}
+    for i, impl in enumerate(("s2d", "xla", "xla", "s2d")):  # the second of each is timed
+        fp = FrontendParams(out_num_points=VF_K, conf_thresh=1e-3, conv_impl=impl)
+        reset_counts()
+        out[impl].append(cli.val_feature(f"smoke_vf_b_{impl}", max_batches=spec["batches"],
+                                         pretrained=vf_pretrained("b"), fp=fp,
+                                         image_size=spec["image_size"],
+                                         batch_size=spec["batch_size"], device="cuda"))
+        torch.cuda.synchronize()
+        if i == 0:
+            counts = read_counts()
+    expected = {k: spec["batches"] * VF_PER_BATCH_S2D.get(k, 0) for k in counts}
+    a, b = out["s2d"][0], out["xla"][0]
+    check(all(out[m][0]["num_matches"] == out[m][1]["num_matches"] for m in out),
+          f"val_feature s2d: a route's num_matches moved between its two runs {out}")
+    net = vf_net("b", "cuda")
+    imgs = torch.as_tensor(SyntheticImagePairs(image_size=spec["image_size"], seed=0).batch(
+        spec["batch_size"])["imgs_grey"][:, 0], device="cuda")
+    with torch.no_grad():
+        k = {impl: run_superpoint(net, imgs, FrontendParams(out_num_points=VF_K, conf_thresh=1e-3,
+                                                             conv_impl=impl))
+             for impl in ("s2d", "xla")}
+    missing = []
+    for i in range(imgs.shape[0]):
+        sets = {impl: {(int(x), int(y)) for (x, y), v in zip(k[impl].xy[i].tolist(),
+                                                             k[impl].valid[i].tolist()) if v}
+                for impl in k}
+        missing += [len(strong_keypoints(k["s2d"], i, S2D_TIE) - sets["xla"]),
+                    len(strong_keypoints(k["xla"], i, S2D_TIE) - sets["s2d"])]
+    same = float(np.mean([torch.equal(k["s2d"].xy[i], k["xla"].xy[i])
+                          for i in range(imgs.shape[0])]))
+    ph.emit("val_feature_s2d", run="b", conv_impl="s2d", summary=a, plain_summary=b,
+            launches=counts, expected_launches=expected,
+            pairs_per_s=[r["pairs"] / r["seconds"] for r in out["s2d"]],
+            plain_pairs_per_s=[r["pairs"] / r["seconds"] for r in out["xla"]],
+            strong_keypoints_missing=missing, images_with_equal_keypoints=same,
+            bars=S2D_VF_BARS, timed="host clock over the frontend and its scoring, ending in "
+                                    "a synchronize; runs in the order s2d, plain, plain, s2d")
+    check(counts == expected, f"val_feature s2d: launches {counts}, expected {expected}")
+    check(abs(a["num_matches"] - b["num_matches"]) <= S2D_VF_BARS["num_matches_abs"]
+          + S2D_VF_BARS["num_matches_rel"] * b["num_matches"],
+          f"val_feature s2d: num_matches {a['num_matches']} against {b['num_matches']}")
+    check(all(abs(a[r] - b[r]) <= S2D_VF_BARS["ratio_matches"] / b["num_matches"]
+              for r in ("ratio@0.1", "ratio@0.5", "ratio@1.0", "ratio@2.0")),
+          f"val_feature s2d: ratios {a} against {b}")
+    check(max(missing) == 0, f"val_feature s2d: keypoints off the plain route's {missing}")
+    return counts
 
 
 def vf_net(run: str, device):
@@ -3822,6 +3920,11 @@ SP_TREE = {"scenes": 2, "frames": 20, "image_size": (376, 1240), "focal": 718.85
 SP_DUMP_PER_FRAME = {"conv3x3_affine_relu": 6}
 SP_DUMP_PER_PAIR = {"mutual_nn_kernel": 1}
 SP_VF_BATCHES = 5  # val_feature's default: 5 batches of 8 pairs (the last short)
+# The committed image fixtures (tests/fixtures/image_io/make_fixtures.py
+# writes them with cv2 beside their cv2 grey decodes); a quality-95 round
+# trip of the smooth 376x1240 fixture stays within a few grey levels.
+FIXTURES = os.path.join(REPO, "tests", "fixtures", "image_io")
+JPEG_ROUND_TRIP = {"max": 8, "mean": 1.0}
 
 
 def expect(per: dict, n: int, keys) -> dict:
@@ -3980,6 +4083,84 @@ def phase_kitti_corr(ph: Phases) -> dict:
     return total
 
 
+def decode_ms(path: str, reps: int = 20) -> float:
+    """Host ms to decode one JPEG file from memory (the native decoder),
+    the median of `reps` decodes after one warm-up."""
+    import statistics
+
+    from deepfepe_tpu_torch.utils.jpeg import read_jpeg_grey
+
+    with open(path, "rb") as f:
+        data = f.read()
+    read_jpeg_grey(data)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        read_jpeg_grey(data)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def fixture_pairs() -> list:
+    """(file, its committed cv2 grey decode) of tests/fixtures/image_io."""
+    return sorted((p, os.path.join(FIXTURES, os.path.basename(p).split(".")[0] + ".grey.png"))
+                  for p in glob.glob(os.path.join(FIXTURES, "*"))
+                  if p.endswith((".jpg", ".png")) and not p.endswith(".grey.png"))
+
+
+def phase_jpeg(ph: Phases) -> None:
+    """The native image codec built by g++ on this machine: every committed
+    fixture (JPEG in each form the decoder covers, PNG forms) decoded equal
+    to its committed cv2 decode, bit for bit; the decoder's and encoder's
+    host ms at 376x1240 (one thread, and 8 frames in 4 threads); the
+    encoder's bytes deterministic and decoded back within JPEG_ROUND_TRIP."""
+    from concurrent.futures import ThreadPoolExecutor as Pool
+
+    import numpy as np
+
+    from deepfepe_tpu_torch.utils import image_io, jpeg
+
+    fresh = not jpeg.library_path().exists()
+    t0 = time.perf_counter()
+    jpeg.build()
+    build_s = time.perf_counter() - t0
+    pairs = fixture_pairs()
+    results = {}
+    for src, truth in pairs:
+        got, want = image_io.read_grey(src), image_io.read_png(truth)
+        results[os.path.basename(src)] = bool(got.shape == want.shape
+                                             and np.array_equal(got, want))
+    big = os.path.join(FIXTURES, "kitti_grey_q95.jpg")
+    frame = jpeg.read_jpeg_grey(big)
+    enc = jpeg.encode_jpeg_grey(frame)
+    back = jpeg.read_jpeg_grey(enc)
+    err = np.abs(back.astype(int) - frame.astype(int))
+    times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        jpeg.encode_jpeg_grey(frame)
+        times.append((time.perf_counter() - t) * 1e3)
+    with open(big, "rb") as f:
+        data = f.read()
+    with Pool(4) as pool:
+        list(pool.map(jpeg.read_jpeg_grey, [data] * 4))
+        t = time.perf_counter()
+        outs = list(pool.map(jpeg.read_jpeg_grey, [data] * 8))
+        threaded = (time.perf_counter() - t) * 1e3 / 8
+    ph.emit("jpeg", library=os.path.basename(str(jpeg.library_path())), built_here=fresh,
+            build_s=build_s, fixtures=results, image_size=frame.shape,
+            decode_ms_376x1240=decode_ms(big), decode_ms_a_frame_4_threads=threaded,
+            encode_ms_376x1240=sorted(times)[2], round_trip_max_err=int(err.max()),
+            round_trip_mean_err=float(err.mean()),
+            timed="host clock: the median of 20 decodes (5 encodes) from memory; threads: 8 "
+                  "decodes of the same frame in 4 threads, wall ms over 8")
+    check(len(pairs) >= 12 and all(results.values()), f"jpeg: fixtures {results}")
+    check(all(np.array_equal(o, frame) for o in outs), "jpeg: a threaded decode differs")
+    check(jpeg.encode_jpeg_grey(frame) == enc, "jpeg: the encoder's bytes are not deterministic")
+    check(err.max() <= JPEG_ROUND_TRIP["max"] and err.mean() <= JPEG_ROUND_TRIP["mean"],
+          f"jpeg: round trip at quality 95 off by {err.max()} (mean {err.mean()})")
+
+
 def write_sp_frames(root: str) -> list:
     """Two SyntheticImageSequence scenes as PNG frames; returns (files,
     poses, K) a scene."""
@@ -4050,6 +4231,14 @@ def phase_kitti_sp_dump(ph: Phases) -> dict:
         check(min(rows) >= 8, f"SP dump: a pair with {min(rows)} matches")
         for k, v in counts.items():
             total[k] += v
+        tree_frames = sorted(glob.glob(os.path.join(root, "tree", "*", "*.jpg")))
+        check(len(tree_frames) == n_frames and not glob.glob(os.path.join(root, "tree", "*",
+                                                                          "*.png")),
+              f"SP dump: {len(tree_frames)} .jpg frames in the tree, {n_frames} expected")
+        ph.emit("kitti_sp_dump", frames="%06d.jpg", tree_frames=len(tree_frames),
+                jpeg_bytes_a_frame=os.path.getsize(tree_frames[0]),
+                decode_ms_a_frame=decode_ms(tree_frames[0]), image_size=SP_TREE["image_size"],
+                timed="host clock, the median of 20 decodes of one tree frame from memory")
 
         cfg = config_from_dict({**KITTI_EVAL, "data": {
             **KITTI_EVAL["data"], "dump_root": os.path.join(root, "tree"), "with_imgs": True,
@@ -4093,7 +4282,7 @@ def phase_kitti_sp_dump(ph: Phases) -> dict:
               f"SP tree eval_good: median_err_q_gt {summary['median_err_q_gt']} >= 0.05 deg")
         for k, v in counts.items():
             total[k] += v
-        ph.emit("kitti_sp_dump", loader_ms_per_batch_with_frames=loader_ms(
+        ph.emit("kitti_sp_dump", frames="jpg", loader_ms_per_batch_with_frames=loader_ms(
             cli.data_loader(cfg, "test"), cfg.data.batch_size))
 
         # bf16 joint training over the tree, stage 1 with the conv switch on
@@ -4136,6 +4325,16 @@ def phase_kitti_sp_dump(ph: Phases) -> dict:
         check(last["skipped_update"] == 0.0, "SP tree joint: the last update was skipped")
         for k, v in counts.items():
             total[k] += v
+
+        # The same tree with its frames as lossless PNG (the JPEG decodes),
+        # for the loader's PNG figure beside the JPEG one.
+        from deepfepe_tpu_torch.utils.image_io import read_grey, write_png
+
+        for f in tree_frames:
+            write_png(f[:-4] + ".png", read_grey(f))
+            os.remove(f)
+        ph.emit("kitti_sp_dump", frames="png", loader_ms_per_batch_with_frames=loader_ms(
+            cli.data_loader(cfg, "test"), cfg.data.batch_size))
     return total
 
 
@@ -4183,6 +4382,17 @@ VO_ACOS_FLOOR = 0.03
 INFER = {"image_size": (376, 1240), "focal": 718.856, "n_corners": 400, "K": 1000, "seed": 3}
 INFER_LAUNCHES = {"conv3x3_affine_relu": 6, "mutual_nn_kernel": 1, "eigh9": 5,
                   "epi_residual": 4}
+# infer on the card against the same call on the CPU (two JPEG frames): the
+# match count within 2% (the bar infer's count was held to before: K5's
+# float32 sums swap keypoints at near-equal scores; two of 528 swapped on
+# an H100). On the card's own matches, the CPU's solver and pose recovery:
+# R within 2e-3 (the pose bar of tests/test_torch_infer.py, where both
+# packages run on the CPU), t_unit within 0.05 and the 1-px inlier ratio
+# within 1%: this pair's translation direction carries the solver's float32
+# rounding (five reweighted fits), 0.012 apart card vs CPU on the same
+# matches with R 2.3e-4 apart (H100, 700 W), as the solver bars of
+# `joint_ckpts` allow 0.1 deg + 30% in err_q and err_t.
+INFER_CPU_BARS = {"matches_rel": 0.02, "R": 2e-3, "t_unit": 0.05, "ratio": 0.01}
 
 
 def vo_rotations(cfg, batch, dev: str):
@@ -4285,19 +4495,20 @@ def phase_eval_vo(ph: Phases) -> dict:
 
 
 def write_infer_frames(root: str) -> tuple:
-    """Two frames of a SyntheticImageSequence as PNG; returns (paths, K)."""
+    """Two frames of a SyntheticImageSequence as JPEG (quality 95, the
+    native encoder: cv2.imwrite's bytes); returns (paths, K)."""
     import numpy as np
 
     from deepfepe_tpu_torch.data import SyntheticImageSequence
-    from deepfepe_tpu_torch.utils.image_io import write_png
+    from deepfepe_tpu_torch.utils.jpeg import write_jpeg
 
     seq = SyntheticImageSequence(n_frames=2, image_size=INFER["image_size"],
                                  focal=INFER["focal"], n_corners=INFER["n_corners"],
                                  seed=INFER["seed"])
     paths = []
     for k in range(2):
-        paths.append(os.path.join(root, f"{k:06d}.png"))
-        write_png(paths[-1], np.rint(seq.frame(k) * 255).astype(np.uint8))
+        paths.append(os.path.join(root, f"{k:06d}.jpg"))
+        write_jpeg(paths[-1], np.rint(seq.frame(k) * 255).astype(np.uint8))
     return paths, seq.K
 
 
@@ -4323,7 +4534,7 @@ def infer_stages(paths, kw) -> dict:
             return out
         return run
 
-    patches = ((image_io, "read_grey", "read PNG frames"),
+    patches = ((image_io, "read_grey", "read JPEG frames"),
                (cli, "load_superpoint", "load SuperPoint"),
                (cli, "get_matches_from_sp", "SuperPoint and matching"),
                (cli, "load_checkpoint", "load the solver"),
@@ -4347,8 +4558,9 @@ def infer_stages(paths, kw) -> dict:
 
 
 def phase_infer(ph: Phases) -> dict:
-    """The port's serving entry on two PNG frames: launches read around one
-    call, then the call timed warm. Returns the launch counts."""
+    """The port's serving entry on two JPEG frames: launches read around one
+    call, then the call timed warm, then the same call on the CPU, the card
+    held to it within INFER_CPU_BARS. Returns the launch counts."""
     import tempfile
 
     import numpy as np
@@ -4361,9 +4573,22 @@ def phase_infer(ph: Phases) -> dict:
         kw = dict(pretrained=FLAGSHIP_CKPT, pretrained_SP=vf_pretrained("b"),
                   K=f"{K[0, 0]},{K[1, 1]},{K[0, 2]},{K[1, 2]}", good_num=INFER["K"],
                   out=os.path.join(root, "pose.json"), device="cuda")
+        card_sp = {}
+        real_matches = cli.get_matches_from_sp
+
+        def keep_matches(*a, **k):
+            sp = real_matches(*a, **k)
+            card_sp.setdefault("sp", {n: sp[n].cpu() for n in ("matches_xy_ori", "quality",
+                                                                  "valid")})
+            return sp
+
         with conv_switch("pallas"):
             reset_counts()
-            out = cli.infer(*paths, **kw)
+            cli.get_matches_from_sp = keep_matches
+            try:
+                out = cli.infer(*paths, **kw)
+            finally:
+                cli.get_matches_from_sp = real_matches
             torch.cuda.synchronize()
             counts = read_counts()
             times = []
@@ -4375,15 +4600,37 @@ def phase_infer(ph: Phases) -> dict:
             stages = infer_stages(paths, kw)
         with open(kw["out"]) as f:
             written = json.load(f)
+        cpu = cli.infer(*paths, **{**kw, "out": "", "device": "cpu"})
+        cli.get_matches_from_sp = lambda *a, **k: card_sp["sp"]
+        try:  # the CPU's solver and pose recovery on the card's own matches
+            replay = cli.infer(*paths, **{**kw, "out": "", "device": "cpu"})
+        finally:
+            cli.get_matches_from_sp = real_matches
     expected = {k: INFER_LAUNCHES.get(k, 0) for k in counts}
+
+    def gap(key, other):
+        return float(np.abs(np.asarray(out[key]) - np.asarray(other[key])).max())
+
+    gaps = {"num_matches": abs(out["num_matches"] - cpu["num_matches"]),
+            "R": gap("R", cpu), "t_unit": gap("t_unit", cpu),
+            "replay_R": gap("R", replay), "replay_t_unit": gap("t_unit", replay),
+            "replay_epi_inlier_ratio_1px": gap("epi_inlier_ratio_1px", replay)}
     R = np.asarray(out["R"])
     ortho = float(np.abs(R @ R.T - np.eye(3)).max())
     ph.emit("infer", result=out, launches=counts, expected_launches=expected,
             ms_per_pair=times, stages_ms=stages, orthonormality=ortho,
             det=float(np.linalg.det(R)),
-            timed="host clock over one infer call (two PNG reads, SuperPoint, matching, the "
-                  "solver, the float64 pose recovery), ending in a synchronize; warm")
+            timed="host clock over one infer call (two JPEG reads, SuperPoint, matching, the "
+                  "solver, the float64 pose recovery), ending in a synchronize; warm",
+            cpu_result=cpu, card_vs_cpu=gaps, bars=INFER_CPU_BARS)
     check(counts == expected, f"infer: launches {counts}, expected {expected}")
+    check(gaps["num_matches"] <= INFER_CPU_BARS["matches_rel"] * cpu["num_matches"],
+          f"infer: card vs CPU matches {out['num_matches']} / {cpu['num_matches']}")
+    check(gaps["replay_R"] <= INFER_CPU_BARS["R"]
+          and gaps["replay_t_unit"] <= INFER_CPU_BARS["t_unit"],
+          f"infer: card vs CPU pose on the card's matches {gaps}")
+    check(gaps["replay_epi_inlier_ratio_1px"] <= INFER_CPU_BARS["ratio"],
+          f"infer: card vs CPU inlier ratio on the card's matches {gaps}")
     check(written == out, "infer: the --out file differs from the printed result")
     check(out["num_matches"] >= 8, f"infer: {out['num_matches']} matches")
     check(ortho < 1e-9 and abs(np.linalg.det(R) - 1) < 1e-9, f"infer: R is not a rotation: {R}")
@@ -4392,6 +4639,126 @@ def phase_infer(ph: Phases) -> dict:
               for k in ("R", "t_unit", "E", "epi_inlier_ratio_1px", "epi_median_px")),
           f"infer: non-finite output {out}")
     return counts
+
+
+# ValPipelineFrontend: one sample of B = 2 pairs in each mode, the
+# flagship solver (float32 MLP) from its TrainState `.msgpack`: precomputed
+# matches (synthetic pairs, N = 1000, 376x1241), and SuperPoint mode
+# (sp_joint_11000, the plain net, at 376x1240, K = 1000, the conv switch on
+# K5: six layers of >= 16,384 px, both frames in one pass). A sample: the
+# solver's five fits and the RANSAC fan-out and refit (eigh9 7), its four
+# residual feedbacks (K3 4); SuperPoint mode adds K5 6 and K4 1. The card
+# against the CPU on the same RANSAC draws: the solver's F̂ (unit norm)
+# within VP_BARS["F"], err_q/err_t of est and gt within 0.05 deg + 1% (the
+# float32 bar of tests/test_torch_eval_good.py), the baseline's within 0.1
+# deg + 10% (the RANSAC bar of `joint_ckpts`); in SuperPoint mode the match
+# count within 1% + 1 and the solver replayed on the CPU on the card's own
+# matches.
+VP = {"B": 2, "N": 1000, "image_size": (376, 1240), "K": 1000}
+VP_LAUNCHES = {"matches": {"eigh9": 7, "epi_residual": 4},
+               "superpoint": {"conv3x3_affine_relu": 6, "mutual_nn_kernel": 1, "eigh9": 7,
+                              "epi_residual": 4}}
+VP_BARS = {"F": 1e-3, "err": (0.05, 0.01), "base": (0.1, 0.1), "matches_rel": 0.01}
+
+
+def vp_gaps(card: dict, cpu: dict) -> dict:
+    """Card against CPU results of eval_one_sample: F̂ (unit norm, sign
+    fixed) and each error's excess over its bar (<= 0 passes)."""
+    import numpy as np
+
+    def unit(F):
+        F = np.asarray(F, np.float64)
+        F = F / np.linalg.norm(F, axis=(-1, -2), keepdims=True)
+        flat = F.reshape(len(F), 9)
+        return F * np.sign(flat[np.arange(len(F)), np.abs(flat).argmax(-1)])[:, None, None]
+
+    out = {"F": float(np.abs(unit(card["preds"]["F_est_pix"])
+                             - unit(cpu["preds"]["F_est_pix"])).max())}
+    for k in ("err_q_est", "err_t_est", "err_q_gt", "err_t_gt", "err_q_base", "err_t_base"):
+        atol, rtol = VP_BARS["base" if k.endswith("base") else "err"]
+        a, b = card["val"][k], cpu["val"][k]
+        out[k] = float((np.abs(a - b) - (atol + rtol * np.abs(b))).max())
+    return out
+
+
+def phase_val_pipeline(ph: Phases) -> dict:
+    """`eval.ValPipelineFrontend` in both modes on the card against the CPU
+    (VP, VP_BARS), exact launches around each card sample; the plot needs
+    matplotlib (ImportError without it, as the JAX package's). Returns the
+    launch counts."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch.data import SyntheticImagePairs
+    from deepfepe_tpu_torch.data.synthetic import SyntheticPairs
+    from deepfepe_tpu_torch.eval import ValPipelineFrontend
+    from deepfepe_tpu_torch.frontend import FrontendParams, SuperPointNet
+    from deepfepe_tpu_torch.models import DeepFNet
+
+    total = dict.fromkeys(kernel_counters(), 0)
+    B, N = VP["B"], VP["N"]
+    idx = torch.randint(0, N, (B, 512, 8), generator=torch.Generator().manual_seed(0))
+    samples = {"matches": SyntheticPairs(good_num=N, seed=3).batch(B),
+               "superpoint": SyntheticImagePairs(image_size=VP["image_size"], seed=0).batch(B)}
+
+    def pipeline(mode, device):
+        size = VP["image_size"] if mode == "superpoint" else (376, 1241)
+        net = DeepFNet(depth=5, image_size=size, if_quality=True).to(device)
+        if mode == "matches":
+            return ValPipelineFrontend(net, FLAGSHIP_CKPT)
+        fp = FrontendParams(out_num_points=VP["K"], conf_thresh=1e-3, conv_impl="pallas")
+        return ValPipelineFrontend(net, FLAGSHIP_CKPT, sp_net=SuperPointNet().to(device),
+                                   sp_params_path=SP_FULL_CKPT, fp=fp)
+
+    for mode, sample in samples.items():
+        vp = pipeline(mode, "cuda")
+        vp.eval_one_sample(sample, ransac_idxs=idx)  # warm
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = vp.eval_one_sample(sample, ransac_idxs=idx)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        expected = {k: VP_LAUNCHES[mode].get(k, 0) for k in counts}
+        cpu = pipeline(mode, "cpu").eval_one_sample(sample, ransac_idxs=idx)
+        gaps = vp_gaps(card, cpu)
+        n_card = card["batch"]["matches_good_unique_nums"]
+        n_cpu = cpu["batch"]["matches_good_unique_nums"]
+        replay = None
+        if mode == "superpoint":  # the CPU's solver on the card's own matches
+            solver = ValPipelineFrontend(DeepFNet(depth=5, image_size=VP["image_size"],
+                                                  if_quality=True), FLAGSHIP_CKPT)
+            replay = vp_gaps(card, solver.eval_one_sample(card["batch"], ransac_idxs=idx))
+        if importlib.util.find_spec("matplotlib") is None:
+            try:
+                vp.plot_one_sample(card)
+                plot = "drew without matplotlib"
+            except ImportError as e:
+                plot = f"ImportError: {e}"
+        else:
+            plot = sorted(vp.plot_one_sample(card))
+        finite = all(np.isfinite(v).all() for v in card["val"].values())
+        ph.emit("val_pipeline", mode=mode, B=B, launches=counts, expected_launches=expected,
+                ms_a_sample=ms, matches=n_card.tolist(), cpu_matches=n_cpu.tolist(),
+                err_q_est=card["val"]["err_q_est"].tolist(),
+                err_t_est=card["val"]["err_t_est"].tolist(),
+                err_q_base=card["val"]["err_q_base"].tolist(), card_vs_cpu=gaps,
+                solver_replay=replay, plot=plot, bars=VP_BARS,
+                timed="host clock over one warm eval_one_sample, ending in a synchronize")
+        check(counts == expected, f"val_pipeline {mode}: launches {counts}, expected {expected}")
+        check(finite, f"val_pipeline {mode}: non-finite validation {card['val']}")
+        check(np.all(np.abs(n_card - n_cpu) <= VP_BARS["matches_rel"] * n_cpu + 1),
+              f"val_pipeline {mode}: matches {n_card} against the CPU's {n_cpu}")
+        held = replay if mode == "superpoint" else gaps
+        check(held["F"] <= VP_BARS["F"] and max(v for k, v in held.items() if k != "F") <= 0,
+              f"val_pipeline {mode}: card vs CPU {held}")
+        check(not str(plot).startswith("drew"), f"val_pipeline {mode}: {plot}")
+        for k, v in counts.items():
+            total[k] += v
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -5615,7 +5982,9 @@ ALONE_PHASES = {"eval_vo_ba": phase_eval_vo_ba, "eval_good_ba": phase_eval_good_
                 "sp_homography": phase_sp_homography, "check_sp": phase_check_sp,
                 "joint_full": phase_joint_full, "joint_ckpts": phase_joint_ckpts,
                 "vo_superpoint": phase_vo_superpoint, "des_fusion": phase_des_fusion,
-                "dsac": phase_dsac}
+                "dsac": phase_dsac, "jpeg": phase_jpeg, "kitti_sp_dump": phase_kitti_sp_dump,
+                "infer": phase_infer, "val_feature_s2d": phase_val_feature_s2d,
+                "val_pipeline": phase_val_pipeline}
 
 
 def plant(fault: str) -> None:
@@ -5760,6 +6129,7 @@ def main(argv=None) -> int:
         return 0
     try:
         build_all(ph)
+        phase_jpeg(ph)
         row = phase_kernels(ph)
         mlp_rows = phase_mlp_kernels(ph)
         front_rows = [phase_conv_kernel(ph), phase_matcher_kernel(ph)]
@@ -5775,6 +6145,7 @@ def main(argv=None) -> int:
         variant_counts = phase_variants(ph)
         xconv_counts = phase_conv_formulations(ph)
         vf_counts = phase_val_feature(ph)
+        vf_s2d_counts = phase_val_feature_s2d(ph)
         phase_frontend_breakdown(ph)
         joint_counts = phase_joint_train(ph)
         phase_joint_step_times(ph)
@@ -5784,6 +6155,7 @@ def main(argv=None) -> int:
         sp_dump_counts = phase_kitti_sp_dump(ph)
         vo_counts = phase_eval_vo(ph)
         infer_counts = phase_infer(ph)
+        vp_counts = phase_val_pipeline(ph)
         vo_ba_counts = phase_eval_vo_ba(ph)
         eval_good_ba_counts = phase_eval_good_ba(ph)
         phase_bench_ba(ph)
@@ -5830,6 +6202,8 @@ def main(argv=None) -> int:
         r["launches_joint_bf16"] = joint_bf16_counts[r["name"]]
         r["launches_eval_vo"] = vo_counts[r["name"]]
         r["launches_infer"] = infer_counts[r["name"]]
+        r["launches_val_feature_s2d"] = vf_s2d_counts[r["name"]]
+        r["launches_val_pipeline"] = vp_counts[r["name"]]
         r["launches_eval_vo_ba"] = vo_ba_counts[r["name"]]
         r["launches_eval_good_ba"] = eval_good_ba_counts[r["name"]]
         r["launches_vo_pose_graph"] = vopg_counts[r["name"]]

@@ -55,7 +55,7 @@ logs/<exper_name>/{trajectory_est,trajectory_gt,result}.txt;
 `--refine_ba` polishes each pair's pose, `--pose_graph` fuses a second
 sweep of (i, i + 2) pairs with the first in a pose graph
 (trajectory_pose_graph.txt, the report's 'pose_graph'). `infer` is
-the serving entry: two PNG frames through SuperPoint and the solver to
+the serving entry: two frames (JPEG or PNG) through SuperPoint and the solver to
 one JSON line of R, t_unit and E. `export_torch` writes a flax `.msgpack`
 checkpoint as the reference's `.pth.tar`; `verify_dump` checks a dump
 tree; `tables` compares experiments' npz dumps; `baseline_gate` holds
@@ -711,7 +711,7 @@ def read_intrinsics(K: str, H: int, W: int) -> np.ndarray:
 
 def infer(img1: str, img2: str, pretrained: str, pretrained_SP: str = "", K: str = "",
           config: str = "", good_num: int = 1000, out: str = "", device=None) -> Dict:
-    """The serving entry, the JAX CLI's `cmd_infer`: two frames (PNG) ->
+    """The serving entry, the JAX CLI's `cmd_infer`: two frames (JPEG or PNG) ->
     the relative pose. SuperPoint from `pretrained_SP` (`.pth`, `.pth.tar`
     or flax `.msgpack`; gauss2 when it has BatchNorm statistics) gives up
     to `good_num` mutual-NN matches (conf_thresh 1e-3); the solver from

@@ -12,11 +12,14 @@ Counterpart of `deepfepe_tpu/data/dump_kitti.py` in two parts:
   `ij_match_quality_{i}-{j}_{all,good}`, `ij_idx_{i}-{j}_{all,good}_ij`
   and `sift_%06d` beside `cam.npy`, `poses.npy` and `Rt_cam2_gt.npy`.
 
-Frames are read and written as 8-bit grey PNG through `utils.image_io`
-(the JAX package reads any format through cv2 and writes `.jpg`); the
-loader reads `%06d.png` or `%06d.jpg`. The SIFT dump (`dump_sequence`)
-needs OpenCV's SIFT, which the card's machine does not have: it raises;
-`dump_kitti_odometry`, which drives it, is left out.
+Frames are read as grey through `utils.image_io` (JPEG or any PNG form, as
+`cv2.imread(IMREAD_GRAYSCALE)` reads them) and written as `%06d.jpg` at
+quality 95 through the native encoder (`utils.jpeg.write_jpeg`), the bytes
+`cv2.imwrite` writes, as the JAX package writes them; the keypoints come
+from the frames as read, before the JPEG round trip, in both packages.
+The SIFT dump (`dump_sequence`) needs OpenCV's SIFT, which the card's
+machine does not have: it raises; `dump_kitti_odometry`, which drives it,
+is left out.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import torch
 
 from ..frontend.matching import mutual_nn_match
 from ..frontend.pipeline import FrontendParams, run_superpoint
-from ..utils.image_io import read_grey, write_png
+from ..utils.image_io import read_grey
+from ..utils.jpeg import write_jpeg
 from .kitti import save_arr
 
 SIFT_ITEM = "ROADMAP Queue 1 item 8, the SIFT dump"
@@ -203,7 +207,7 @@ def dump_sequence_sp(image_files: Sequence[str], poses: np.ndarray, K: np.ndarra
                      nn_thresh: float = 1.0, use_h5: bool = False,
                      conv_impl: str | None = None) -> None:
     """Write one scene in the reference dump layout with a SuperPoint
-    frontend (`net`, on its device): the frames as `%06d.png`, per-frame
+    frontend (`net`, on its device): the frames as `%06d.jpg`, per-frame
     keypoints and descriptors (`sift_%06d`: x y + descriptor), and per pair
     the mutual-NN matches with quality col 0 = 300 x the descriptor
     distance (the loader's /300 returns the distance) as both the 'all'
@@ -218,7 +222,7 @@ def dump_sequence_sp(image_files: Sequence[str], poses: np.ndarray, K: np.ndarra
     for i, f in enumerate(image_files):
         img = read_grey(f)
         greys.append(img)
-        write_png(out / f"{i:06d}.png", img)
+        write_jpeg(out / f"{i:06d}.jpg", img)
     feats = sp_detect_frames(greys, net, out_num_points=out_num_points, conv_impl=conv_impl)
     for i, (p, d) in enumerate(feats):
         save_arr(out / f"sift_{i:06d}", np.concatenate([p, d], 1), use_h5)

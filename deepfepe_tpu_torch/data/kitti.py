@@ -20,8 +20,9 @@ to `good_num` with the unique count, every quality column kept with col
 (permutations, pad choices) come from one `np.random.RandomState(seed)`
 in the JAX package's order, so both packages yield the same pairs; the
 virtual points come from this package's `get_virtual_points`. Frames are
-read by `utils.image_io` (PNG; a `.jpg` frame raises) and resized by its
-cv2-equivalent area resize.
+read by `utils.image_io` (JPEG through the native decoder, or PNG, each as
+`cv2.imread(IMREAD_GRAYSCALE)` reads it) and resized by its cv2-equivalent
+area resize.
 """
 
 from __future__ import annotations

@@ -36,8 +36,8 @@ class FrontendParams:
     (`frontend/sp_fused.py`) for images on the card, as it is on the TPU in
     the JAX package, and the module forward elsewhere; 'fused' and 'flax'
     (the JAX name, kept: the nn.Module forward) force a side. `conv_impl`
-    picks the fused forward's conv implementation ('xla' or 'pallas';
-    None reads DEEPFEPE_SP_CONV_IMPL); it is not an SP_params key, nor is
+    picks the fused forward's conv implementation ('xla', 'pallas' or
+    's2d'; None reads DEEPFEPE_SP_CONV_IMPL); it is not an SP_params key, nor is
     `matcher`, the route of the mutual-NN matching (`matching.route`:
     'auto', 'xla' or 'pallas'; None reads DEEPFEPE_MATCHER_IMPL). `remat`
     ('none', 'block' or 'full') reruns the SuperPoint forward, or each of

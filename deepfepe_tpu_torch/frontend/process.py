@@ -54,21 +54,47 @@ def topk_keypoints(nms_map: torch.Tensor, k: int, conf_thresh: float = 0.015) ->
                      scores=torch.where(valid, scores, zero), valid=valid)
 
 
+SOFT_ARGMAX_IMPLS = ("auto", "matmul", "conv", "gather")
+
+
 def soft_argmax_refine(heatmap: torch.Tensor, kpts: Keypoints, patch_size: int = 5,
                        temperature: float | None = None, eps: float = 1e-10,
                        impl: str = "auto") -> Keypoints:
     """Subpixel offsets: the centre of mass of the (patch_size)^2 window
-    around each keypoint, zero-padded at the border. `impl` 'auto' is
-    'matmul' (the JAX default): window-hot row and column selectors
-    contracted against the heatmap, two batched [K, H] x [H, W] products.
-    The 'gather' and 'conv' forms and the softmax (`temperature`) variant
-    are not ported."""
-    if impl == "auto" and temperature is None:
-        impl = "matmul"
-    if impl != "matmul" or temperature is not None:
-        raise NotImplementedError(
-            f"soft_argmax_refine(impl={impl!r}, temperature={temperature}) is not ported; "
-            "the port has the centre-of-mass 'matmul' form")
+    around each keypoint, or with `temperature` the softmax-weighted mean
+    offset over patch / temperature. `impl`:
+
+    - 'matmul' (the 'auto' default without a temperature): window-hot row
+      and column selectors contracted against the heatmap, two batched
+      [K, H] x [H, W] products; the window stays centred at the border,
+      zero-padded;
+    - 'conv': the same sums as three (patch_size)^2 correlations of the
+      heatmap (ones, dx, dy; zero-padded), read at the keypoints by one-hot
+      contractions;
+    - 'gather' ('auto' with a temperature): each keypoint's patch gathered
+      with its origin clamped into the image, so at the border the window
+      shifts inward and the offset counts from the keypoint.
+
+    The softmax variant takes 'gather' only, as the JAX package's does."""
+    if impl not in SOFT_ARGMAX_IMPLS:
+        raise ValueError(f"soft_argmax_refine impl {impl!r} is not one of {SOFT_ARGMAX_IMPLS}")
+    if impl == "auto":
+        impl = "gather" if temperature is not None else "matmul"
+    if impl != "gather" and temperature is not None:
+        raise ValueError("softmax refinement needs impl='gather'")
+    if impl == "gather":
+        offsets = _soft_argmax_gather(heatmap, kpts, patch_size, temperature, eps)
+    else:
+        sums = _window_sums_matmul if impl == "matmul" else _window_sums_conv
+        s, sx, sy = sums(heatmap, kpts, patch_size)
+        offsets = torch.stack([sx / (s + eps), sy / (s + eps)], dim=-1).to(heatmap.dtype)
+    offsets = torch.where(kpts.valid[..., None], offsets, torch.zeros_like(offsets))
+    return kpts._replace(offsets=offsets)
+
+
+def _window_sums_matmul(heatmap: torch.Tensor, kpts: Keypoints, patch_size: int):
+    """(S, Sx, Sy) [B, K] of each centred, zero-padded window by window-hot
+    contractions, in float32 (float64 for float64)."""
     hm = heatmap.to(torch.promote_types(heatmap.dtype, torch.float32))
     B, H, W = hm.shape
     r = patch_size // 2
@@ -82,12 +108,60 @@ def soft_argmax_refine(heatmap: torch.Tensor, kpts: Keypoints, patch_size: int =
     wxd = (iw - xs) * wx
     t0 = torch.bmm(wy, hm)
     t1 = torch.bmm(wyd, hm)
-    s = (t0 * wx).sum(-1)
-    sx = (t0 * wxd).sum(-1)
-    sy = (t1 * wx).sum(-1)
-    offsets = torch.stack([sx / (s + eps), sy / (s + eps)], dim=-1).to(heatmap.dtype)
-    offsets = torch.where(kpts.valid[..., None], offsets, torch.zeros_like(offsets))
-    return kpts._replace(offsets=offsets)
+    return (t0 * wx).sum(-1), (t0 * wxd).sum(-1), (t1 * wx).sum(-1)
+
+
+def _window_sums_conv(heatmap: torch.Tensor, kpts: Keypoints, patch_size: int):
+    """(S, Sx, Sy) [B, K] as correlations of the heatmap with ones, dx and
+    dy (zero-padded), read at the integer keypoints by one-hot rows and
+    columns."""
+    from ..ops.conv import full_f32
+
+    hm = heatmap.to(torch.promote_types(heatmap.dtype, torch.float32))
+    B, H, W = hm.shape
+    r = patch_size // 2
+    u = torch.arange(-r, r + 1, dtype=hm.dtype, device=hm.device)
+    kx = u[None, :].expand(patch_size, patch_size)  # varies along W
+    ky = u[:, None].expand(patch_size, patch_size)  # varies along H
+    kernel = torch.stack([torch.ones_like(kx), kx, ky])[:, None]  # [3, 1, k, k]
+    with full_f32():
+        maps = F.conv2d(hm[:, None], kernel, padding=r)  # [B, 3, H, W] = (S, Sx, Sy)
+    xs = kpts.xy[..., 0].long()
+    ys = kpts.xy[..., 1].long()
+    ohx = (torch.arange(W, device=hm.device) == xs[..., None]).to(hm.dtype)  # [B, K, W]
+    ohy = (torch.arange(H, device=hm.device) == ys[..., None]).to(hm.dtype)  # [B, K, H]
+    t = torch.einsum("bkw,bchw->bkhc", ohx, maps)
+    vals = torch.einsum("bkh,bkhc->bkc", ohy, t)
+    return vals[..., 0], vals[..., 1], vals[..., 2]
+
+
+def _soft_argmax_gather(heatmap: torch.Tensor, kpts: Keypoints, patch_size: int,
+                        temperature: float | None, eps: float) -> torch.Tensor:
+    """[B, K, 2] offsets from each keypoint's gathered patch, its origin
+    clamped into the image, in the heatmap's dtype."""
+    B, H, W = heatmap.shape
+    r = patch_size // 2
+    dt, dev = heatmap.dtype, heatmap.device
+    u = torch.arange(-r, r + 1, dtype=dt, device=dev)
+    x, y = kpts.xy[..., 0].to(dt), kpts.xy[..., 1].to(dt)
+    x0 = torch.clamp(x - r, 0, W - patch_size).long()  # [B, K]
+    y0 = torch.clamp(y - r, 0, H - patch_size).long()
+    cx = x0.to(dt) + r - x
+    cy = y0.to(dt) + r - y
+    step = torch.arange(patch_size, device=dev)
+    rows = (y0[..., None] + step)[..., :, None]  # [B, K, p, 1]
+    cols = (x0[..., None] + step)[..., None, :]  # [B, K, 1, p]
+    bidx = torch.arange(B, device=dev)[:, None, None, None]
+    flat = heatmap[bidx, rows, cols].reshape(B, -1, patch_size * patch_size)
+    if temperature is not None:
+        w = torch.softmax(flat / temperature, dim=-1)
+    else:
+        w = flat / (flat.sum(-1, keepdim=True) + eps)
+    dx = u[None, :].expand(patch_size, patch_size).reshape(-1)
+    dy = u[:, None].expand(patch_size, patch_size).reshape(-1)
+    ox = (w * (dx + cx[..., None])).sum(-1)
+    oy = (w * (dy + cy[..., None])).sum(-1)
+    return torch.stack([ox, oy], dim=-1)
 
 
 def _two_hot(idx0: torch.Tensor, frac: torch.Tensor, size: int) -> torch.Tensor:

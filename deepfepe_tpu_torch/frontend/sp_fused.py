@@ -19,8 +19,11 @@ takes the module forward instead (`pipeline.run_superpoint`).
 
 The conv implementation keeps the JAX package's switch and default:
 `DEEPFEPE_SP_CONV_IMPL`, 'xla' (the plain route everywhere); 'pallas'
-picks K5 on the card, as it picks the TPU kernel there; 's2d' (the TPU's
-space-to-depth form) is not ported. `conv_impl=` overrides it per call.
+picks K5 on the card, as it picks the TPU kernel there; 's2d' takes the
+space-to-depth form (`ops/conv_s2d.py`, `F.conv2d` in full float32, no
+kernel) on the layers where the JAX package takes it, H * W >=
+MIN_PX_PALLAS with 64 input channels and an even width, and the plain
+route elsewhere. `conv_impl=` overrides it per call.
 
 The dtype is the net's (`net.dtype`, as the JAX package's
 `superpoint_forward_fused` follows the module's): x and each conv weight
@@ -49,6 +52,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv import conv3x3_affine_relu, conv3x3_affine_relu_ref
+from ..ops.conv_s2d import conv3x3_affine_relu_s2d
 from .superpoint import SuperPointNetGauss2, normalize_desc
 
 CONV_IMPL = os.environ.get("DEEPFEPE_SP_CONV_IMPL", "xla")
@@ -63,9 +67,14 @@ def _pool(y: torch.Tensor) -> torch.Tensor:
 
 
 def _backend(x: torch.Tensor, conv_impl: str) -> str:
-    """'kernel' (K5) or 'plain' for the layer that takes x [B, H, W, C]."""
+    """'kernel' (K5), 's2d' or 'plain' for the layer that takes x [B, H, W,
+    C], by the JAX package's rule."""
     big = x.shape[1] * x.shape[2] >= MIN_PX_PALLAS
-    return "kernel" if conv_impl == "pallas" and big else "plain"
+    if conv_impl == "pallas" and big:
+        return "kernel"
+    if conv_impl == "s2d" and big and x.shape[-1] == 64 and x.shape[2] % 2 == 0:
+        return "s2d"
+    return "plain"
 
 
 def _bn_affine(conv: nn.Conv2d, bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -84,9 +93,11 @@ def _cast(t: torch.Tensor, dtype) -> torch.Tensor:
 def _cbr(x: torch.Tensor, conv: nn.Conv2d, s, t, conv_impl: str, dtype,
          need_dx: bool = True) -> torch.Tensor:
     w = _cast(conv.weight.permute(2, 3, 1, 0).contiguous(), dtype)  # [3, 3, Cin, C]
-    if _backend(x, conv_impl) == "kernel":
+    backend = _backend(x, conv_impl)
+    if backend == "kernel":
         return conv3x3_affine_relu(x, w, s, t, need_dx)
-    return conv3x3_affine_relu_ref(x if need_dx else x.detach(), w, s, t)
+    plain = conv3x3_affine_relu_s2d if backend == "s2d" else conv3x3_affine_relu_ref
+    return plain(x if need_dx else x.detach(), w, s, t)
 
 
 def _head(x: torch.Tensor, conv: nn.Conv2d, dtype) -> torch.Tensor:
@@ -100,9 +111,6 @@ def _check(conv_impl: str, remat: str) -> None:
         raise ValueError(f"conv implementation {conv_impl!r} is not one of {CONV_IMPLS}")
     if remat not in REMATS:
         raise ValueError(f"remat {remat!r} is not one of {REMATS}")
-    if conv_impl == "s2d":
-        raise NotImplementedError("the space-to-depth conv route ('s2d') is not ported "
-                                  "(ROADMAP Queue 1 item 3)")
 
 
 def _rerun(fn, *args):

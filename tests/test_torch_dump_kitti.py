@@ -9,8 +9,10 @@ sequence they take (`SyntheticImageSequence`).
   clouds, the `X_cam*` files) equal bit for bit.
 - The SuperPoint dump of four 120x160 frames with the seeded SuperPointNet
   carried across (`superpoint_state_from_flax`): each package writes its
-  tree (the JAX side reads the same PNG frames through cv2 and writes them
-  back as `.jpg`, the port as `.png`). Every array file is compared:
+  tree, the frames as `.jpg` at quality 95 (the JAX side through cv2, the
+  port through its native encoder), and the two trees' frames hold the
+  same bytes and, read back through cv2 and the port's decoder, the same
+  pixels. Every array file is compared:
   `cam`, `poses`, `Rt_cam2_gt` and the set of matched index pairs exactly
   (matches come sorted by distance, and near-equal distances may swap
   places: 12 of 396 index entries of one pair here); keypoints within 1e-4
@@ -18,7 +20,8 @@ sequence they take (`SyntheticImageSequence`).
   tests/test_torch_frontend.py) and the match distances sqrt(2 - 2 d1.d2)
   that follow from them within 1e-4 (2.4e-5 seen). The port's
   tree then reads through both packages' loaders with every numpy key
-  equal bit for bit and the frames within one grey level.
+  equal bit for bit and the frames within one grey level, and the JAX
+  package's tree reads through the port's loader as through its own.
 - `val_feature --config` over such a tree with its frames: the summary
   equals the JAX `frontend_epidist_eval` over the JAX loader's batches of
   the same tree with the same weights (match counts equal, ratios within
@@ -45,7 +48,7 @@ from deepfepe_tpu_torch.data.kitti import KittiCorrDataset as TKitti
 from deepfepe_tpu_torch.data.dump_kitti import dump_sequence_sp
 from deepfepe_tpu_torch.frontend import SuperPointNet
 from deepfepe_tpu_torch.train import config_from_dict
-from deepfepe_tpu_torch.utils.image_io import read_png, write_png
+from deepfepe_tpu_torch.utils.image_io import read_grey, write_png
 from deepfepe_tpu_torch.utils.weights import superpoint_state_from_flax
 
 from test_torch_frontend import flax_variables
@@ -158,26 +161,30 @@ def test_sp_dump_files_equal_jax(sp_dumps):
                           - np.sort(b.view("i4,i4"), 0).view(np.int32)).max() == 0, name
         else:
             np.testing.assert_array_equal(b, a, err_msg=name)
-    for k, f in enumerate(frames):  # PNG frames round-trip exactly (JAX's are JPEG)
-        np.testing.assert_array_equal(read_png(tdir / f"{k:06d}.png"),
-                                      cv2.imread(f, cv2.IMREAD_GRAYSCALE))
-        assert (jdir / f"{k:06d}.jpg").exists()
+    assert sorted(p.name for p in tdir.glob("*.jpg")) == sorted(p.name for p in jdir.glob("*.jpg"))
+    for k, f in enumerate(frames):  # both trees hold cv2.imwrite's JPEG of each frame
+        jpg = f"{k:06d}.jpg"
+        assert (tdir / jpg).read_bytes() == (jdir / jpg).read_bytes(), jpg
+        want = cv2.imread(str(jdir / jpg), cv2.IMREAD_GRAYSCALE)
+        np.testing.assert_array_equal(read_grey(tdir / jpg), want, err_msg=jpg)
+        np.testing.assert_array_equal(cv2.imread(str(tdir / jpg), cv2.IMREAD_GRAYSCALE), want)
 
 
 def test_sp_dump_reads_through_both_loaders(sp_dumps):
     root, _ = sp_dumps
     kw = dict(good_num=150, image_size=(120, 160), seed=2, delta_ij=2, with_imgs=True,
               with_sift_des=True)
-    j, t = JKitti(str(root / "torch"), **kw), TKitti(str(root / "torch"), **kw)
-    assert len(j) == len(t) == 2
-    for jb, tb in zip(j.batches(2, drop_last=False), t.batches(2, drop_last=False)):
-        assert jb.keys() == tb.keys()
-        for k in jb:
-            if k == "imgs_grey":
-                assert np.abs(tb[k] - jb[k]).max() <= 1 / 255 + 1e-7
-            elif not k.endswith("_virt"):
-                np.testing.assert_array_equal(tb[k], jb[k], err_msg=k)
-        assert tb["des"].shape[-1] == 2 * 256
+    for tree in ("torch", "jax"):
+        j, t = JKitti(str(root / tree), **kw), TKitti(str(root / tree), **kw)
+        assert len(j) == len(t) == 2
+        for jb, tb in zip(j.batches(2, drop_last=False), t.batches(2, drop_last=False)):
+            assert jb.keys() == tb.keys()
+            for k in jb:
+                if k == "imgs_grey":
+                    assert np.abs(tb[k] - jb[k]).max() <= 1 / 255 + 1e-7
+                elif not k.endswith("_virt"):
+                    np.testing.assert_array_equal(tb[k], jb[k], err_msg=k)
+            assert tb["des"].shape[-1] == 2 * 256
 
 
 def test_val_feature_config_matches_jax(tmp_path, monkeypatch):

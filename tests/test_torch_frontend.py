@@ -111,8 +111,8 @@ def test_gauss2_refuses_train_mode_batchnorm():
         superpoint_forward_fused(net, torch.zeros(1, 16, 16, 1), "xla")
     with pytest.raises(ValueError, match="BatchNorm"):
         run_superpoint(SuperPointNet(), torch.zeros(1, 16, 16), FrontendParams(), bn_train=True)
-    with pytest.raises(NotImplementedError, match="s2d"):
-        superpoint_forward_fused(net.eval(), torch.zeros(1, 16, 16, 1), "s2d")
+    with pytest.raises(ValueError, match="conv implementation"):
+        superpoint_forward_fused(net.eval(), torch.zeros(1, 16, 16, 1), "winograd")
 
 
 def test_flatten_detection_and_nms_equal_jax():
@@ -157,8 +157,8 @@ def test_soft_argmax_and_descriptor_sampling_match_jax():
     np.testing.assert_allclose(sample_descriptors(torch.from_numpy(dm), xy).numpy(),
                                np.asarray(jsample(jnp.asarray(dm), jnp.asarray(xy.numpy()))),
                                atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        soft_argmax_refine(torch.from_numpy(hm), tk, impl="gather")
+    with pytest.raises(ValueError, match="gather"):  # the softmax variant is gather-only
+        soft_argmax_refine(torch.from_numpy(hm), tk, temperature=0.5, impl="matmul")
 
 
 def test_get_matches_from_sp_matches_jax(nets):
@@ -210,3 +210,153 @@ def test_frontend_params_from_config_reads_sp_params():
         frontend_params_from_config(config_from_dict({"training": {"SP_params": {"k": 1}}}))
     with pytest.raises(ValueError, match="conv_backend"):
         FrontendParams(conv_backend="cuda")
+
+
+def _border_keypoints(rng, B, H, W, K):
+    """Keypoints [B, K, 2] at integer positions, a third of them within two
+    pixels of a border, a few invalid."""
+    xs = rng.randint(0, W, (B, K)).astype(np.float32)
+    ys = rng.randint(0, H, (B, K)).astype(np.float32)
+    edge = rng.rand(B, K) < 0.35
+    xs = np.where(edge & (rng.rand(B, K) < 0.5), rng.choice([0, 1, W - 2, W - 1], (B, K)), xs)
+    ys = np.where(edge, rng.choice([0, 1, H - 2, H - 1], (B, K)), ys)
+    valid = rng.rand(B, K) > 0.1
+    return np.stack([xs, ys], -1).astype(np.float32), valid
+
+
+@pytest.mark.parametrize("impl,temperature", [("matmul", None), ("conv", None), ("gather", None),
+                                              ("gather", 0.05), ("auto", 0.05)])
+def test_soft_argmax_forms_match_jax(impl, temperature):
+    """Each form's offsets and heatmap gradient against the JAX package's,
+    border keypoints included (the centred forms zero-pad the window there,
+    'gather' shifts it inward). Offsets within 1e-5 px, the gradient of a
+    random weighting of them within 1e-5 of its largest entry (float32
+    sums in another order)."""
+    from deepfepe_tpu.frontend.process import Keypoints as JKeypoints
+
+    rng = np.random.RandomState(7)
+    B, H, W, K = 2, 24, 30, 40
+    hm = (rng.rand(B, H, W) ** 3).astype(np.float32)
+    xy, valid = _border_keypoints(rng, B, H, W, K)
+    g = rng.randn(B, K, 2).astype(np.float32)
+    zero = np.zeros((B, K), np.float32)
+    jk = JKeypoints(jnp.asarray(xy), jnp.zeros_like(jnp.asarray(xy)), jnp.asarray(zero),
+                    jnp.asarray(valid))
+
+    def jloss(h):
+        return jnp.sum(jsoftargmax(h, jk, patch_size=5, temperature=temperature,
+                                   impl=impl).offsets * g)
+
+    want = np.asarray(jsoftargmax(jnp.asarray(hm), jk, patch_size=5, temperature=temperature,
+                                  impl=impl).offsets)
+    want_grad = np.asarray(jax.grad(jloss)(jnp.asarray(hm)))
+    h = torch.from_numpy(hm).requires_grad_()
+    tk = Keypoints(torch.from_numpy(xy), torch.zeros(B, K, 2), torch.from_numpy(zero),
+                   torch.from_numpy(valid))
+    got = soft_argmax_refine(h, tk, patch_size=5, temperature=temperature, impl=impl).offsets
+    (got * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-5)
+    assert np.abs(want).max() > 0.3  # border windows move the offsets
+    np.testing.assert_allclose(h.grad.numpy(), want_grad, atol=1e-5 * np.abs(want_grad).max())
+
+
+def test_s2d_helpers_match_jax():
+    """The space-to-depth helpers against conv_pallas's: the weight pack,
+    the reshapes and the s2d max pool exactly (data movement); the s2d
+    conv, on an s2d input and on NHWC, within 5e-6 (float32 sums of 1,152
+    products of unit size in another order: 2.9e-6 seen), and its input
+    and weight gradients within 1e-5 of their largest entry."""
+    from deepfepe_tpu.ops.pallas import conv_pallas as jconv
+    from deepfepe_tpu_torch.ops import conv_s2d
+
+    rng = np.random.RandomState(3)
+    x = rng.randn(2, 10, 12, 64).astype(np.float32)
+    w = (0.1 * rng.randn(3, 3, 64, 32)).astype(np.float32)
+    s = (1 + 0.2 * rng.randn(32)).astype(np.float32)
+    t = (0.1 * rng.randn(32)).astype(np.float32)
+    np.testing.assert_array_equal(conv_s2d._pack_w_s2d(torch.from_numpy(w), torch.float32).numpy(),
+                                  np.asarray(jconv._pack_w_s2d(jnp.asarray(w), jnp.float32)))
+    xs = conv_s2d.to_s2d(torch.from_numpy(x))
+    np.testing.assert_array_equal(xs.numpy(), np.asarray(jconv.to_s2d(jnp.asarray(x))))
+    np.testing.assert_array_equal(conv_s2d.from_s2d(xs).numpy(), x)
+    np.testing.assert_array_equal(conv_s2d.max_pool_2x2_s2d(xs).numpy(),
+                                  np.asarray(jconv.max_pool_2x2_s2d(jconv.to_s2d(jnp.asarray(x)))))
+    args = [torch.from_numpy(a) for a in (w, s, t)]
+    jargs = [jnp.asarray(a) for a in (w, s, t)]
+    np.testing.assert_allclose(
+        conv_s2d.conv3x3_affine_relu_s2d_pre(xs, *args).numpy(),
+        np.asarray(jconv.conv3x3_affine_relu_s2d_pre(jconv.to_s2d(jnp.asarray(x)), *jargs)),
+        atol=5e-6)
+    g = rng.randn(2, 10, 12, 32).astype(np.float32)
+    xt, wt = torch.from_numpy(x).requires_grad_(), torch.from_numpy(w).requires_grad_()
+    y = conv_s2d.conv3x3_affine_relu_s2d(xt, wt, args[1], args[2])
+    (y * torch.from_numpy(g)).sum().backward()
+    jy, jvjp = jax.vjp(lambda a, b: jconv.conv3x3_affine_relu_s2d(a, b, *jargs[1:]),
+                       jnp.asarray(x), jnp.asarray(w))
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(jy), atol=5e-6)
+    for got, want in zip((xt.grad, wt.grad), jvjp(jnp.asarray(g))):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5 * np.abs(want).max())
+    with pytest.raises(ValueError, match="even width"):
+        conv_s2d.conv3x3_affine_relu_s2d(torch.zeros(1, 4, 5, 64), *args)
+
+
+def test_gauss2_s2d_route_matches_jax(monkeypatch):
+    """The gauss2 fused forward under conv_impl='s2d' at 128x128 (inc's
+    second conv, 64 channels at 16,384 px, takes the s2d form; every other
+    layer the plain route) against the JAX package's with
+    sp_pallas.CONV_IMPL = 's2d': within 2e-6, the bar of the other fused
+    routes; and against the port's plain route within the same bar."""
+    from deepfepe_tpu.frontend import sp_pallas
+    from deepfepe_tpu_torch.frontend import sp_fused
+
+    jnet = JSuperPointNetGauss2(dtype=jnp.float32)
+    v = flax_variables(jnet, (1, 128, 128, 1))
+    net = SuperPointNetGauss2().eval()
+    net.load_state_dict(superpoint_state_from_flax(v), strict=True)
+    x = np.random.RandomState(4).rand(2, 128, 128, 1).astype(np.float32)
+    monkeypatch.setattr(sp_pallas, "CONV_IMPL", "s2d")
+    want = sp_pallas.superpoint_forward_fused(jnet, v, jnp.asarray(x))
+    routes = []
+    real = sp_fused._backend
+    monkeypatch.setattr(sp_fused, "_backend", lambda y, impl: routes.append(real(y, impl))
+                        or routes[-1])
+    with torch.no_grad():
+        got = superpoint_forward_fused(net, torch.from_numpy(x), "s2d")
+        plain = superpoint_forward_fused(net, torch.from_numpy(x), "xla")
+    assert routes[:len(routes) // 2].count("s2d") == 1 and "kernel" not in routes
+    for k in ("semi", "desc"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=2e-6, err_msg=k)
+        np.testing.assert_allclose(got[k].numpy(), plain[k].numpy(), atol=2e-6, err_msg=k)
+
+
+# The bars `chip_smoke.py` holds val_feature (b) under 's2d' to against the
+# plain route on the card: the two routes sum the same float32 convs in
+# another order, so keypoints can swap only at near-equal scores.
+S2D_VF_BARS = {"num_matches_rel": 0.005, "num_matches_abs": 1.0, "ratio_matches": 2.0}
+
+
+def test_val_feature_s2d_route_matches_the_plain_route(tmp_path, monkeypatch):
+    """val_feature with a seeded gauss2 at 128x160 (inc's second conv takes
+    the s2d form) through the fused forward, 's2d' against 'xla': launches
+    none, num_matches within S2D_VF_BARS (1 + 0.5% of the plain route's;
+    measured here: equal) and every ratio within 2 / num_matches."""
+    from deepfepe_tpu_torch import cli
+
+    monkeypatch.chdir(tmp_path)
+    v = flax_variables(JSuperPointNetGauss2(dtype=jnp.float32), (1, 128, 160, 1))
+    ckpt = tmp_path / "g2.pth.tar"
+    torch.save({"n_iter": 0, "model_state_dict": superpoint_state_from_flax(v)}, ckpt)
+    out = {}
+    for impl in ("s2d", "xla"):
+        fp = FrontendParams(out_num_points=300, conf_thresh=1e-3, conv_backend="fused",
+                            conv_impl=impl)
+        out[impl] = cli.val_feature(f"vf_{impl}", max_batches=2, pretrained=str(ckpt), fp=fp,
+                                    image_size=(128, 160), batch_size=2, device="cpu")
+    a, b = out["s2d"], out["xla"]
+    assert b["num_matches"] > 10
+    assert abs(a["num_matches"] - b["num_matches"]) <= (S2D_VF_BARS["num_matches_abs"]
+                                                         + S2D_VF_BARS["num_matches_rel"]
+                                                         * b["num_matches"])
+    for k in ("ratio@0.1", "ratio@0.5", "ratio@1.0", "ratio@2.0"):
+        assert abs(a[k] - b[k]) <= S2D_VF_BARS["ratio_matches"] / b["num_matches"], k

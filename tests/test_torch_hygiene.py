@@ -78,7 +78,8 @@ def test_importing_the_port_loads_no_jax():
               "utils.profiling", "utils.warp", "geometry.homography", "frontend.train_sp",
               "tools.train_sp_full", "tools.finetune_sp_corners", "tools.train_joint_full",
               "tools.eval_joint_ckpts", "tools.vo_superpoint", "tools.sp_pipeline",
-              "models.dsac"):
+              "models.dsac", "utils.jpeg", "ops.conv_s2d", "eval.val_pipeline", "utils.vis",
+              "utils.video"):
         assert f"deepfepe_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -153,9 +153,9 @@ def test_infer_with_a_config_and_a_reference_solver_file(pair, tmp_path):
 def test_infer_refuses_what_is_not_ported(pair, tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         cli.main(["infer", *pair["frames"], "--pretrained", CKPT, "--device", "cpu"])
-    jpg = tmp_path / "a.jpg"
-    jpg.write_bytes(b"\xff\xd8")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+    jpg = tmp_path / "a.jpg"  # an arithmetic-coded (SOF9) frame header
+    jpg.write_bytes(b"\xff\xd8\xff\xc9\x00\x0b\x08\x00\x10\x00\x10\x01\x01\x11\x00\xff\xd9")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         cli.infer(str(jpg), str(jpg), CKPT, pair["sp"], device="cpu")
     with pytest.raises(SystemExit, match="SuperPoint matches"):  # 4 keypoints a frame
         cli.infer(*pair["frames"], CKPT, pair["sp"], good_num=4, device="cpu")

@@ -145,10 +145,11 @@ def test_with_imgs_gamma_on_png_frames(tmp_path):
 
 
 def test_jpeg_frames_raise(tmp_path):
+    """A truncated JPEG frame raises (cv2 would warn and pad it)."""
     write_corr_dump(tmp_path, scenes=1, frames=2, matches=70, seed=6)
     (tmp_path / "00" / "000000.jpg").write_bytes(b"\xff\xd8")
     t = TKitti(str(tmp_path), good_num=64, with_imgs=True)
-    with pytest.raises(NotImplementedError, match="JPEG"):
+    with pytest.raises(ValueError, match="JPEG"):
         t.get_item(0)
 
 

@@ -84,11 +84,11 @@ def test_png_round_trips_with_cv2(tmp_path):
         np.testing.assert_array_equal(image_io.read_png(p), img, err_msg=name)
         image_io.write_png(p, img)
         np.testing.assert_array_equal(cv2.imread(p, cv2.IMREAD_GRAYSCALE), img, err_msg=name)
-    cv2.imwrite(p, np.zeros((4, 4, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="greyscale"):
-        image_io.read_png(p)
-    (tmp_path / "f.jpg").write_bytes(b"\xff\xd8")
-    with pytest.raises(NotImplementedError, match="JPEG"):
+    colour = np.stack([_images()["smooth"], _images()["noise"], _images()["smooth"][::-1]], -1)
+    cv2.imwrite(p, colour)  # an RGB PNG reads as cv2 converts it to grey
+    np.testing.assert_array_equal(image_io.read_png(p), cv2.imread(p, cv2.IMREAD_GRAYSCALE))
+    (tmp_path / "f.jpg").write_bytes(b"\xff\xd8")  # a JPEG stream cut after its SOI
+    with pytest.raises(ValueError, match="JPEG"):
         image_io.read_grey(tmp_path / "f.jpg")
 
 
