@@ -237,12 +237,25 @@ and for the staged joint recipe and SuperPoint VO slice:
            a tree with 128-wide SIFT descriptors (C_in 261 and 264): exact
            launches, no K2 or K2b with use_pallas_mlp, card vs CPU;
   dsac     models/dsac.py on 1,000 matches, the card against the CPU on the
-           same draws (DSAC_BARS), eigh9 2 a call.
+           same draws (DSAC_BARS), eigh9 2 a call;
+and for the parallel slice:
+  parallel  the launcher as a one-rank NCCL job (TRAIN_F's config, 2
+           steps) against train_good without a process group, bit for bit;
+           the dry run's flagship step data-parallel at 2 ranks and DP x TP
+           at 4 (the ranks sharing the card under gloo) against one
+           process; the N-sharded fit against weighted_eight_point; the
+           distributed Schur, square-root and pose-graph steps against the
+           one-device steps; the data-parallel joint step at 376x1240 with
+           SuperPoint frozen (K5 on) and trained (sync BN: buffers equal on
+           the ranks, all moved); tools/dryrun_multichip at 4 ranks. Each
+           world runs in subprocesses (`--parallel-rank`) with its own
+           deadline; launches a rank are exact (PAR_EXPECTED).
 
 The line before the card's name line is the kernels' JSON summary (eigh9,
 K2, K2b, K5, K4, K5b, K3 and its backward, X1-X4, the bf16 K5 and K5b, each
 with its launches
-on the path that carries it and on every other path); the last line is {"ok": true, "device":
+on the path that carries it and on every other path, and a rank's on each
+parallel path); the last line is {"ok": true, "device":
 {...}}. Any failed check exits 1. K5's and K5b's bounds take their
 products as FP32 FFMA or as three TF32 passes on the tensor cores,
 whichever is faster (`f32_gemm_bound_ms`); `bound_fp32_ms` beside them is
@@ -262,7 +275,9 @@ halo box one row low (X1, X3, X4), X2's ky = 0 weights streamed from
 ky = 1's rows, X4's chunk halo one column to the right, an X3 block
 bringing the next tile's halo, conv3x3_bf16.cu's forward dropping the
 centre tap, or its weight gradient summing dscale and dbias from a float32
-dz) and runs only that kernel's checks, printing their readings; it exits 1 when a check
+dz; or, in the parallel phase's 4-rank world, the N-sharded fit's last
+rank leaving its partial Gram out of the all-reduce) and runs only that
+kernel's (or that path's) checks, printing their readings; it exits 1 when a check
 caught the fault. `--plant none` runs every set and gives the sound
 readings the bars are set against.
 
@@ -375,7 +390,7 @@ FAULTS = ("none", "dx_zero", "dgamma_dbeta_swapped", "c1_next_item", "c2_next_it
           "matcher_fold_last_index", "eigh9_warp_skip_rotation", "conv_mma_tap_shift",
           "conv_fold_drop_group", "xconv_halo_top_row", "xconv_s2d_next_ky",
           "xconv_strip_halo_column", "xconv_tile_next_halo", "conv_bf16_drop_tap",
-          "conv_bf16_dz_f32")
+          "conv_bf16_dz_f32", "nshard_drop_rank")
 # Kernel faults, each planted into one source line: (module under
 # deepfepe_tpu_torch.ops, the line, its faulty form). c1/c2_next_item build
 # K2b's dh with the next item's coefficient; stats_straddle_next_item
@@ -5976,6 +5991,553 @@ def phase_dsac(ph: Phases) -> dict:
     return counts
 
 
+# The parallel slice: the launcher, DP, DP x TP, the N-sharded fit,
+# the distributed BA steps, the data-parallel joint step and the dry-run
+# tool, each world of ranks in subprocesses (`--parallel-rank`) with its
+# own deadline. The card has one H100, so the one-rank deployment runs
+# under NCCL and the 2- and 4-rank worlds share cuda:0 under gloo (NCCL
+# refuses two ranks on one device). A rank's failure or timeout fails the
+# phase. The flagship step is the dry run's: depth 5, N = 1000,
+# if_quality, the qt loss and the sample loss, float32 unfused MLPs, a
+# global batch of PAR_B, from the trained flagship solver (FLAGSHIP_CKPT):
+# with seeded weights the untrained fits are so ill-conditioned that the
+# float32 rounding of cuBLAS's other tilings at 4 rows a rank moved the
+# qt loss by 4.3e-5 and the gradient's cosine to 1 - 4e-5 against one
+# process on 8 rows (PERF.md), past the JAX bars below, which the
+# CPU, whose products do not depend on the row count, meets exactly. The
+# launcher takes TRAIN_F's config (the fused bf16 MLP: K2/K2b) for
+# PAR_LAUNCH_STEPS steps, without validation.
+PAR_B = 8
+PAR_LAUNCH_STEPS = 2
+PAR_TIMEOUT = 420.0
+PAR_DRYRUN_TIMEOUT = 660.0  # the tool's own world deadline (600 s) and its start
+# The bars: the JAX package's own (tests/test_model_train.py's 8-vs-1
+# mesh: loss rtol 1e-5, gradient cosine > 1 - 1e-5; tests/test_tp.py:82,
+# 151, 168: DP x TP loss rtol 1e-5, the N-sharded F to 2e-5 and its
+# gradient atol 5e-4 / rtol 1e-3; tests/test_ba.py's BA bars).
+PAR_BARS = {"loss_rtol": 1e-5, "grad_cos": 1 - 1e-5, "nshard_F": 2e-5,
+            "nshard_grad": (5e-4, 1e-3), "schur_poses": 5e-4, "schur_points": (2e-3, 2e-2),
+            "sqrt_poses": 1e-9, "sqrt_points": 1e-8, "pg_poses": 2e-5, "pg_two_stage": 5e-5}
+# Launches a rank, per path (PERF.md's predictions): the flagship step
+# runs eigh9 2 x 5 (the fits and the sample fits), K3 6 forward (4 in
+# DeepFNet, the F-loss, the sampled hypotheses) and 4 backward (the qt
+# loss leaves the F-loss and the sample loss out of the gradient); the
+# launcher's F-mode step eigh9, K2, K2b, K3 and K3's backward 5 each; the
+# fit one eigh9; the joint step (depth 2, K = 1000) eigh9 2, K3 2 and 2,
+# K4 1, and with SuperPoint frozen (the fused forward, K5 on) K5 6 and K5b
+# 6; the dry run a flagship step, a fit and a train-mode joint step.
+PAR_FLAGSHIP = {"eigh9": 10, "epi_residual": 6, "epi_residual_bwd": 4}
+PAR_EXPECTED = {
+    "launcher": {k: PAR_LAUNCH_STEPS * 5 for k in ("eigh9", "mlp_forward", "mlp_backward",
+                                                    "epi_residual", "epi_residual_bwd")},
+    "dp": PAR_FLAGSHIP, "dptp": PAR_FLAGSHIP, "nshard": {"eigh9": 1},
+    "joint_frozen": {"eigh9": 2, "epi_residual": 2, "epi_residual_bwd": 2, "mutual_nn_kernel": 1,
+                     "conv3x3_affine_relu": 6, "conv3x3_affine_relu_bwd": 6},
+    "joint_sync_bn": {"eigh9": 2, "epi_residual": 2, "epi_residual_bwd": 2,
+                      "mutual_nn_kernel": 1},
+    "dryrun": {"eigh9": 13, "epi_residual": 8, "epi_residual_bwd": 6, "mutual_nn_kernel": 1},
+}
+
+
+def par_launch_cfg() -> dict:
+    return {**TRAIN_F, "training": {**TRAIN_F["training"], "train_iter": PAR_LAUNCH_STEPS,
+                                    "val_interval": 0, "save_interval": 0, "profile_start": 0,
+                                    "profile_steps": 0, "tensorboard": False}}
+
+
+def par_counted(fn):
+    """fn()'s result and the kernel launches of this process during it."""
+    import torch
+
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in read_counts().items() if v}
+
+
+def par_nshard_inputs(batch):
+    """tests/test_tp.py's shape for the fit's check, B = 3 and N = 256
+    (the flagship batch's first items and points), with softmax weights
+    (numpy seed 5). At N = 1000 the float32 gradient of sum |F| moves by
+    up to 4e-3 with the order of the Hartley sums alone (this check run
+    on the CPU), past the test's bar; the dry run fits N = 1000."""
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch.tools.dryrun_multichip import nshard_inputs
+
+    p1, p2, _ = nshard_inputs({"matches_xy_ori": batch["matches_xy_ori"][:3, :256]})
+    z = np.random.RandomState(5).randn(*p1.shape[:-1]) * 0.5
+    w = torch.softmax(torch.as_tensor(z, dtype=torch.float32), -1)
+    return p1, p2, w
+
+
+def plant_nshard_drop_rank(rank: int, last: int) -> None:
+    """--plant nshard_drop_rank: the last rank's partial Gram left out of
+    the N-sharded fit's all-reduce."""
+    from deepfepe_tpu_torch.parallel import nshard
+
+    if rank == last:
+        partial = nshard.gram_partial
+        # Zero, but still on the graph: every rank's backward then runs the
+        # same collectives.
+        nshard.gram_partial = lambda X: partial(X) * 0.0
+
+
+def par_case_launcher(spec: dict) -> dict:
+    from deepfepe_tpu_torch.launch import train_multihost
+
+    last, counts = par_counted(lambda: train_multihost.main([
+        "--config", spec["config"], "--exper", spec["exper"], "--backend", "nccl",
+        "--coordinator", spec["coordinator"], "--num_processes", "1", "--process_id", "0"]))
+    return {"launcher": {"last": last, "launches": counts}}
+
+
+def par_case_reference(spec: dict) -> dict:
+    from deepfepe_tpu_torch import cli
+
+    cli.main(["train_good", spec["config"], spec["exper"], "--device", "cuda"])
+    return {}
+
+
+def par_case_w2(spec: dict) -> dict:
+    """DP at 2 ranks, then the data-parallel joint step twice (SuperPoint
+    frozen with K5 on; then trained, BatchNorm synchronized)."""
+    import torch
+
+    from deepfepe_tpu_torch.data import SyntheticImagePairs, SyntheticPairs
+    from deepfepe_tpu_torch.parallel import make_mesh
+    from deepfepe_tpu_torch.tools import dryrun_multichip as dr
+
+    mesh = make_mesh(2, 1)
+    batch = SyntheticPairs(good_num=dr.FLAGSHIP_N, seed=0).batch(PAR_B)
+    (trainer, m), counts = par_counted(lambda: dr.dp_tp_step(
+        mesh, dr.flagship_config(), batch, pretrained=FLAGSHIP_CKPT))
+    out = {"dp": {"loss": float(m["loss"]), "launches": counts,
+                  "grads": {k: p.grad.cpu() for k, p in trainer.net.named_parameters()}}}
+    jbatch = SyntheticImagePairs(image_size=dr.IMAGE, seed=1).batch(2 * dr.PAIRS)
+    for name, train_sp in (("joint_frozen", False), ("joint_sync_bn", True)):
+        (sp, before, jm), counts = par_counted(lambda: dr.joint_step(
+            mesh, jbatch, train_sp=train_sp, conv_impl="pallas"))
+        out[name] = {"metrics": {k: float(v) for k, v in jm.items() if v.dim() == 0},
+                     "before": {k: v.cpu() for k, v in before.items()},
+                     "after": {k: v.cpu() for k, v in sp.named_buffers() if k in before},
+                     "launches": counts}
+    return out
+
+
+def par_case_w4(spec: dict) -> dict:
+    """DP x TP on (2, 2), the N-sharded fit over a model group of 4, and
+    the distributed BA steps over a data group of 4."""
+    import torch
+
+    from deepfepe_tpu_torch.ba import graph_from_odometry
+    from deepfepe_tpu_torch.ba.distributed import (make_distributed_ba_step,
+                                                   make_distributed_pose_graph_step,
+                                                   make_distributed_sqrt_ba_step,
+                                                   optimize_pose_graph_two_stage_distributed,
+                                                   pad_pose_graph_edges, shard_ba_inputs,
+                                                   shard_edges)
+    from deepfepe_tpu_torch.data import SyntheticPairs
+    from deepfepe_tpu_torch.parallel import MODEL_AXIS, make_mesh, make_nsharded_fit, shard, tp
+    from deepfepe_tpu_torch.tools import dryrun_multichip as dr
+
+    batch = SyntheticPairs(good_num=dr.FLAGSHIP_N, seed=0).batch(PAR_B)
+    mesh = make_mesh(2, 2)
+    (trainer, m), counts = par_counted(lambda: dr.dp_tp_step(
+        mesh, dr.flagship_config(), batch, pretrained=FLAGSHIP_CKPT))
+    names = tp.sharded_names(trainer.net)
+    grads = {k: (tp.gather_full(mesh, p.grad) if k in names else p.grad).cpu()
+             for k, p in trainer.net.named_parameters()}
+    out = {"dptp": {"loss": float(m["loss"]), "launches": counts, "grads": grads}}
+
+    ns = make_mesh(1, 4)
+    p1, p2, w = (shard(ns, x.to(ns.device), dim=1, axis=MODEL_AXIS)
+                 for x in par_nshard_inputs(batch))
+    w = w.clone().requires_grad_(True)
+
+    def fit():
+        F, r = make_nsharded_fit(ns)(p1, p2, w)
+        F.abs().sum().backward()
+        return F
+
+    F, counts = par_counted(fit)
+    out["nshard"] = {"F": F.detach().cpu(), "grad": w.grad.cpu(), "launches": counts}
+
+    ba = make_mesh(4, 1)
+    dev = ba.device
+    prob = [x.to(dev, torch.float64) for x in dr.sqrt_ba_problem(64)]
+    poses, X, obs, vis, K = prob
+    p, x, c = make_distributed_ba_step(ba, damping=1e-4)(poses, *shard_ba_inputs(ba, X, obs, vis),
+                                                          K)
+    out["schur"] = {"poses": p.cpu(), "points": x.cpu(), "cost": float(c)}
+    p, x, c = make_distributed_sqrt_ba_step(ba, damping=1e-3)(
+        poses, *shard_ba_inputs(ba, X, obs, vis), K)
+    out["sqrt"] = {"poses": p.cpu(), "points": x.cpu()}
+    g = dr.pose_graph_problem()
+    g = g._replace(**{k: v.to(dev) for k, v in g._asdict().items()})
+    e, mm, w6 = shard_edges(ba, *pad_pose_graph_edges(g.edges, g.measurements, g.weights, 4))
+    p, c = make_distributed_pose_graph_step(ba, damping=1e-6)(g.poses, e, mm, w6,
+                                                              torch.ones(6, device=dev))
+    p2, _ = optimize_pose_graph_two_stage_distributed(ba, g, rot_iters=4, trans_iters=4,
+                                                      damping=1e-6)
+    out["pose_graph"] = {"poses": p.cpu(), "cost": float(c), "two_stage": p2.cpu()}
+    return out
+
+
+PAR_CASES = {"launcher": par_case_launcher, "reference": par_case_reference,
+             "w2": par_case_w2, "w4": par_case_w4}
+
+
+def parallel_rank(spec: dict) -> int:
+    """One rank of a parallel-phase world (`--parallel-rank`): its case's
+    results to spec['out']/rank<r>.pt."""
+    import torch
+
+    from deepfepe_tpu_torch.parallel import init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.chdir(REPO)
+    own_world = spec["case"] in ("w2", "w4")
+    if own_world:
+        init_distributed("gloo", spec["coordinator"], spec["world"], spec["rank"])
+        if spec.get("plant") == "nshard_drop_rank":
+            plant_nshard_drop_rank(spec["rank"], spec["world"] - 1)
+    try:
+        res = PAR_CASES[spec["case"]](spec)
+        torch.save(res, os.path.join(spec["out"], f"rank{spec['rank']}.pt"))
+    finally:
+        if own_world:
+            torch.distributed.destroy_process_group()
+    return 0
+
+
+def par_world(case: str, n: int, out: str, timeout: float = PAR_TIMEOUT, **extra) -> list:
+    """Run `case` at n ranks (chip_smoke.py --parallel-rank each); their
+    results. A rank's failure or the deadline raises CheckFailed."""
+    import torch
+
+    from deepfepe_tpu_torch.parallel.spawn import WorldFailed, run_world
+
+    os.makedirs(out, exist_ok=True)
+
+    def argv(r, coordinator):
+        spec = {"case": case, "rank": r, "world": n, "coordinator": coordinator, "out": out,
+                **extra}
+        return [sys.executable, os.path.abspath(__file__), "--parallel-rank", json.dumps(spec)]
+
+    try:
+        run_world(argv, n, timeout, cwd=REPO)
+    except WorldFailed as e:
+        raise CheckFailed(f"parallel {case}: {str(e)[-3000:]}") from None
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False) for r in range(n)]
+
+
+class TPEmulation:
+    """The tensor-parallel forward of an ErrorEstimator on one process
+    (`parallel.tp.tp_forward`'s operations in its order): each wide layer
+    as `n` column slices, each its own product and InstanceNorm, then
+    concatenated, so the products run at the shapes the ranks run them."""
+
+    def __init__(self, n: int, layers):
+        self.n, self.layers = n, tuple(layers)
+
+    def forward(self, est, x, train):
+        import torch
+
+        from deepfepe_tpu_torch.models.error_estimator import _linear
+
+        dt = est.dtype
+        acc = torch.promote_types(dt, torch.float32)
+        x = x.to(dt)
+        for i in range(0, len(est.fw) - 1, est.stride):
+            lin, norm = est.fw[i], est.fw[i + est.stride - 2]
+            if i in self.layers:
+                k = lin.out_features // self.n
+                parts = []
+                for j in range(self.n):
+                    sl = slice(j * k, (j + 1) * k)
+                    y = (x @ lin.weight[sl].contiguous().to(dt).T + lin.bias[sl].to(dt)).to(acc)
+                    mean = y.mean(dim=-2, keepdim=True)
+                    var = ((y - mean) ** 2).mean(dim=-2, keepdim=True)
+                    parts.append((y - mean) / torch.sqrt(var + norm.eps) * norm.weight[sl]
+                                 + norm.bias[sl])
+                y = torch.cat(parts, dim=-1)
+            else:
+                y = norm(_linear(x, lin, dt).to(acc))
+            x = torch.nn.functional.leaky_relu(y.to(dt), est.negative_slope)
+        return _linear(x, est.fw[-1], dt).to(acc)
+
+
+def par_flagship_reference(parts: int = 1, tp_parts: int = 1):
+    """The flagship step's loss and gradient (the trained solver) on one
+    process, no process group, on the card: the global batch in `parts`
+    equal micro-batches, the losses and gradients averaged (parts = 2: the
+    rows a rank of the 2-rank worlds takes, so both sides run the same
+    products at the same shapes), the wide MLP layers as `tp_parts` column
+    slices (`TPEmulation`: the products a rank of the (2, 2) mesh runs).
+    The qt loss does not read the sample loss's draws. Returns (loss,
+    gradients by name, the batch)."""
+    import torch
+
+    from deepfepe_tpu_torch.data import SyntheticPairs
+    from deepfepe_tpu_torch.loader import model_loader
+    from deepfepe_tpu_torch.tools import dryrun_multichip as dr
+    from deepfepe_tpu_torch.train import Trainer, compute_losses, load_checkpoint
+    from deepfepe_tpu_torch.utils.device import batch_to_device
+
+    cfg = dr.flagship_config()
+    dev = torch.device("cuda")
+    net = model_loader(cfg, dev, torch.Generator().manual_seed(0), train=True)
+    load_checkpoint(FLAGSHIP_CKPT, net)
+    if tp_parts > 1:
+        for est in (net.input_weights, net.update_weights):
+            est.tp = TPEmulation(tp_parts, [i for i in range(0, len(est.fw) - 1, est.stride)
+                                            if est.fw[i].out_features >= 256])
+    gen = Trainer(net, cfg).sample_generator
+    batch = SyntheticPairs(good_num=dr.FLAGSHIP_N, seed=0).batch(PAR_B)
+    k = PAR_B // parts
+    losses = []
+    for i in range(parts):
+        part = batch_to_device({n: v[i * k:(i + 1) * k] for n, v in batch.items()}, dev)
+        loss, _ = compute_losses(net, part, cfg, 0.1, 0.5, gen)
+        (loss / parts).backward()
+        losses.append(loss.detach())
+    return (float(torch.stack(losses).mean()),
+            {n: p.grad.cpu() for n, p in net.named_parameters()}, batch)
+
+
+def par_cos(a: dict, b: dict) -> float:
+    import torch
+
+    va = torch.cat([a[k].double().reshape(-1) for k in sorted(b)])
+    vb = torch.cat([b[k].double().reshape(-1) for k in sorted(b)])
+    return float(va @ vb / (va.norm() * vb.norm()))
+
+
+def par_check_nshard(ph: Phases, w4: list, batch) -> dict:
+    """The N-sharded fit's F (every rank the same) and gradient against
+    `weighted_eight_point` on the card."""
+    import torch
+
+    from deepfepe_tpu_torch.ops.fmatrix import weighted_eight_point
+
+    p1, p2, w = (x.cuda() for x in par_nshard_inputs(batch))
+    w = w.clone().requires_grad_(True)
+    fit = weighted_eight_point(p1, p2, w)
+    fit.F.abs().sum().backward()
+    F = w4[0]["nshard"]["F"]
+    unit = lambda x: x / x.norm(dim=(-2, -1), keepdim=True)  # noqa: E731
+    a, b = unit(F.double()), unit(fit.F.detach().cpu().double())
+    sign = torch.sign((a * b).sum((-2, -1)))[:, None, None]
+    g = torch.cat([r["nshard"]["grad"] for r in w4], dim=-1).double()
+    gref = w.grad.cpu().double()
+    atol, rtol = PAR_BARS["nshard_grad"]
+    errs = {"F": float((a * sign - b).abs().max()),
+            "grad_excess": float(((g - gref).abs() - (atol + rtol * gref.abs())).max()),
+            "grad_max_abs": float((g - gref).abs().max()),
+            "same_on_ranks": all(torch.equal(r["nshard"]["F"], F) for r in w4)}
+    ph.emit("parallel", path="nshard", ranks=4, errors=errs, bars=PAR_BARS)
+    check(errs["same_on_ranks"] and errs["F"] <= PAR_BARS["nshard_F"]
+          and errs["grad_excess"] <= 0, f"parallel nshard: against weighted_eight_point {errs}")
+    return errs
+
+
+def par_launch_counts(results: list, path: str) -> list:
+    counts = [r[path]["launches"] for r in results]
+    expected = PAR_EXPECTED[path]
+    check(all(c == expected for c in counts),
+          f"parallel {path}: launches a rank {counts}, expected {expected}")
+    return counts
+
+
+def phase_parallel(ph: Phases) -> dict:
+    """The parallel paths (module comment at PAR_B); returns each path's
+    launches a rank."""
+    import re
+
+    import torch
+
+    from deepfepe_tpu_torch import ba as tba
+    from deepfepe_tpu_torch.tools import dryrun_multichip as dr
+
+    root = os.path.join(REPO, "logs", "smoke_parallel")
+    for d in (root, *(os.path.join(REPO, "logs", f"smoke_parallel_{x}")
+                      for x in ("launcher", "reference"))):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(root)
+    launches = {}
+
+    # 1. The one-card deployment: the launcher as a one-rank NCCL job
+    # against train_good without a process group, bit for bit.
+    cfg_path = os.path.join(root, "flagship_f.json")
+    with open(cfg_path, "w") as f:
+        json.dump(par_launch_cfg(), f)
+    t = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:  # the two processes side by side on the card
+        runs = [pool.submit(par_world, case, 1, os.path.join(root, case), config=cfg_path,
+                            exper=f"smoke_parallel_{case}") for case in ("launcher", "reference")]
+        launcher = runs[0].result()
+        runs[1].result()
+    launcher_s = time.perf_counter() - t
+    lines = {exp: [json.loads(ln) for ln in open(os.path.join(
+        REPO, "logs", exp, "metrics.jsonl")) if '"train"' in ln]
+        for exp in ("smoke_parallel_launcher", "smoke_parallel_reference")}
+    same = lines["smoke_parallel_launcher"] == lines["smoke_parallel_reference"]
+    launches["launcher"] = par_launch_counts(launcher, "launcher")
+    ph.emit("parallel", path="launcher", backend="nccl", ranks=1, steps=PAR_LAUNCH_STEPS,
+            losses=[ln["loss"] for ln in lines["smoke_parallel_launcher"]],
+            reference_losses=[ln["loss"] for ln in lines["smoke_parallel_reference"]],
+            bitwise_equal=same, launches=launches["launcher"], world_seconds=launcher_s)
+    check(same and len(lines["smoke_parallel_launcher"]) == PAR_LAUNCH_STEPS,
+          "parallel launcher: the one-rank NCCL run's metrics differ from train_good's")
+
+    # 2. DP at 2 ranks sharing the card (gloo), and the joint step. Held at
+    # the JAX bars against one process taking the same rows a rank
+    # (micro-batches); against one process on all 8 rows at once only
+    # reported: cuBLAS tiles 4,000 and 8,000 rows differently, and the qt
+    # loss, a mean of small rotation errors (0.004), carries float32's
+    # absolute rounding of the quaternions as 6e-5 of its value (PERF.md),
+    # which the CPU, whose products do not depend on the row
+    # count, never shows.
+    ref_loss, ref_grads, batch = par_flagship_reference(parts=2)
+    whole_loss, whole_grads, _ = par_flagship_reference(parts=1)
+    t = time.perf_counter()
+    w2 = par_world("w2", 2, os.path.join(root, "w2"))
+    w2_s = time.perf_counter() - t
+    dp = w2[0]["dp"]
+    cos = par_cos(dp["grads"], ref_grads)
+    rel = abs(dp["loss"] - ref_loss) / abs(ref_loss)
+    launches["dp"] = par_launch_counts(w2, "dp")
+    ph.emit("parallel", path="dp", backend="gloo", ranks=2, global_batch=PAR_B, loss=dp["loss"],
+            reference_loss=ref_loss, loss_rel=rel, grad_cos=cos,
+            whole_batch={"loss": whole_loss,
+                         "loss_rel": abs(dp["loss"] - whole_loss) / abs(whole_loss),
+                         "grad_cos": par_cos(dp["grads"], whole_grads)},
+            launches=launches["dp"], world_seconds=w2_s)
+    check(rel <= PAR_BARS["loss_rtol"] and cos > PAR_BARS["grad_cos"],
+          f"parallel dp: loss {dp['loss']} vs {ref_loss}, gradient cosine {cos}")
+    check(all(torch.equal(r["dp"]["grads"][k], dp["grads"][k]) for r in w2 for k in dp["grads"]),
+          "parallel dp: the ranks' averaged gradients differ")
+    for name in ("joint_frozen", "joint_sync_bn"):
+        launches[name] = par_launch_counts(w2, name)
+        m = [r[name]["metrics"] for r in w2]
+        after = [r[name]["after"] for r in w2]
+        equal = all(torch.equal(a[k], after[0][k]) for a in after for k in after[0])
+        moved = sum(not torch.equal(w2[0][name]["before"][k], after[0][k]) for k in after[0])
+        ph.emit("parallel", path=name, backend="gloo", ranks=2, pairs_a_rank=dr.PAIRS,
+                image=dr.IMAGE, loss=m[0]["loss"], num_matches=m[0]["num_matches"],
+                skipped=m[0]["skipped_update"], bn_buffers=len(after[0]),
+                bn_buffers_moved=moved, bn_buffers_equal_on_ranks=equal,
+                launches=launches[name])
+        check(all(math.isfinite(x["loss"]) and x == m[0] for x in m),
+              f"parallel {name}: metrics {m}")
+        check(equal, f"parallel {name}: BN buffers differ between ranks")
+        if name == "joint_sync_bn":
+            check(moved == len(after[0]), f"parallel {name}: {moved} of {len(after[0])} BN "
+                  "buffers moved")
+        else:
+            check(moved == 0, f"parallel {name}: the frozen SuperPoint's buffers moved")
+
+    # 3. DP x TP, the N-sharded fit and BA at 4 ranks.
+    t = time.perf_counter()
+    w4 = par_world("w4", 4, os.path.join(root, "w4"))
+    w4_s = time.perf_counter() - t
+    # Held against one process running the products at the ranks' shapes
+    # (TPEmulation); against the replicated products only reported: the
+    # half-width products round otherwise, which the qt loss carries as
+    # 2.4e-4 of its value (PERF.md).
+    tp_loss, tp_grads, _ = par_flagship_reference(parts=2, tp_parts=2)
+    rel = abs(w4[0]["dptp"]["loss"] - tp_loss) / abs(tp_loss)
+    cos = par_cos(w4[0]["dptp"]["grads"], tp_grads)
+    launches["dptp"] = par_launch_counts(w4, "dptp")
+    ph.emit("parallel", path="dptp", backend="gloo", ranks=4, mesh=[2, 2],
+            loss=w4[0]["dptp"]["loss"], reference_loss=tp_loss, loss_rel=rel, grad_cos=cos,
+            replicated={"loss": ref_loss, "loss_rel": abs(w4[0]["dptp"]["loss"] - ref_loss)
+                        / abs(ref_loss), "grad_cos": par_cos(w4[0]["dptp"]["grads"], ref_grads)},
+            launches=launches["dptp"], world_seconds=w4_s)
+    check(rel <= PAR_BARS["loss_rtol"] and cos > PAR_BARS["grad_cos"]
+          and all(r["dptp"]["loss"] == w4[0]["dptp"]["loss"] for r in w4),
+          f"parallel dptp: loss {[r['dptp']['loss'] for r in w4]} vs {tp_loss}, gradient "
+          f"cosine {cos}")
+    par_check_nshard(ph, w4, batch)
+    launches["nshard"] = par_launch_counts(w4, "nshard")
+    prob = [x.cuda().double() for x in dr.sqrt_ba_problem(64)]
+    ref, info = tba.ba_step(tba.BAProblem(*prob), damping=1e-4)
+    sq, _ = tba.sqrt_ba_step(tba.BAProblem(*prob), damping=1e-3)
+    g = dr.pose_graph_problem()
+    g = g._replace(**{k: v.cuda() for k, v in g._asdict().items()})
+    pg, mean_r2 = tba.gauss_newton_step(g, damping=1e-6)
+    pg2, _ = tba.optimize_pose_graph_two_stage(g, rot_iters=4, trans_iters=4, damping=1e-6)
+    pts = lambda key: torch.cat([r[key]["points"] for r in w4])  # noqa: E731
+    r0 = w4[0]
+    errs = {"schur_accepted": bool(info["accepted"]),
+            "schur_cost_rel": abs(r0["schur"]["cost"] - float(info["cost"])) / float(info["cost"]),
+            "schur_poses": float((r0["schur"]["poses"] - ref.poses.cpu()).abs().max()),
+            "schur_points_excess": float(((pts("schur") - ref.points.cpu()).abs()
+                                          - PAR_BARS["schur_points"][1]
+                                          - PAR_BARS["schur_points"][0]
+                                          * ref.points.cpu().abs()).max()),
+            "sqrt_poses": float((r0["sqrt"]["poses"] - sq.poses.cpu()).abs().max()),
+            "sqrt_points": float((pts("sqrt") - sq.points.cpu()).abs().max()),
+            "pg_poses": float((r0["pose_graph"]["poses"] - pg.poses.cpu()).abs().max()),
+            "pg_cost_rel": abs(r0["pose_graph"]["cost"] - float(mean_r2) * g.edges.shape[0] * 6)
+            / (float(mean_r2) * g.edges.shape[0] * 6),
+            "pg_two_stage": float((r0["pose_graph"]["two_stage"] - pg2.poses.cpu()).abs().max())}
+    ph.emit("parallel", path="ba", backend="gloo", ranks=4, errors=errs, bars=PAR_BARS,
+            dtypes={"schur": "float64", "sqrt": "float64", "pose_graph": "float32"})
+    check(errs["schur_accepted"] and errs["schur_cost_rel"] <= 1e-5
+          and errs["schur_poses"] <= PAR_BARS["schur_poses"] and errs["schur_points_excess"] <= 0
+          and errs["sqrt_poses"] <= PAR_BARS["sqrt_poses"]
+          and errs["sqrt_points"] <= PAR_BARS["sqrt_points"]
+          and errs["pg_poses"] <= PAR_BARS["pg_poses"] and errs["pg_cost_rel"] <= 1e-5
+          and errs["pg_two_stage"] <= PAR_BARS["pg_two_stage"],
+          f"parallel ba: against the one-device steps {errs}")
+
+    # 4. The dry-run tool at 4 ranks (it starts its own world).
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "deepfepe_tpu_torch.tools.dryrun_multichip", "4",
+                           "--backend", "gloo"], cwd=REPO, capture_output=True, text=True,
+                          timeout=PAR_DRYRUN_TIMEOUT)
+    dry_s = time.perf_counter() - t
+    out_lines = proc.stdout.splitlines()
+    summary = [ln for ln in out_lines if ln.startswith("dryrun_multichip(")]
+    ranks = [json.loads(ln) for ln in out_lines if ln.startswith('{"rank"')]
+    check(proc.returncode == 0 and len(summary) == 1 and len(ranks) == 4,
+          f"parallel dryrun: exit {proc.returncode}: {proc.stdout[-1500:]}{proc.stderr[-1500:]}")
+    launches["dryrun"] = [{k: v for k, v in r["launches"].items() if v}
+                          for r in sorted(ranks, key=lambda r: r["rank"])]
+    ph.emit("parallel", path="dryrun", summary=summary[0], launches=launches["dryrun"],
+            seconds_of_command=dry_s)
+    check(re.search(r"mesh=\(2x2\) .* nshard\[N=1000 ok\] .* sqrt_ba ok .* pose_graph ok", summary[0])
+          is not None, f"parallel dryrun: {summary[0]}")
+    check(all(c == PAR_EXPECTED["dryrun"] for c in launches["dryrun"]),
+          f"parallel dryrun: launches a rank {launches['dryrun']}, "
+          f"expected {PAR_EXPECTED['dryrun']}")
+    return launches
+
+
+def run_planted_parallel(ph: Phases, fault: str) -> int:
+    """--plant nshard_drop_rank: the 4-rank world with the fault planted in
+    its ranks, and the N-sharded fit's check; exits 1 when it caught it."""
+    from deepfepe_tpu_torch.data import SyntheticPairs
+    from deepfepe_tpu_torch.tools import dryrun_multichip as dr
+
+    root = os.path.join(REPO, "logs", "smoke_parallel_plant")
+    shutil.rmtree(root, ignore_errors=True)
+    batch = SyntheticPairs(good_num=dr.FLAGSHIP_N, seed=0).batch(PAR_B)
+    caught = []
+    try:
+        par_check_nshard(ph, par_world("w4", 4, root, plant=fault), batch)
+    except CheckFailed as e:
+        caught.append("parallel_nshard")
+        print(f"chip_smoke: --plant {fault}: parallel_nshard failed: {str(e)[:300]}",
+              file=sys.stderr, flush=True)
+    ph.emit("plant", fault=fault, caught_by=caught)
+    return 1 if caught else 0
+
+
 ALONE_PHASES = {"eval_vo_ba": phase_eval_vo_ba, "eval_good_ba": phase_eval_good_ba,
                 "bench_ba": phase_bench_ba, "vo_pose_graph": phase_vo_pose_graph,
                 "sp_train": phase_sp_train, "sp_finetune": phase_sp_finetune,
@@ -5984,7 +6546,7 @@ ALONE_PHASES = {"eval_vo_ba": phase_eval_vo_ba, "eval_good_ba": phase_eval_good_
                 "vo_superpoint": phase_vo_superpoint, "des_fusion": phase_des_fusion,
                 "dsac": phase_dsac, "jpeg": phase_jpeg, "kitti_sp_dump": phase_kitti_sp_dump,
                 "infer": phase_infer, "val_feature_s2d": phase_val_feature_s2d,
-                "val_pipeline": phase_val_pipeline}
+                "val_pipeline": phase_val_pipeline, "parallel": phase_parallel}
 
 
 def plant(fault: str) -> None:
@@ -6044,6 +6606,8 @@ def run_planted(ph: Phases, fault: str) -> int:
     conv_formulations.cu's, the K5 and K5b kernel checks for conv3x3.cu's,
     the K4 or eigh9 kernel checks for theirs; all of them for 'none'): every check runs and reports; exits 1 when any of
     them caught the fault, 0 when none did."""
+    if fault == "nshard_drop_rank":
+        return run_planted_parallel(ph, fault)
     plant(fault)
     caught = []
     mlp_checks = (("kernels_c_in_5", lambda: mlp_kernel_errors(ph, 5)),
@@ -6086,6 +6650,8 @@ def main(argv=None) -> int:
                     "one profiled window, and print its JSON result (fresh_window)")
     ap.add_argument("--phases", help="a comma list of ALONE_PHASES to run by themselves after "
                     "the build (a quicker look at those paths; no kernels line)")
+    ap.add_argument("--parallel-rank", help="a JSON spec: run one rank of a parallel-phase "
+                    "world (parallel_rank)")
     ap.add_argument("--fresh-windows", action="store_true",
                     help="take every profiled window that a check reads again in a fresh "
                     "process (fresh_window), to exercise each retake")
@@ -6098,6 +6664,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.parallel_rank:
+        return parallel_rank(json.loads(args.parallel_rank))
 
     # Full-precision f32 matmuls on the card, as on the CPU.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6168,6 +6736,7 @@ def main(argv=None) -> int:
         vosp_counts = phase_vo_superpoint(ph)
         des_counts = phase_des_fusion(ph)
         dsac_counts = phase_dsac(ph)
+        par_counts = phase_parallel(ph)
         phase_check_sp(ph)
         phase_check(ph, cfg)
         phase_check_train(ph)
@@ -6215,6 +6784,9 @@ def main(argv=None) -> int:
         r["launches_vo_superpoint"] = vosp_counts[r["name"]]
         r["launches_des_fusion"] = des_counts[r["name"]]
         r["launches_dsac"] = dsac_counts[r["name"]]
+        # Each parallel path's launches of this kernel, one entry a rank.
+        r["launches_parallel"] = {path: [c.get(r["name"], 0) for c in ranks]
+                                  for path, ranks in par_counts.items()}
         if r["launches"] <= 0:
             print(f"chip_smoke: FAILED: {r['name']} never launched on {path}",
                   file=sys.stderr, flush=True)

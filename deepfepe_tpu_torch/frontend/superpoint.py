@@ -37,18 +37,30 @@ float32 (E[x^2] - E[x]^2) and normalizes in `dtype`. `semi` and `desc`
 return in float32 and the descriptor is normalized in float32. float32 runs
 in the parameters' own dtype (the tests raise it to float64), through
 `nn.Conv2d` and `F.batch_norm`.
+
+Under data parallelism `sync_batch_norm(net, group)` makes the train-mode
+BatchNorm take each group's statistics over the data group's ranks (the
+global batch's, as the JAX package's sharded-array BatchNorm takes them):
+the sums are all-reduced (`parallel.mesh.sync_sum`), the normalization is
+applied to each rank's rows, and the running buffers take the same
+update on every rank. float32 sums the squared deviations from the global
+mean (a second all-reduce); a narrower dtype takes E[x^2] - E[x]^2 in
+float32, as its one-device BatchNorm does.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..geometry.basic import safe_norm
 from ..ops.conv import full_f32
+from ..parallel.mesh import sync_sum
 
 BN_EPS = 1e-5
 
@@ -145,6 +157,8 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, groups: int = 1, dtype=torch
                 + bn.bias.to(dtype)[:, None, None])
     if x.shape[0] % groups:
         raise ValueError(f"a batch of {x.shape[0]} does not split into {groups} groups")
+    if getattr(bn, "sync_group", None) is not None:
+        return _sync_batch_norm(bn, x, groups, dtype, update_stats)
     if dtype == torch.float32:
         # A rerun updates throwaway copies: the same operation as the forward's.
         rm, rv = (bn.running_mean, bn.running_var) if update_stats else \
@@ -169,6 +183,52 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, groups: int = 1, dtype=torch
     if update_stats:
         bn.num_batches_tracked.add_(groups)
     return torch.cat(outs) if groups > 1 else outs[0]
+
+
+def _sync_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, groups: int, dtype,
+                     update_stats: bool) -> torch.Tensor:
+    """Train-mode `batch_norm` with each group's statistics over the ranks
+    of `bn.sync_group` (module docstring); the ranks' batches are equal."""
+    group = bn.sync_group
+    native = dtype == torch.float32
+    acc = torch.promote_types(x.dtype, torch.float32) if native else torch.float32
+    xs = x.to(acc).unflatten(0, (groups, -1))  # [g, b, C, H, W]
+    n = xs[0].numel() // xs.shape[2] * dist.get_world_size(group)
+    dims = (1, 3, 4)
+    mean = sync_sum(xs.sum(dims), group) / n  # [g, C]
+    if native:
+        dev = xs - mean[:, None, :, None, None]
+        var = sync_sum((dev * dev).sum(dims), group) / n
+    else:
+        var = sync_sum((xs * xs).sum(dims), group) / n - mean * mean
+    if update_stats:
+        m = bn.momentum
+        with torch.no_grad():
+            for g in range(groups):
+                bn.running_mean.copy_((1.0 - m) * bn.running_mean + m * mean[g])
+                bn.running_var.copy_((1.0 - m) * bn.running_var
+                                     + m * (var[g] * (n / max(n - 1, 1))))
+        bn.num_batches_tracked.add_(groups)
+    cdt = acc if native else dtype
+    mul = torch.rsqrt(var.to(cdt) + bn.eps) * bn.weight.to(cdt)
+    y = ((xs.to(cdt) - mean.to(cdt)[:, None, :, None, None]) * mul[:, None, :, None, None]
+         + bn.bias.to(cdt)[:, None, None])
+    return y.flatten(0, 1).to(x.dtype if native else dtype)
+
+
+@contextlib.contextmanager
+def sync_batch_norm(net: nn.Module, group):
+    """Inside the block the train-mode BatchNorm layers of `net` take their
+    statistics over the ranks of `group` (the rerun of a rematerialized
+    forward included, when the backward runs inside the block)."""
+    bns = [m for m in net.modules() if isinstance(m, nn.BatchNorm2d)]
+    for m in bns:
+        m.sync_group = group
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.sync_group = None
 
 
 class DoubleConv(nn.Module):

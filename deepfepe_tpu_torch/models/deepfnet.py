@@ -33,6 +33,9 @@ epipolar residual) d - 1 times, and its backward as often in a backward;
 with `use_pallas_mlp` (and bfloat16 MLPs, no BatchNorm, C_in <= 128: not
 with `if_des`) K2 once per weight-MLP call (d, plus d - 1 for the learned
 offsets) and K2b as often in a backward.
+
+`data_mesh` (None on one device; the data-parallel trainers set it) makes
+the sample loss draw over the global batch (`sample_fit.draw_subsets`).
 """
 
 from __future__ import annotations
@@ -99,6 +102,7 @@ class DeepFNet(nn.Module):
         if if_learn_offsets:
             self.update_offsets = ErrorEstimator(update_ch, 4, dtype=mlp_dtype,
                                                  use_fused=use_pallas_mlp)
+        self.data_mesh = None
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         for m in (self.input_weights, self.update_weights,
@@ -164,7 +168,7 @@ class DeepFNet(nn.Module):
             if self.if_sample_loss:
                 sf = sample_fit.sample_loss_fits(
                     pts1, pts2, weights, data_batch["matches_good_unique_nums"], generator,
-                    topk=self.SAMPLE_TOPK, selects=self.SAMPLE_SELECTS)
+                    topk=self.SAMPLE_TOPK, selects=self.SAMPLE_SELECTS, mesh=self.data_mesh)
                 sample_F_layers.append(sf["F_samples"])
                 sample_score_layers.append(sf["sample_scores"])
 

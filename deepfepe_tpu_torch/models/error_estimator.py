@@ -20,6 +20,8 @@ matmuls, no BatchNorm, C_in <= 128 and output_size <= 128; otherwise the
 layers run one by one (so DeepFNet's descriptor-fused inputs, C_in 261 and
 264, never reach K2). The parameters are the same either way; the fused
 route never reads the hidden Linear biases, so they get no gradient there.
+`tp` (None unless `parallel.tp.shard_params_tp` sharded the wide layers)
+routes the forward through the tensor-parallel one.
 """
 
 from __future__ import annotations
@@ -112,6 +114,7 @@ class ErrorEstimator(nn.Module):
         layers.append(nn.Linear(c, output_size, bias=not if_bn))
         self.fw = nn.Sequential(*layers)
         self.stride = 4 if if_bn else 3
+        self.tp = None
         self._register_load_state_dict_pre_hook(_drop_conv_kernel_axis)
 
     @torch.no_grad()
@@ -126,6 +129,8 @@ class ErrorEstimator(nn.Module):
                 m.bias.zero_()
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if self.tp is not None:
+            return self.tp.forward(self, x, train)
         if (self.use_fused and not self.if_bn and self.dtype == torch.bfloat16
                 and x.shape[-1] <= MAX_IN and self.output_size <= MAX_IN):
             hidden = [self.fw[i] for i in range(0, len(self.fw) - 1, 3)]

@@ -10,6 +10,7 @@ both packages.
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple
 
@@ -268,9 +269,12 @@ def config_from_dict(raw: dict) -> Config:
 
 
 def load_config(path: str) -> Config:
-    import yaml
-
+    """A YAML config, or a JSON one (`.json`: no YAML reader needed)."""
     with open(path) as f:
+        if str(path).endswith(".json"):
+            return config_from_dict(json.load(f))
+        import yaml
+
         return config_from_dict(yaml.safe_load(f))
 
 

@@ -12,6 +12,14 @@ reference's staircase decay. A non-finite loss or gradient skips the
 whole update (parameters and Adam state, step count included, keep their
 values), as does the skip-optimizer on an already solved batch. The
 sample loss draws its subsets from the caller's generator.
+
+With a `parallel.Mesh` each rank takes its rows of the global batch; every
+loss term is a plain mean over the batch's items, so with equal shards
+the mean of the ranks' losses is the global batch's loss. The step then
+averages the gradients over the data group before anything reads them,
+takes the non-finite and skip decisions from flags reduced over the whole
+world (so every replica steps or none does), and returns the 0-d metrics
+averaged over the data group.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..losses import f_loss, rt_loss
+from ..parallel.mesh import Mesh, all_reduce_grads, any_rank, mean_scalars
 from .config import Config
 
 
@@ -85,11 +94,12 @@ def compute_losses(net, batch: Dict[str, torch.Tensor], cfg: Config, q_clamp: fl
 
 
 def train_step(net, opt: torch.optim.Optimizer, batch: Dict[str, torch.Tensor], cfg: Config,
-               q_clamp: float, t_clamp: float, generator: torch.Generator | None = None
-               ) -> Dict[str, torch.Tensor]:
+               q_clamp: float, t_clamp: float, generator: torch.Generator | None = None,
+               mesh: Mesh | None = None) -> Dict[str, torch.Tensor]:
     """One update of `net` and `opt` in place; returns detached metrics with
     'nonfinite' (and 'skipped' when the skip-optimizer is on). `generator`
-    draws the step's sample-loss subsets."""
+    draws the step's sample-loss subsets; `mesh` makes it a data-parallel
+    step (module docstring)."""
     net.train()
     opt.zero_grad(set_to_none=True)
     loss, metrics = compute_losses(net, batch, cfg, q_clamp, t_clamp, generator)
@@ -101,13 +111,21 @@ def train_step(net, opt: torch.optim.Optimizer, batch: Dict[str, torch.Tensor], 
         # Adam's state matches optax's, which steps every leaf.
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    if mesh is not None:
+        all_reduce_grads(mesh, params)
     ok = torch.isfinite(loss) & torch.stack([torch.isfinite(p.grad).all() for p in params]).all()
-    apply = ok
     metrics = {k: v.detach() for k, v in metrics.items()}
+    min_batch = metrics["loss_min_batch"].min()
+    if mesh is not None:
+        # The world's worst: any rank's non-finite value, the global minimum.
+        flags = any_rank(torch.stack([(~ok).to(min_batch.dtype), -min_batch]))
+        ok, min_batch = flags[0] == 0, -flags[1]
+        metrics = mean_scalars(mesh, metrics)
+    apply = ok
     metrics["nonfinite"] = (~ok).float()
     if cfg.training.skip_optimizer_enable:
         # The batch is already solved (Train_model_pipeline.py:598-639).
-        skip = metrics["loss_min_batch"].min() <= cfg.training.skip_optimizer_epi_min
+        skip = min_batch <= cfg.training.skip_optimizer_epi_min
         apply = apply & ~skip
         metrics["skipped"] = skip
     # One host read of one flag per step decides whether Adam steps.
@@ -119,9 +137,12 @@ def train_step(net, opt: torch.optim.Optimizer, batch: Dict[str, torch.Tensor], 
 
 
 @torch.no_grad()
-def eval_step(net, batch: Dict[str, torch.Tensor], cfg: Config) -> Dict[str, torch.Tensor]:
+def eval_step(net, batch: Dict[str, torch.Tensor], cfg: Config,
+              mesh: Mesh | None = None) -> Dict[str, torch.Tensor]:
     """Forward and losses with the final clamps of the curriculum (the sample
-    loss's subsets drawn from DeepFNet's seed-0 generator)."""
+    loss's subsets drawn from DeepFNet's seed-0 generator); with `mesh` the
+    0-d metrics are the data group's means."""
     t = cfg.training
-    return compute_losses(net, batch, cfg, float(t.clamp_q_params[-1]),
-                          float(t.clamp_t_params[-1]))[1]
+    metrics = compute_losses(net, batch, cfg, float(t.clamp_q_params[-1]),
+                             float(t.clamp_t_params[-1]))[1]
+    return metrics if mesh is None else mean_scalars(mesh, metrics)

@@ -40,17 +40,29 @@ convs, the counterpart of the JAX package's XLA convs: cuDNN on the card
 im2col and a GEMM a layer), PyTorch's CPU conv on the CPU. Its step runs
 under `full_f32` (TF32 and oneDNN off), which leaves cuDNN on
 (`ops.conv.step_convs` picks).
+
+With a `parallel.Mesh` (`mesh`) the step is one rank's of a data-parallel
+step on its rows of the global batch: train-mode BatchNorm takes the
+global batch's statistics (`frontend.superpoint.sync_batch_norm`), so the
+running buffers advance alike on every rank; both nets' gradients are
+averaged over the data group before the norms, the clip and the Adams
+read them; the guard's flags are reduced over the world (any rank's
+non-finite value, the global fewest matches), and the 0-d metrics are
+the data group's means.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Dict
 
 import torch
 
 from ..frontend import FrontendParams, get_matches_from_sp
+from ..frontend.superpoint import sync_batch_norm
 from ..ops.conv import step_convs
+from ..parallel.mesh import Mesh, all_reduce_grads, any_rank, mean_scalars
 from .config import Config
 from .engine import compute_losses, make_optimizer
 
@@ -115,10 +127,12 @@ def _frames(batch):
 
 def joint_train_step(state: JointState, batch: Dict[str, torch.Tensor], fp: FrontendParams,
                      cfg: Config, q_clamp: float, t_clamp: float, train_deepf: bool = True,
-                     train_sp: bool = True, bn_mode: str = "train") -> Dict[str, torch.Tensor]:
+                     train_sp: bool = True, bn_mode: str = "train",
+                     mesh: Mesh | None = None) -> Dict[str, torch.Tensor]:
     """One joint update of `state` in place; returns detached metrics with
     'num_matches', 'min_matches_item', 'g_deepf_norm', 'g_sp_norm' and
-    'skipped_update'. Gradients stay in the parameters' `.grad`."""
+    'skipped_update'. Gradients stay in the parameters' `.grad`. `mesh`:
+    this rank's share of a data-parallel step (module docstring)."""
     if bn_mode not in BN_MODES:
         raise ValueError(f"bn_mode must be one of {BN_MODES}, got {bn_mode!r}")
     deepf_net, sp_net = state.deepf_net, state.sp_net
@@ -132,7 +146,11 @@ def joint_train_step(state: JointState, batch: Dict[str, torch.Tensor], fp: Fron
     sp_params = [p for p in sp_net.parameters() if p.requires_grad]
     for p in (*deepf_params, *sp_params):
         p.grad = None
-    with step_convs(sp_net):
+    sync = mesh is not None and mesh.n_data > 1
+    if mesh is not None:
+        deepf_net.data_mesh = mesh
+    with step_convs(sp_net), (sync_batch_norm(sp_net, mesh.data_group) if sync
+                              else contextlib.nullcontext()):
         sp_out = get_matches_from_sp(sp_net, _frames(batch), fp, bn_train=bn_train)
         loss, metrics = compute_losses(deepf_net, build_solver_batch(sp_out, batch), cfg,
                                        q_clamp, t_clamp)
@@ -146,9 +164,15 @@ def joint_train_step(state: JointState, batch: Dict[str, torch.Tensor], fp: Fron
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["num_matches"] = per_item.mean()
     metrics["min_matches_item"] = per_item.min()
+    finite = torch.isfinite(loss)
+    if mesh is not None:
+        all_reduce_grads(mesh, (*deepf_params, *sp_params))
+        flags = any_rank(torch.stack([(~finite).float(), -metrics["min_matches_item"]]))
+        finite, metrics["min_matches_item"] = flags[0] == 0, -flags[1]
+        metrics = mean_scalars(mesh, metrics)
     metrics["g_deepf_norm"] = global_norm(deepf_params)
     metrics["g_sp_norm"] = global_norm(sp_params)
-    ok = (torch.isfinite(loss) & torch.isfinite(metrics["g_deepf_norm"])
+    ok = (finite & torch.isfinite(metrics["g_deepf_norm"])
           & torch.isfinite(metrics["g_sp_norm"])
           & (metrics["min_matches_item"] >= float(cfg.training.min_matches)))
     metrics["skipped_update"] = (~ok).float()

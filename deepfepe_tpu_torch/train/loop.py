@@ -11,6 +11,14 @@ schema (Train_model_pipeline.py:56-77; the JAX package's
 `save_reference_checkpoint`): n_iter, n_iter_val, model_state_dict in the
 reference Conv1d layout, optimizer_state_dict (the Adam state) and loss.
 `load_checkpoint` also reads the JAX package's flax `.msgpack` files.
+
+With a `parallel.Mesh` (`mesh`) the Trainer is one rank of a data-parallel
+(and, after `parallel.shard_params_tp`, tensor-parallel) run: every rank
+starts from rank 0's parameters, feeds its rows of each global batch,
+takes the data-parallel `train_step` and logs the data group's means;
+only rank 0 writes metrics, tfevents, traces and checkpoints, and a
+tensor-parallel checkpoint is gathered whole first, so every rank calls
+`save` and `validate` alike.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ from typing import Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from ..parallel import tp
+from ..parallel.mesh import Mesh, shard_batch, shard_params
 from ..utils.device import batch_to_device
 from ..utils.weights import MSGPACK, deepfnet_state_from_msgpack, to_cpu, to_reference_layout
 from .config import Config, qt_clamps
@@ -144,22 +154,30 @@ class Trainer:
     generator on that device seeded SAMPLE_SEED (the JAX Trainer's
     'sample' stream seed, its rng_seed 0 + 1); validations draw from
     DeepFNet's seed-0 generator, as the JAX package's use PRNGKey(0). A
-    torch.Generator and jax.random give different draws from one seed."""
+    torch.Generator and jax.random give different draws from one seed.
+    With `mesh` the batches are global host batches (module docstring)."""
 
     SAMPLE_SEED = 1
 
-    def __init__(self, net: torch.nn.Module, cfg: Config, save_dir: Optional[str] = None):
+    def __init__(self, net: torch.nn.Module, cfg: Config, save_dir: Optional[str] = None,
+                 mesh: Optional[Mesh] = None):
         self.net = net
         self.cfg = cfg
         self.save_dir = save_dir
+        self.mesh = mesh
+        self.writes = mesh is None or mesh.rank == 0
         self.device = next(net.parameters()).device
+        if mesh is not None:
+            shard_params(mesh, net)
+            net.data_mesh = mesh
         self.sample_generator = torch.Generator(device=self.device).manual_seed(self.SAMPLE_SEED)
         self.opt = make_optimizer(net, cfg)
         self.n_iter = 0
         self.n_iter_val = 0
-        tb = save_dir and cfg.training.tensorboard
-        self.logger = MetricLogger(os.path.join(save_dir, "metrics.jsonl") if save_dir else None,
-                                   tb_dir=os.path.join(save_dir, "runs") if tb else None)
+        log_dir = save_dir if self.writes else None
+        tb = log_dir and cfg.training.tensorboard
+        self.logger = MetricLogger(os.path.join(log_dir, "metrics.jsonl") if log_dir else None,
+                                   tb_dir=os.path.join(log_dir, "runs") if tb else None)
         self._best_val = float("inf")
         self._vit_accum: Dict[str, float] = {}
         self._vit_count: Optional[int] = None
@@ -176,7 +194,7 @@ class Trainer:
         t0 = time.perf_counter()
         last: Dict = {}
         prof = None
-        want_profile = bool(t.profile_dir)
+        want_profile = bool(t.profile_dir) and self.writes
         for batch in train_stream:
             n_iter = self.n_iter
             if n_iter >= max_iters:
@@ -186,11 +204,11 @@ class Trainer:
             if prof is not None and n_iter == t.profile_start + t.profile_steps:
                 stop_profile(prof, self.device, t.profile_dir)
                 prof, want_profile = None, False  # one capture per fit
-            tb = batch_to_device(batch, self.device)
+            tb = self._to_device(batch)
             metrics = train_step(self.net, self.opt, tb, cfg, *qt_clamps(t, n_iter),
-                                 self.sample_generator)
+                                 self.sample_generator, self.mesh)
             self.n_iter += 1
-            self.logger.log(n_iter, "train", metrics)
+            self._log(n_iter, "train", metrics)
             last = metrics
 
             # Val-in-train telemetry (Train_model_pipeline.py:197-233): every
@@ -201,11 +219,11 @@ class Trainer:
                 if n_iter != 0 and n_iter % vit == 0:
                     self._vit_accum, self._vit_count = {}, 0
                 if self._vit_count is not None:
-                    for k, v in scalars(eval_step(self.net, tb, cfg)).items():
+                    for k, v in scalars(eval_step(self.net, tb, cfg, self.mesh)).items():
                         self._vit_accum[k] = self._vit_accum.get(k, 0.0) + v
                     self._vit_count += 1
                     if self._vit_count > t.val_batches:
-                        self.logger.log(n_iter, "training", {
+                        self._log(n_iter, "training", {
                             k: v / self._vit_count for k, v in self._vit_accum.items()})
                         self._vit_count = None
 
@@ -221,6 +239,16 @@ class Trainer:
         out["wall_s"] = time.perf_counter() - t0
         return out
 
+    def _to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """A host batch on the device: this rank's rows of it under a mesh."""
+        if self.mesh is None:
+            return batch_to_device(batch, self.device)
+        return shard_batch(self.mesh, batch)
+
+    def _log(self, n_iter: int, tag: str, metrics: Dict) -> None:
+        if self.writes:
+            self.logger.log(n_iter, tag, metrics)
+
     def validate(self, val_stream: Iterable[Dict]) -> Dict[str, float]:
         accum: Dict[str, float] = {}
         count, first = 0, None
@@ -228,24 +256,24 @@ class Trainer:
         for i, batch in enumerate(val_stream):
             if limit >= 0 and i >= limit:
                 break
-            tb = batch_to_device(batch, self.device)
+            tb = self._to_device(batch)
             first = first if first is not None else tb
-            for k, v in scalars(eval_step(self.net, tb, self.cfg)).items():
+            for k, v in scalars(eval_step(self.net, tb, self.cfg, self.mesh)).items():
                 accum[k] = accum.get(k, 0.0) + v
             count += 1
         self.n_iter_val += count
         means = {k: v / max(count, 1) for k, v in accum.items()}
-        self.logger.log(self.n_iter, "val", means)
+        self._log(self.n_iter, "val", means)
         vsi = self.cfg.training.val_show_interval
         show = vsi <= 0 or (self.n_iter % vsi) < max(self.cfg.training.val_interval, 1)
-        if self.logger._tb is not None and first is not None and show:
+        # Every rank runs the inspection's forward (its collectives); rank 0 logs it.
+        if self.save_dir and self.cfg.training.tensorboard and first is not None and show:
             self._log_val_inspection(first)
         key = "loss" if "loss" in means else "loss_F"
         if self.save_dir and means.get(key) is not None and means[key] < self._best_val:
             self._best_val = means[key]
-            save_checkpoint(os.path.join(self.save_dir, "checkpoints",
-                                         "deepFNet_best_checkpoint.pth.tar"),
-                            self.net, self.opt, self.n_iter, self.n_iter_val, means[key])
+            self._write(os.path.join(self.save_dir, "checkpoints",
+                                     "deepFNet_best_checkpoint.pth.tar"), self.n_iter, means[key])
         return means
 
     @torch.no_grad()
@@ -264,12 +292,36 @@ class Trainer:
         strip = strip / (strip.max(axis=1, keepdims=True) + 1e-12)
         self.logger.log_image(n, "val/weights_strip", strip.astype(np.float32))
 
+    def _write(self, path: str, n_iter: int, loss: float = 0.0) -> None:
+        """The checkpoint, from rank 0 (gathered whole under tensor
+        parallelism, which takes every rank)."""
+        if self.mesh is not None and tp.sharded_names(self.net):
+            net = _Whole(tp.full_state_dict(self.mesh, self.net))
+            opt = _Whole(tp.full_optimizer_state(self.mesh, self.net, self.opt))
+        else:
+            net, opt = self.net, self.opt
+        if self.writes:
+            save_checkpoint(path, net, opt, n_iter, self.n_iter_val, loss)
+
     def save(self, n_iter: int) -> str:
         path = os.path.join(self.save_dir, "checkpoints", f"deepFNet_{n_iter}_checkpoint.pth.tar")
-        save_checkpoint(path, self.net, self.opt, n_iter, self.n_iter_val)
+        self._write(path, n_iter)
         return path
 
     def restore(self, path: str) -> int:
-        """Parameters, Adam state and n_iter from a checkpoint."""
+        """Parameters, Adam state and n_iter from a checkpoint (into the
+        whole net: before `parallel.shard_params_tp`, which slices both)."""
+        if tp.sharded_names(self.net):
+            raise ValueError("restore into the whole net, then shard it (shard_params_tp)")
         self.n_iter = load_checkpoint(path, self.net, self.opt)
         return self.n_iter
+
+
+class _Whole:
+    """A gathered state dict where `save_checkpoint` takes a net or an Adam."""
+
+    def __init__(self, state: Dict):
+        self._state = state
+
+    def state_dict(self) -> Dict:
+        return self._state

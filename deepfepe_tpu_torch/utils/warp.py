@@ -160,16 +160,16 @@ def warp_perspective(img: np.ndarray, M: np.ndarray, dsize: Tuple[int, int]) -> 
     [dsize[1], dsize[0]] grid (a trailing channel axis is kept).
 
     OpenCV 5's rule, copied step by step: M^-1 is taken in float64 and
-    rounded to float32; each row's m = y m1 + m2 is a float32 product and
-    sum, then X = fma(x, m0, m) and likewise Y and the denominator w; the
-    source point is (X / w, Y / w) in float32; with (ix, iy) its floor and
-    (ax, ay) the rest, the value is lerp(lerp(p00, p01, ax), lerp(p10, p11,
-    ax), ay), each lerp fma(a, q - p, p) in float32, where a neighbour
-    outside the image reads 0. This is bit for bit with cv2 5.0 on every column of its 16-wide
-    vector loop, so on the whole frame where the output width is a
-    multiple of 16 (120x160 frames); cv2's scalar tail (the last width mod
-    16 columns) rounds its coordinates otherwise, up to 2.4e-5 off on noise
-    images. (OpenCV 4 rounded the source point to 1/32 px and took table
+    rounded to float32; cv2 walks each output row in a 16-wide vector loop
+    and a scalar tail (the last width mod 16 columns), which round the
+    source coordinate differently. In the loop each row's m = y m1 + m2 is
+    a float32 product and sum, then X = fma(x, m0, m); in the tail X =
+    fma(x, m0, y m1) + m2; likewise Y and the denominator w. The source
+    point is (X / w, Y / w) in float32; with (ix, iy) its floor and (ax, ay)
+    the rest, the value is lerp(lerp(p00, p01, ax), lerp(p10, p11, ax), ay),
+    each lerp fma(a, q - p, p) in float32, where a neighbour outside the
+    image reads 0. So the whole frame is cv2 5.0's bit for bit at any
+    width. (OpenCV 4 rounded the source point to 1/32 px and took table
     weights instead; a float64 bilinear warp misses 5.0's result by up to
     2e-5 on noise images.)"""
     src = np.asarray(img, np.float32)
@@ -178,8 +178,11 @@ def warp_perspective(img: np.ndarray, M: np.ndarray, dsize: Tuple[int, int]) -> 
     m = np.linalg.inv(np.asarray(M, np.float64)).astype(np.float32)
     ys, xs = np.mgrid[0:Hd, 0:Wd].astype(np.float32)
 
+    tail = xs >= Wd - Wd % 16  # cv2's scalar tail of each row
+
     def row(r):
-        return _fma32(xs, m[r, 0], ys * m[r, 1] + m[r, 2])
+        return np.where(tail, _fma32(xs, m[r, 0], ys * m[r, 1]) + m[r, 2],
+                        _fma32(xs, m[r, 0], ys * m[r, 1] + m[r, 2]))
 
     w = row(2)
     sx, sy = row(0) / w, row(1) / w
