@@ -250,9 +250,24 @@ and for the parallel slice:
            the ranks, all moved); tools/dryrun_multichip at 4 ranks. Each
            world runs in subprocesses (`--parallel-rank`) with its own
            deadline; launches a rank are exact (PAR_EXPECTED).
+and for the SIFT slice:
+  sift     S1-S3 (csrc/sift.cu, csrc/knn2.cu) against their plain twins on
+           the card's pyramids of the committed KITTI frame and two 376x1240
+           synthetic frames (S2a and S2b against their twins on a host copy
+           of the pyramid; S3 bit for bit, planted ties too), the kernel
+           route and the plain route against OpenCV's committed results
+           (tests/fixtures/sift, n_features 2000 and 300,
+           frontend.sift.PARITY_BARS), each kernel timed beside its twin,
+           its bound and (S3) torch.cdist + topk, a full sift_detect of a
+           376x1240 frame timed; the SIFT dump of 8 synthetic 376x1240
+           frames (S1, S2a, S2b 8, S3 7: exact), infer without
+           --pretrained_SP on two JPEG frames (S1-S2b 2, S3 1, eigh9 5, K3
+           4; the card against the CPU) and tools/dump_workflow at 376x1240
+           cut in depth (22 frames, 18 pairs, 2 steps).
 
 The line before the card's name line is the kernels' JSON summary (eigh9,
-K2, K2b, K5, K4, K5b, K3 and its backward, X1-X4, the bf16 K5 and K5b, each
+K2, K2b, K5, K4, K5b, K3 and its backward, X1-X4, the bf16 K5 and K5b,
+S1, S2a, S2b and S3, each
 with its launches
 on the path that carries it and on every other path, and a rank's on each
 parallel path); the last line is {"ok": true, "device":
@@ -284,7 +299,7 @@ readings the bars are set against.
     python3 chip_smoke.py --phases eval_vo_ba,bench_ba
 
 builds and runs only the named phases of ALONE_PHASES (the BA slice's, the
-SuperPoint training slice's and the joint recipe slice's),
+SuperPoint training slice's, the joint recipe slice's, `sift`, ...),
 a quicker look at those paths; it prints no kernels line.
 
     python3 chip_smoke.py --window '["NAME", ARG, ...]'
@@ -318,9 +333,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 SOURCES = ("eigh9.cu", "mlp.cu", "conv3x3.cu", "matcher.cu", "epi_residual.cu",
-           "conv_formulations.cu", "conv3x3_bf16.cu")
+           "conv_formulations.cu", "conv3x3_bf16.cu", "sift.cu", "knn2.cu")
 
 # The synthetic_baseline.yaml values, built in code (no YAML reader needed).
 BASELINE = {
@@ -1230,8 +1246,10 @@ def kernel_counters():
                                                   conv3x3_affine_relu_bwd_bf16)
     from deepfepe_tpu_torch.ops.eigh9 import eigh9
     from deepfepe_tpu_torch.ops.epi_residual import epi_residual, epi_residual_bwd
+    from deepfepe_tpu_torch.ops.knn2 import knn2
     from deepfepe_tpu_torch.ops.matcher import mutual_nn_kernel
     from deepfepe_tpu_torch.ops.mlp import mlp_backward, mlp_forward
+    from deepfepe_tpu_torch.ops.sift import sift_descriptor, sift_extrema, sift_orientation
 
     return {"eigh9": eigh9, "mlp_forward": mlp_forward, "mlp_backward": mlp_backward,
             "conv3x3_affine_relu": conv3x3_affine_relu,
@@ -1241,7 +1259,9 @@ def kernel_counters():
             "mutual_nn_kernel": mutual_nn_kernel, "epi_residual": epi_residual,
             "epi_residual_bwd": epi_residual_bwd, "conv_strip": cf.conv_strip,
             "conv_strip_async": cf.conv_strip_async, "conv_tile2d": cf.conv_tile2d,
-            "conv_s2d": cf.conv_s2d}
+            "conv_s2d": cf.conv_s2d, "sift_extrema": sift_extrema,
+            "sift_orientation": sift_orientation, "sift_descriptor": sift_descriptor,
+            "knn2": knn2}
 
 
 def reset_counts() -> None:
@@ -6538,6 +6558,456 @@ def run_planted_parallel(ph: Phases, fault: str) -> int:
     return 1 if caught else 0
 
 
+# The SIFT frontend (S1 sift_extrema, S2a sift_orientation, S2b
+# sift_descriptor in csrc/sift.cu; S3 knn2 in csrc/knn2.cu), which stands in
+# for the JAX package's OpenCV SIFT and BFMatcher. The frames: the committed
+# KITTI frame and two 376x1240 SyntheticImageSequence frames (seed 1, 400
+# corners) with OpenCV's results at n_features 2000 and 300
+# (tests/fixtures/sift, written by its make_fixtures.py).
+SIFT_FIXTURES = os.path.join(REPO, "tests", "fixtures", "sift")
+SIFT_DEVICE = "cuda"  # the card (a CPU rehearsal of the phase's host logic sets "cpu")
+SIFT_FRAMES = ("kitti", "synthetic0", "synthetic1")
+SIFT_N = (2000, 300)
+SIFT_ROWS = {"sift_extrema": ("S1", "sift.cu", "deepfepe_tpu/data/dump_kitti.py:37"),
+             "sift_orientation": ("S2a", "sift.cu", "deepfepe_tpu/data/dump_kitti.py:37"),
+             "sift_descriptor": ("S2b", "sift.cu", "deepfepe_tpu/data/dump_kitti.py:37"),
+             "knn2": ("S3", "knn2.cu", "deepfepe_tpu/data/dump_kitti.py:56")}
+# The SIFT dump: 8 frames, S1, S2a and S2b once a frame, S3 once a pair.
+SIFT_DUMP = {"frames": 8, "image_size": (376, 1240), "focal": 718.856, "n_corners": 400,
+             "seed": 4}
+# infer without --pretrained_SP: SIFT on both frames, one S3 match, the
+# solver's five fits (eigh9 5) and four residual feedbacks (K3 4).
+SIFT_INFER_LAUNCHES = {"sift_extrema": 2, "sift_orientation": 2, "sift_descriptor": 2,
+                       "knn2": 1, "eigh9": 5, "epi_residual": 4}
+# tools/dump_workflow at the full frame, cut in depth: 4 frames a train
+# scene, 10 test frames, 2 F-loss steps.
+SIFT_WORKFLOW_ARGS = ["--train_frames", "12", "--test_frames", "10", "--train_iter", "2",
+                      "--image", "376", "1240", "--n_corners", "400"]
+SIFT_WORKFLOW_FRAMES, SIFT_WORKFLOW_PAIRS = 3 * 4 + 10, 3 * 3 + 9
+# Operations a window sample (S2a: the gradient, fastAtan2, the magnitude,
+# the weight and its bin; S2b: the rotation, the gradient, fastAtan2, the
+# magnitude, the weight and the eight trilinear shares), a tested DoG pixel
+# (S1: 26 comparisons) and a refined candidate (S1: five Newton steps'
+# differences and solves, about 150 each). Counted on FP32's 67 TFLOP/s.
+SIFT_OPS = {"s2a_sample": 27, "s2b_sample": 63, "s1_pixel": 26, "s1_candidate": 750}
+SIFT_INFER_BARS = {"matches_rel": 0.02, "R": 2e-3}
+
+
+def sift_frames() -> dict:
+    from deepfepe_tpu_torch.utils.image_io import read_grey
+
+    return {f: read_grey(os.path.join(SIFT_FIXTURES, f"{f}.png")) for f in SIFT_FRAMES}
+
+
+def sift_plain_route(img, n: int):
+    """The plain twins composed as `detect_and_compute` composes the kernels,
+    on the card's tensors."""
+    import torch
+
+    from deepfepe_tpu_torch.frontend import sift
+    from deepfepe_tpu_torch.ops import sift as sift_ops
+
+    with torch.no_grad():
+        pyr = sift.build_pyramid(torch.as_tensor(img, device=SIFT_DEVICE))
+        o = sift.orientation_plain(pyr, sift.extrema_plain(pyr))
+        kp = sift.half_scale(o.kp[sift_ops.order_keypoints(o.kp, n)])
+        return kp, sift.descriptor_plain(pyr, kp)
+
+
+def window_bytes(pyr, octave, layer, cy, cx, radius) -> int:
+    """4 x the pixels of the Gaussian layers that windows of `radius` (+1 for
+    the gradients) around the keypoints cover, each pixel counted once."""
+    import torch
+
+    seen = torch.zeros(pyr.gauss.numel(), dtype=torch.bool, device=pyr.gauss.device)
+    rows = torch.as_tensor(pyr.rows, device=seen.device)[octave]
+    cols = torch.as_tensor(pyr.cols, device=seen.device)[octave]
+    base = torch.as_tensor(pyr.g_off, device=seen.device)[octave] + layer * rows * cols
+    for s in range(0, len(octave), 256):
+        sl = slice(s, s + 256)
+        R = int(radius[sl].max()) + 1
+        off = torch.arange(-R, R + 1, device=seen.device)
+        y = (cy[sl, None] + off[None]).clamp(min=0)
+        x = (cx[sl, None] + off[None]).clamp(min=0)
+        y = torch.minimum(y, rows[sl, None] - 1)
+        x = torch.minimum(x, cols[sl, None] - 1)
+        inside = off[None].abs() <= radius[sl, None] + 1
+        idx = base[sl, None, None] + y[:, :, None] * cols[sl, None, None] + x[:, None, :]
+        keep = inside[:, :, None] & inside[:, None, :]
+        seen[idx[keep]] = True
+    return 4 * int(seen.sum())
+
+
+def sift_bounds(pyr, cands, oriented, kp, n1: int, n2: int) -> dict:
+    """Each kernel's least time on the card for this frame's work: bytes
+    (each input read once, each output written once) over 3.35 TB/s and
+    operations over their route's peak, the larger of the two. S1-S2b:
+    SIFT_OPS over 67 TFLOP/s (FP32). S3: the n1 n2 128 multiply-adds of
+    |a|^2 + |b|^2 - 2 a.b (the norms are O(n)); descriptors hold integers
+    0-255, so one pass of u8 tensor-core products with int32 sums (1,979
+    TOP/s) is exact, the fastest exact route (one bf16 pass at 989 TFLOP/s
+    is exact too; the pair's add and compare on the CUDA cores run beside
+    it in less)."""
+    import torch
+
+    from deepfepe_tpu_torch.frontend import sift
+    from deepfepe_tpu_torch.ops import sift as sift_ops
+
+    def bound(nbytes, ops, peak=PEAK_FP32_FLOPS):
+        b, o = nbytes / PEAK_BYTES_PER_S * 1e3, ops / peak * 1e3
+        return {"bound_ms": max(b, o), "bound_by": "bytes" if b >= o else "operations"}
+
+    octv = (cands.idx[:, 0] & 255).long()
+    scl = cands.kp[:, 2] * 0.5 / torch.pow(2.0, octv.float())
+    r_ori = torch.round(scl * 4.5).long()
+    geo = sift.descriptor_geometry(pyr, kp)
+    ori_samples = int(((2 * r_ori + 1) ** 2).sum())
+    desc_samples = int(((2 * geo["radius"] + 1) ** 2).sum())
+    return {
+        "sift_extrema": bound(pyr.dog.numel() * 4 + len(cands) * 36,
+                              SIFT_OPS["s1_pixel"] * sift_ops.tested_pixels(pyr)
+                              + SIFT_OPS["s1_candidate"] * len(cands)),
+        "sift_orientation": bound(window_bytes(pyr, octv, cands.idx[:, 1].long(),
+                                               cands.idx[:, 2].long(), cands.idx[:, 3].long(),
+                                               r_ori) + len(cands) * 36 + len(oriented) * 28,
+                                  SIFT_OPS["s2a_sample"] * ori_samples),
+        "sift_descriptor": bound(window_bytes(pyr, geo["oct"], geo["layer"], geo["cy"],
+                                              geo["cx"], geo["radius"])
+                                 + len(kp) * (24 + 512), SIFT_OPS["s2b_sample"] * desc_samples),
+        "knn2": bound((n1 + n2) * 512 + n1 * 16, 2 * n1 * n2 * 128, PEAK_INT8_OPS),
+    }
+
+
+def sift_kernel_case(frames: dict, timed: bool) -> dict:
+    """S1-S3 against their plain twins on the card's pyramid of each frame:
+    S1 against its twin on the card, S2a and S2b against theirs on a host
+    copy of the pyramid (on the card the twins sum their histograms with
+    `scatter_add_`, whose atomics add in no fixed order, so a peak near
+    0.8 of the maximum could come and go; on the CPU they sum in raster
+    order, the kernels' order). With `timed`, each kernel and twin timed on
+    synthetic1 (the most keypoints), beside its bound and yardstick."""
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch.frontend import sift
+    from deepfepe_tpu_torch.ops import knn2 as knn2_ops
+    from deepfepe_tpu_torch.ops import sift as sift_ops
+
+    errs = {k: 0.0 for k in SIFT_ROWS}
+    detail, timing, descs = {}, {}, {}
+    for name, img in frames.items():
+        with torch.no_grad():
+            pyr = sift.build_pyramid(torch.as_tensor(img, device=SIFT_DEVICE))
+            c_k, c_p = sift_ops.sift_extrema(pyr), sift.extrema_plain(pyr)
+            check(len(c_k) == len(c_p) > 0 and torch.equal(c_k.idx, c_p.idx),
+                  f"sift {name}: S1's candidates {len(c_k)} against the plain twin's {len(c_p)}")
+            e1 = float(((c_k.kp - c_p.kp).abs() / c_p.kp.abs().clamp(min=1e-30)).max())
+            host = pyr.to("cpu")
+            o_k = sift_ops.sift_orientation(pyr, c_p).to("cpu")
+            o_p = sift.orientation_plain(host, c_p.to("cpu"))
+            check(len(o_k) == len(o_p) and torch.equal(o_k.src, o_p.src),
+                  f"sift {name}: S2a's keypoints {len(o_k)} against the twin's {len(o_p)}")
+            da = (o_k.kp[:, 3] - o_p.kp[:, 3]).abs()
+            e2 = float(torch.minimum(da, 360 - da).max()) if len(da) else 0.0
+            kp = sift.half_scale(o_p.kp[sift_ops.order_keypoints(o_p.kp, 2000)])
+            d_k = sift_ops.sift_descriptor(pyr, kp.to(SIFT_DEVICE)).cpu()
+            d_p = sift.descriptor_plain(host, kp)
+            diff = (d_k - d_p).abs()
+            e3 = float(diff.max())
+            same_rows = float((diff.amax(1) == 0).float().mean())
+        check(e1 <= 1e-6 and e2 <= 1e-3 and e3 <= 1 and same_rows >= 0.99,
+              f"sift {name}: kernels against plain twins: S1 rel {e1}, S2a {e2} deg, S2b {e3} "
+              f"({same_rows} rows equal)")
+        errs["sift_extrema"] = max(errs["sift_extrema"], e1)
+        errs["sift_orientation"] = max(errs["sift_orientation"], e2)
+        errs["sift_descriptor"] = max(errs["sift_descriptor"], e3)
+        detail[name] = {"candidates": len(c_k), "oriented": len(o_k), "kept": len(kp),
+                        "s2b_rows_equal": same_rows}
+        descs[name] = d_p.to(SIFT_DEVICE)
+        if timed and name == "synthetic1":
+            timing = sift_timings(pyr, c_p, o_k.to(SIFT_DEVICE), kp.to(SIFT_DEVICE),
+                                  descs["synthetic0"], descs[name])
+    # S3 bit for bit on two frames' descriptors, then with planted ties.
+    d1, d2 = descs["synthetic0"], descs["synthetic1"]
+    tie = d2.clone()
+    tie[255:258] = tie[100]
+    q = torch.cat([tie[100:101].repeat(4, 1), d1])
+    for a, b in ((d1, d2), (q, tie)):
+        nn, dist = knn2_ops.knn2(a, b)
+        nn_p, dist_p = knn2_ops.knn2_plain(a.cpu(), b.cpu())
+        errs["knn2"] = max(errs["knn2"], float((dist.cpu() - dist_p).abs().max()))
+        wrong = int((nn.cpu() != nn_p).sum())
+        check(wrong == 0 and torch.equal(dist.cpu(), dist_p),
+              f"sift: S3 differs from its plain twin ({wrong} indices, distances "
+              f"{errs['knn2']} apart)")
+    check(nn[0].tolist() == [100, 255], f"sift: S3's tie order {nn[0].tolist()}")
+    return {"max_abs_err": errs, "frames": detail, "timing": timing}
+
+
+def sift_timings(pyr, cands, oriented, kp, d1, d2) -> dict:
+    """Kernel ms (CUDA events over back-to-back raw launches, counters
+    untouched), the plain twin's ms, the yardstick's and the bound."""
+    import torch
+
+    from deepfepe_tpu_torch.frontend import sift
+    from deepfepe_tpu_torch.ops import knn2 as knn2_ops
+    from deepfepe_tpu_torch.ops import sift as sift_ops
+
+    lib, klib = sift_ops._load(), knn2_ops._load()
+    table = pyr.table()
+    stream = torch.cuda.current_stream().cuda_stream
+    cap = sift_ops.extrema_capacity(pyr)
+    buf_kp = torch.empty((cap, 4), device=SIFT_DEVICE)
+    buf_idx = torch.empty((cap, 5), dtype=torch.int32, device=SIFT_DEVICE)
+    count = torch.zeros(1, dtype=torch.int32, device=SIFT_DEVICE)
+    ocap = len(cands) * sift.MAX_PEAKS
+    okp = torch.empty((ocap, 6), device=SIFT_DEVICE)
+    osrc = torch.empty((ocap,), dtype=torch.int32, device=SIFT_DEVICE)
+    des = torch.empty((len(kp), 128), device=SIFT_DEVICE)
+    n1, n2 = d1.shape[0], d2.shape[0]
+    nn = torch.empty((n1, 2), dtype=torch.int32, device=SIFT_DEVICE)
+    dist = torch.empty((n1, 2), device=SIFT_DEVICE)
+    scratch = torch.empty(klib.knn2_scratch_bytes(n1, n2), dtype=torch.uint8, device=SIFT_DEVICE)
+
+    def s1():
+        count.zero_()
+        lib.sift_extrema(pyr.dog.data_ptr(), table.ctypes.data, pyr.n_octaves, buf_kp.data_ptr(),
+                         buf_idx.data_ptr(), count.data_ptr(), cap, stream)
+
+    def s2a():
+        count.zero_()
+        lib.sift_orientation(pyr.gauss.data_ptr(), table.ctypes.data, pyr.n_octaves,
+                             cands.kp.data_ptr(), cands.idx.data_ptr(), len(cands), okp.data_ptr(),
+                             osrc.data_ptr(), count.data_ptr(), ocap, stream)
+
+    def s2b():
+        lib.sift_descriptor(pyr.gauss.data_ptr(), table.ctypes.data, pyr.n_octaves,
+                            kp.data_ptr(), len(kp), des.data_ptr(), stream)
+
+    def s3():
+        klib.knn2_f32(d1.data_ptr(), d2.data_ptr(), n1, n2, nn.data_ptr(), dist.data_ptr(),
+                      scratch.data_ptr(), stream)
+
+    def yard():
+        torch.cdist(d1, d2).topk(2, dim=1, largest=False)
+
+    with torch.no_grad():
+        out = {"sift_extrema": {"ms": cuda_time_ms(s1, 20) - cuda_time_ms(count.zero_, 20),
+                                "plain_ms": cuda_time_ms(lambda: sift.extrema_plain(pyr), 3),
+                                "library_ms": None},
+               "sift_orientation": {"ms": cuda_time_ms(s2a, 20) - cuda_time_ms(count.zero_, 20),
+                                    "plain_ms": cuda_time_ms(
+                                        lambda: sift.orientation_plain(pyr, cands), 3),
+                                    "library_ms": None},
+               "sift_descriptor": {"ms": cuda_time_ms(s2b, 20),
+                                   "plain_ms": cuda_time_ms(
+                                       lambda: sift.descriptor_plain(pyr, kp), 3),
+                                   "library_ms": None},
+               "knn2": {"ms": cuda_time_ms(s3, 50),
+                        "plain_ms": cuda_time_ms(lambda: knn2_ops.knn2_plain(d1, d2), 10),
+                        "library_ms": cuda_time_ms(yard, 50)}}
+    bounds = sift_bounds(pyr, cands, oriented, kp, n1, n2)
+    for k in out:
+        out[k].update(bounds[k])
+    out["shapes"] = {"candidates": len(cands), "oriented": len(oriented), "kept": len(kp),
+                     "knn2": [n1, n2], "pyramid_octaves": pyr.n_octaves}
+    return out
+
+
+def sift_against_cv2(frames: dict) -> dict:
+    """Both routes (the kernels, and the plain twins on the card) against
+    OpenCV's committed results, at frontend.sift.PARITY_BARS."""
+    import numpy as np
+
+    from deepfepe_tpu_torch.frontend import sift
+
+    out = {}
+    for name, img in frames.items():
+        for n in SIFT_N:
+            z = np.load(os.path.join(SIFT_FIXTURES, f"{name}_{n}.npz"))
+            want_kp, want_des = z["kp"], z["des"].astype(np.float32)
+            for route, fn in (("kernels", lambda: sift.detect_and_compute(img, n, SIFT_DEVICE)),
+                              ("plain", lambda: sift_plain_route(img, n))):
+                kp, des = fn()
+                r = sift.compare_keypoints(kp.cpu().numpy(), des.cpu().numpy(), want_kp,
+                                           want_des)
+                out[f"{name}_{n}_{route}"] = r
+                check(r["ok"], f"sift {name} n={n} {route} route against OpenCV: {r}")
+    return out
+
+
+def sift_detect_ms(img, reps: int = 5) -> float:
+    """Host ms a full `sift_detect` of one frame, warm, ending in a sync."""
+    import torch
+
+    from deepfepe_tpu_torch.data.dump_kitti import sift_detect
+
+    sift_detect(img, 2000, device=SIFT_DEVICE)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sift_detect(img, 2000, device=SIFT_DEVICE)
+        times.append((time.perf_counter() - t) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def sift_dump_run(root: str) -> tuple:
+    """`dump_sequence` of SIFT_DUMP's frames (PNG) with exact launches;
+    returns (launch counts, frames/s)."""
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch.data import SyntheticImageSequence
+    from deepfepe_tpu_torch.data.dump_kitti import dump_sequence
+    from deepfepe_tpu_torch.utils.image_io import write_png
+
+    seq = SyntheticImageSequence(n_frames=SIFT_DUMP["frames"],
+                                 image_size=SIFT_DUMP["image_size"], focal=SIFT_DUMP["focal"],
+                                 n_corners=SIFT_DUMP["n_corners"], seed=SIFT_DUMP["seed"])
+    files = []
+    for k in range(SIFT_DUMP["frames"]):
+        files.append(os.path.join(root, f"frame_{k}.png"))
+        write_png(files[-1], np.rint(seq.frame(k) * 255).astype(np.uint8))
+    out = os.path.join(root, "00")
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    dump_sequence(files, seq.cam2world_poses(), seq.K, out, device=SIFT_DEVICE)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    counts = read_counts()
+    n, pairs = SIFT_DUMP["frames"], SIFT_DUMP["frames"] - 1
+    expected = {k: (n if k.startswith("sift_") else pairs if k == "knn2" else 0) for k in counts}
+    check(counts == expected, f"sift dump: launches {counts}, expected {expected}")
+    good = [np.load(os.path.join(out, f"ij_match_quality_{i}-{i + 1}_good.npy"))
+            for i in range(pairs)]
+    check(all(len(g) >= 100 and np.isfinite(g).all() for g in good),
+          f"sift dump: good matches a pair {[len(g) for g in good]}")
+    return counts, n / secs, [len(g) for g in good]
+
+
+def sift_infer(root: str) -> tuple:
+    """infer without --pretrained_SP on two JPEG frames with the flagship
+    solver: launches around one call, the card against the CPU (the match
+    count within 2%), and the CPU's solver on the card's matches (R within
+    2e-3). Returns (launch counts, report)."""
+    import numpy as np
+    import torch
+
+    from deepfepe_tpu_torch import cli
+
+    paths, K = write_infer_frames(root)
+    kw = dict(pretrained=FLAGSHIP_CKPT, K=f"{K[0, 0]},{K[1, 1]},{K[0, 2]},{K[1, 2]}",
+              good_num=INFER["K"], device=SIFT_DEVICE)
+    kept = {}
+    real = cli.match_pair
+
+    def keep(*a, **k):
+        kept.setdefault("m", real(*a, **k))
+        return kept["m"]
+
+    reset_counts()
+    cli.match_pair = keep
+    try:
+        out = cli.infer(*paths, **kw)
+    finally:
+        cli.match_pair = real
+    torch.cuda.synchronize()
+    counts = read_counts()
+    t = time.perf_counter()
+    cli.infer(*paths, **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    cpu = cli.infer(*paths, **{**kw, "device": "cpu"})
+    cli.match_pair = lambda *a, **k: kept["m"]
+    try:
+        replay = cli.infer(*paths, **{**kw, "device": "cpu"})
+    finally:
+        cli.match_pair = real
+    expected = {k: SIFT_INFER_LAUNCHES.get(k, 0) for k in counts}
+    gaps = {"num_matches": abs(out["num_matches"] - cpu["num_matches"]),
+            "R": float(np.abs(np.asarray(out["R"]) - np.asarray(cpu["R"])).max()),
+            "replay_R": float(np.abs(np.asarray(out["R"]) - np.asarray(replay["R"])).max())}
+    check(counts == expected, f"sift infer: launches {counts}, expected {expected}")
+    check(out["frontend"] == "sift" and out["num_matches"] >= 8, f"sift infer: {out}")
+    check(gaps["num_matches"] <= SIFT_INFER_BARS["matches_rel"] * cpu["num_matches"]
+          and gaps["replay_R"] <= SIFT_INFER_BARS["R"],
+          f"sift infer: card against CPU {gaps}")
+    R = np.asarray(out["R"])
+    check(np.abs(R @ R.T - np.eye(3)).max() < 1e-9 and all(
+        np.isfinite(np.asarray(out[k])).all() for k in ("R", "t_unit", "E")),
+        f"sift infer: not a pose {out}")
+    return counts, {"result": out, "cpu_result": cpu, "card_vs_cpu": gaps, "ms": ms,
+                    "bars": SIFT_INFER_BARS}
+
+
+def sift_workflow(root: str) -> tuple:
+    """tools/dump_workflow at 376x1240, cut in depth, with its launches."""
+    import torch
+
+    from deepfepe_tpu_torch.tools import dump_workflow
+
+    reset_counts()
+    t = time.perf_counter()
+    summary = dump_workflow.main(["--out", os.path.join(root, "dw"), *SIFT_WORKFLOW_ARGS,
+                                  "--device", SIFT_DEVICE])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    counts = read_counts()
+    for k, want in (("sift_extrema", SIFT_WORKFLOW_FRAMES), ("sift_orientation",
+                                                          SIFT_WORKFLOW_FRAMES),
+                    ("sift_descriptor", SIFT_WORKFLOW_FRAMES), ("knn2", SIFT_WORKFLOW_PAIRS)):
+        check(counts[k] == want, f"dump_workflow: {k} launched {counts[k]} times, not {want}")
+    check(counts["eigh9"] > 0 and counts["epi_residual"] > 0,
+          f"dump_workflow: the solver's kernels did not launch {counts}")
+    ev = summary["eval_good"]
+    check(ev["pairs"] == 9 and ev["median_err_q_gt"] < 1e-3 and math.isfinite(ev["median_err_q"])
+          and all(math.isfinite(summary[k]["trans_err_pct"]) for k in ("vo_net", "vo_base")),
+          f"dump_workflow: {summary}")
+    return counts, {"seconds": secs, "eval_good": ev,
+                    "vo_net": {k: summary["vo_net"][k] for k in ("trans_err_pct", "n_pairs")},
+                    "vo_base": {k: summary["vo_base"][k] for k in ("trans_err_pct", "n_pairs")}}
+
+
+def phase_sift(ph: Phases) -> dict:
+    """The SIFT frontend on the card: S1-S3 against their plain twins, both
+    routes against OpenCV's committed results, the kernels timed, a full
+    frame's sift_detect timed, the SIFT dump of SIFT_DUMP's frames, infer
+    without --pretrained_SP against the CPU, and tools/dump_workflow at
+    376x1240. Returns (the kernel rows S1-S3, {path: launch counts})."""
+    import tempfile
+
+    frames = sift_frames()
+    kernels = sift_kernel_case(frames, timed=True)
+    parity = sift_against_cv2(frames)
+    detect_ms = sift_detect_ms(frames["synthetic1"])
+    with tempfile.TemporaryDirectory(prefix="smoke_sift_") as root:
+        dump_counts, fps, good = sift_dump_run(root)
+        infer_counts, infer_rep = sift_infer(root)
+        wf_counts, wf_rep = sift_workflow(root)
+    rows = []
+    for name, (tag, src, replaces) in SIFT_ROWS.items():
+        t = kernels["timing"][name]
+        rows.append({"name": name, "kernel": tag, "route": "cuda",
+                     "source": f"deepfepe_tpu_torch/csrc/{src}", "replaces": replaces,
+                     "max_abs_err": kernels["max_abs_err"][name], "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                     "library": "torch.cdist + topk" if name == "knn2" else None})
+    ph.emit("sift", kernels=kernels, parity={k: {m: v[m] for m in ("n_a", "n_b", "paired_a",
+                                                                   "paired_b", "desc_rows",
+                                                                   "desc_max", "xy_exact")}
+                                             for k, v in parity.items()},
+            sift_detect_ms_per_frame=detect_ms, frame="376x1240 (synthetic1), n_features 2000",
+            dump={"launches": dump_counts, "frames_per_s": fps, "good_per_pair": good,
+                  **SIFT_DUMP},
+            infer={"launches": infer_counts, **infer_rep},
+            dump_workflow={"launches": wf_counts, **wf_rep})
+    return rows, {"sift_dump": dump_counts, "infer_sift": infer_counts,
+                  "dump_workflow": wf_counts}
+
+
 ALONE_PHASES = {"eval_vo_ba": phase_eval_vo_ba, "eval_good_ba": phase_eval_good_ba,
                 "bench_ba": phase_bench_ba, "vo_pose_graph": phase_vo_pose_graph,
                 "sp_train": phase_sp_train, "sp_finetune": phase_sp_finetune,
@@ -6546,7 +7016,8 @@ ALONE_PHASES = {"eval_vo_ba": phase_eval_vo_ba, "eval_good_ba": phase_eval_good_
                 "vo_superpoint": phase_vo_superpoint, "des_fusion": phase_des_fusion,
                 "dsac": phase_dsac, "jpeg": phase_jpeg, "kitti_sp_dump": phase_kitti_sp_dump,
                 "infer": phase_infer, "val_feature_s2d": phase_val_feature_s2d,
-                "val_pipeline": phase_val_pipeline, "parallel": phase_parallel}
+                "val_pipeline": phase_val_pipeline, "parallel": phase_parallel,
+                "sift": phase_sift}
 
 
 def plant(fault: str) -> None:
@@ -6595,7 +7066,7 @@ def plant_source(fault: str) -> None:
     cu, so = os.path.join(tmp, mod.SOURCE), os.path.join(tmp, f"{name}.so")
     with open(cu, "w") as f:
         f.write(src.replace(line, changed))
-    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", so, cu], check=True,
+    subprocess.run([build.find_nvcc(), *build.flags(mod.SOURCE), "-o", so, cu], check=True,
                    capture_output=True)
     mod._lib = mod.bind(ctypes.CDLL(so))
 
@@ -6724,6 +7195,7 @@ def main(argv=None) -> int:
         vo_counts = phase_eval_vo(ph)
         infer_counts = phase_infer(ph)
         vp_counts = phase_val_pipeline(ph)
+        sift_rows, sift_counts = phase_sift(ph)
         vo_ba_counts = phase_eval_vo_ba(ph)
         eval_good_ba_counts = phase_eval_good_ba(ph)
         phase_bench_ba(ph)
@@ -6746,14 +7218,15 @@ def main(argv=None) -> int:
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
-    rows = [row, *mlp_rows, *front_rows, bwd_row, *epi_rows, *xconv_rows, *bf16_rows]
+    rows = [row, *mlp_rows, *front_rows, bwd_row, *epi_rows, *xconv_rows, *bf16_rows, *sift_rows]
     # Each kernel's launches on the path that carries it: train_good for
     # eigh9 and the MLP pair, val_feature (a) + (b) for K5 and K4,
     # joint_train (stages 1 + 2) for K5b, the sample-loss train_good for K3,
     # the conv-formulation tool for X1-X4, joint_bf16 (its three runs) for
-    # the bf16 K5 and K5b.
+    # the bf16 K5 and K5b, the SIFT dump for S1-S3.
     for r in rows:
         path, counts = (("val_feature", vf_counts) if r in front_rows
+                        else ("sift_dump", sift_counts["sift_dump"]) if r in sift_rows
                         else ("joint_train", joint_counts) if r is bwd_row
                         else ("joint_bf16", joint_bf16_counts) if r in bf16_rows
                         else ("sample_train", sample_counts) if r in epi_rows
@@ -6784,6 +7257,9 @@ def main(argv=None) -> int:
         r["launches_vo_superpoint"] = vosp_counts[r["name"]]
         r["launches_des_fusion"] = des_counts[r["name"]]
         r["launches_dsac"] = dsac_counts[r["name"]]
+        r["launches_sift_dump"] = sift_counts["sift_dump"][r["name"]]
+        r["launches_infer_sift"] = sift_counts["infer_sift"][r["name"]]
+        r["launches_dump_workflow"] = sift_counts["dump_workflow"][r["name"]]
         # Each parallel path's launches of this kernel, one entry a rank.
         r["launches_parallel"] = {path: [c.get(r["name"], 0) for c in ranks]
                                   for path, ranks in par_counts.items()}

@@ -14,7 +14,7 @@
         [--lengths 5,10] [--pose_graph] [--refine_ba] [--refine_min_matches m]
         [--device cpu|cuda]
     python -m deepfepe_tpu_torch.cli infer img1.png img2.png --pretrained ckpt
-        --pretrained_SP sp.pth.tar [--K fx,fy,cx,cy] [--config c.yaml]
+        [--pretrained_SP sp.pth.tar] [--K fx,fy,cx,cy] [--config c.yaml]
         [--good_num n] [--out pose.json] [--device cpu|cuda]
     python -m deepfepe_tpu_torch.cli export_torch <config.yaml> ckpt.msgpack
         out.pth.tar [--superpoint] [--n_iter n]
@@ -55,9 +55,10 @@ logs/<exper_name>/{trajectory_est,trajectory_gt,result}.txt;
 `--refine_ba` polishes each pair's pose, `--pose_graph` fuses a second
 sweep of (i, i + 2) pairs with the first in a pose graph
 (trajectory_pose_graph.txt, the report's 'pose_graph'). `infer` is
-the serving entry: two frames (JPEG or PNG) through SuperPoint and the solver to
-one JSON line of R, t_unit and E. `export_torch` writes a flax `.msgpack`
-checkpoint as the reference's `.pth.tar`; `verify_dump` checks a dump
+the serving entry: two frames (JPEG or PNG) through SuperPoint (with
+`--pretrained_SP`) or SIFT and the solver to one JSON line of R, t_unit
+and E. `export_torch` writes a flax `.msgpack` checkpoint as the
+reference's `.pth.tar`; `verify_dump` checks a dump
 tree; `tables` compares experiments' npz dumps; `baseline_gate` holds
 eval_good's dumps of KITTI 09/10 to BASELINE.md's targets. Every
 `--pretrained` takes a reference `.pth.tar` or a flax `.msgpack`. The
@@ -81,6 +82,8 @@ import torch
 
 from .ba import graph_from_odometry, optimize_pose_graph_two_stage
 from .data import KittiCorrDataset, SyntheticImagePairs, SyntheticSequence
+from .data.dump_kitti import match_pair
+from .data.kitti import crop_or_pad_choice
 from .data.prefetch import prefetch_batches
 from .eval import (chain_relative_poses, export_poses_kitti, frontend_epidist_eval,
                    kitti_odometry, val_rt_batch)
@@ -101,8 +104,6 @@ from .utils.device import batch_to_device, no_tf32, resolve_device
 from .utils.warp import get_perspective_transform
 from .utils.weights import load_superpoint, save_superpoint
 
-SIFT_ITEM = ("needs OpenCV's SIFT detector and matcher, which the port does not use "
-             "(ROADMAP Queue 1 item 8); give a SuperPoint checkpoint with --pretrained_SP")
 # BASELINE.md's targets: the reference's committed kitti-odom-eval outputs
 # (results/{deepF,deepFEPE}_kitti/{09,10}/result.txt:2-6).
 BASELINE_TARGETS = {
@@ -714,8 +715,12 @@ def infer(img1: str, img2: str, pretrained: str, pretrained_SP: str = "", K: str
     """The serving entry, the JAX CLI's `cmd_infer`: two frames (JPEG or PNG) ->
     the relative pose. SuperPoint from `pretrained_SP` (`.pth`, `.pth.tar`
     or flax `.msgpack`; gauss2 when it has BatchNorm statistics) gives up
-    to `good_num` mutual-NN matches (conf_thresh 1e-3); the solver from
-    `pretrained` (`.pth.tar` or `.msgpack`), built from `config` at the
+    to `good_num` mutual-NN matches (conf_thresh 1e-3); without it the SIFT
+    frontend (`data.dump_kitti.match_pair` at 2 good_num features: S1, S2a,
+    S2b and S3 on the card) gives the ratio-0.8 matches, sampled to
+    good_num rows by `crop_or_pad_choice` with RandomState(0), their
+    quality the second distance / 300, as the loader reads a dump; the
+    solver from `pretrained` (`.pth.tar` or `.msgpack`), built from `config` at the
     frames' size, else DeepFNet(depth 5, if_quality); E = KᵀF̂K
     decomposed in float64 by cheirality voting (`recover_pose`), and the
     matches' epipolar distances to F̂. Returns (and writes to `out` as
@@ -727,24 +732,31 @@ def infer(img1: str, img2: str, pretrained: str, pretrained_SP: str = "", K: str
     from .models import DeepFNet
     from .utils.image_io import read_grey
 
-    if not pretrained_SP:
-        raise NotImplementedError(f"infer without --pretrained_SP (the SIFT frontend) {SIFT_ITEM}")
     device = resolve_device(device)
     g1, g2 = read_grey(img1), read_grey(img2)
     H, W = g1.shape[:2]
     Kmat = read_intrinsics(K, H, W)
-    sp_net = load_superpoint(pretrained_SP, device)
-    imgs = torch.as_tensor(np.stack([g1, g2]).astype(np.float32) / 255.0, device=device)
-    fp = FrontendParams(out_num_points=good_num, conf_thresh=1e-3)
-    with torch.no_grad():
-        sp_out = get_matches_from_sp(sp_net, (imgs[:1], imgs[1:]), fp)
-    n_real = int(sp_out["valid"][0].sum())
-    if n_real < 8:
-        raise SystemExit(f"only {n_real} SuperPoint matches: the image pair does not suit this "
-                         "frontend (try a lower conf threshold)")
-    matches = sp_out["matches_xy_ori"][0].cpu().numpy()
-    db = {"matches_xy_ori": sp_out["matches_xy_ori"][:1],
-          "quality": sp_out["quality"][:1],
+    if pretrained_SP:
+        sp_net = load_superpoint(pretrained_SP, device)
+        imgs = torch.as_tensor(np.stack([g1, g2]).astype(np.float32) / 255.0, device=device)
+        fp = FrontendParams(out_num_points=good_num, conf_thresh=1e-3)
+        with torch.no_grad():
+            sp_out = get_matches_from_sp(sp_net, (imgs[:1], imgs[1:]), fp)
+        n_real = int(sp_out["valid"][0].sum())
+        if n_real < 8:
+            raise SystemExit(f"only {n_real} SuperPoint matches: the image pair does not suit "
+                             "this frontend (try the SIFT path or a lower conf threshold)")
+        xy, quality = sp_out["matches_xy_ori"][:1], sp_out["quality"][:1]
+    else:
+        good = match_pair(g1, g2, n_features=2 * good_num, device=device)[1]
+        n_real = len(good)
+        if n_real < 8:
+            raise SystemExit(f"only {n_real} matches")
+        choice = crop_or_pad_choice(n_real, good_num, np.random.RandomState(0))
+        xy = torch.as_tensor(good[choice, :4], device=device)[None]
+        quality = torch.as_tensor(good[choice, 4:5] / 300.0, device=device)[None]
+    matches = xy[0].cpu().numpy()
+    db = {"matches_xy_ori": xy, "quality": quality,
           "matches_good_unique_nums": torch.tensor([min(n_real, good_num)], device=device),
           "Ks": torch.as_tensor(Kmat, dtype=torch.float32, device=device)[None],
           "t_scene_scale": torch.ones((1, 1), device=device)}
@@ -767,7 +779,8 @@ def infer(img1: str, img2: str, pretrained: str, pretrained_SP: str = "", K: str
     result = {"R": rec.R[0].cpu().numpy().tolist(), "t_unit": rec.t[0].cpu().numpy().tolist(),
               "E": E[0].cpu().numpy().tolist(), "num_matches": n_real,
               "epi_inlier_ratio_1px": float(np.mean(d < 1.0)),
-              "epi_median_px": float(np.median(d)), "frontend": "superpoint"}
+              "epi_median_px": float(np.median(d)),
+              "frontend": "superpoint" if pretrained_SP else "sift"}
     if out:
         with open(out, "w") as f:
             f.write(json.dumps(result))

@@ -1,25 +1,33 @@
 """Offline dump creation: frames and poses -> the dump tree the loader reads.
 
-Counterpart of `deepfepe_tpu/data/dump_kitti.py` in two parts:
+Counterpart of `deepfepe_tpu/data/dump_kitti.py` in three parts:
 
+- the SIFT dump (`sift_detect`, `knn_match`, `match_pair`,
+  `dump_sequence`, `dump_kitti_odometry`): OpenCV's SIFT
+  (`cv2.SIFT_create(nfeatures, contrastThreshold=1e-5)`) and two-NN
+  matching with Lowe's ratio test (`cv2.BFMatcher().knnMatch(k=2)`) as
+  this package computes them (`frontend/sift.py`: the kernels S1, S2a and
+  S2b on the card; `ops/knn2.py`: S3), per frame `sift_%06d` ([N, 130]:
+  x y + descriptor), per pair `ij_match_quality_{i}-{j}_{all,good}` (ratio
+  0.9 and 0.8; [M, 6]: x1 y1 x2 y2, the second distance, the distance
+  ratio) and `ij_idx_{i}-{j}_{all,good}_ij`, beside `cam.npy`, `poses.npy`
+  and `Rt_cam2_gt.npy`; `dump_kitti_odometry` converts a raw KITTI
+  odometry tree (P2 of calib.txt, its cam0 -> cam2 baseline);
 - numpy helpers for raw KITTI (OXTS poses, calibration files, velodyne
   clouds in the camera frames, the `X_cam0_%06d` / `X_cam2_%06d` files of
   `with_X`), copied;
 - the SuperPoint dump (`sp_detect_frames`, `dump_sequence_sp`) on this
   package's frontend: keypoints of each frame from `run_superpoint` (K5 on
   the card with the conv switch on 'pallas'), mutual-NN matches of each
-  pair from `mutual_nn_match` (K4 on the card at K >= 768), written as
-  `ij_match_quality_{i}-{j}_{all,good}`, `ij_idx_{i}-{j}_{all,good}_ij`
-  and `sift_%06d` beside `cam.npy`, `poses.npy` and `Rt_cam2_gt.npy`.
+  pair from `mutual_nn_match` (K4 on the card at K >= 768), in the SIFT
+  dump's files.
 
 Frames are read as grey through `utils.image_io` (JPEG or any PNG form, as
 `cv2.imread(IMREAD_GRAYSCALE)` reads them) and written as `%06d.jpg` at
 quality 95 through the native encoder (`utils.jpeg.write_jpeg`), the bytes
 `cv2.imwrite` writes, as the JAX package writes them; the keypoints come
 from the frames as read, before the JPEG round trip, in both packages.
-The SIFT dump (`dump_sequence`) needs OpenCV's SIFT, which the card's
-machine does not have: it raises; `dump_kitti_odometry`, which drives it,
-is left out.
+The entry points that compute take `device` (None: the card).
 """
 
 from __future__ import annotations
@@ -30,19 +38,139 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..frontend import sift
+from ..frontend.sift import sift_detect  # noqa: F401  (the JAX module's name)
 from ..frontend.matching import mutual_nn_match
 from ..frontend.pipeline import FrontendParams, run_superpoint
+from ..ops.knn2 import knn2, ratio_matches
+from ..utils.device import resolve_device
 from ..utils.image_io import read_grey
 from ..utils.jpeg import write_jpeg
 from .kitti import save_arr
 
-SIFT_ITEM = "ROADMAP Queue 1 item 8, the SIFT dump"
+
+# ---------------------------------------------------------------------------
+# The SIFT dump.
+# ---------------------------------------------------------------------------
 
 
-def dump_sequence(*args, **kwargs) -> None:
-    """The SIFT dump: not ported (it needs cv2's SIFT)."""
-    raise NotImplementedError(f"the SIFT dump needs OpenCV's SIFT, which the port does not use "
-                              f"({SIFT_ITEM}); use dump_sequence_sp")
+def sift_features(img_grey, n_features: int = 2000, device=None):
+    """`sift_detect` with the descriptors left on the device: (pts [N, 2]
+    float32 numpy, des [N, 128] float32 tensor)."""
+    kp, des = sift.detect_and_compute(sift.as_uint8_frame(img_grey), n_features,
+                                      resolve_device(device))
+    return kp[:, :2].cpu().numpy(), des
+
+
+def _knn_rows(des1, des2, ratios: Sequence[float], device=None):
+    """Lowe's ratio test at each ratio on one two-NN search (S3 on the
+    card): a list of (idx [M, 2] int32, quality [M, 2] float32) numpy."""
+    dev = resolve_device(device)
+    d1, d2 = torch.as_tensor(des1, device=dev), torch.as_tensor(des2, device=dev)
+    nn, dist = knn2(d1.float(), d2.float())
+    out = []
+    for ratio in ratios:
+        idx, q = ratio_matches(nn, dist, ratio)
+        out.append((idx.cpu().numpy().astype(np.int32), q.cpu().numpy()))
+    return out
+
+
+def knn_match(des1, des2, ratio: float = 0.8, device=None) -> Tuple[np.ndarray, np.ndarray]:
+    """Two-NN + Lowe's ratio test: (idx pairs [M, 2] int32, quality [M, 2]
+    float32: the second distance and d1 / (d2 + 1e-9)), as the JAX
+    package's `knn_match` returns them from cv2.BFMatcher, bit for bit."""
+    return _knn_rows(des1, des2, (ratio,), device)[0]
+
+
+def _match_rows(p1, p2, idx, q) -> np.ndarray:
+    if len(idx) == 0:
+        return np.zeros((0, 6), np.float32)
+    return np.concatenate([p1[idx[:, 0]], p2[idx[:, 1]], q], 1).astype(np.float32)
+
+
+def match_pair(img1: np.ndarray, img2: np.ndarray, ratio_all: float = 0.9,
+               ratio_good: float = 0.8, n_features: int = 2000, device=None):
+    """Detect + match one frame pair -> (all [Na, 6], good [Ng, 6])."""
+    p1, d1 = sift_features(img1, n_features, device)
+    p2, d2 = sift_features(img2, n_features, device)
+    if len(p1) == 0 or len(p2) == 0:
+        z = np.zeros((0, 6), np.float32)
+        return z, z
+    (ia, qa), (ig, qg) = _knn_rows(d1, d2, (ratio_all, ratio_good), device)
+    return _match_rows(p1, p2, ia, qa), _match_rows(p1, p2, ig, qg)
+
+
+def _save_scene_files(out: Path, K: np.ndarray, poses: np.ndarray,
+                      Rt_cam2_gt: Optional[np.ndarray]) -> None:
+    out.mkdir(parents=True, exist_ok=True)
+    np.save(out / "cam.npy", K.astype(np.float32))
+    np.save(out / "poses.npy", poses.astype(np.float32))
+    np.save(out / "Rt_cam2_gt.npy",
+            (Rt_cam2_gt if Rt_cam2_gt is not None else np.eye(4)).astype(np.float64))
+
+
+def _read_frames(image_files: Sequence[str], out: Path) -> list:
+    greys = []
+    for i, f in enumerate(image_files):
+        img = read_grey(f)
+        greys.append(img)
+        write_jpeg(out / f"{i:06d}.jpg", img)
+    return greys
+
+
+def dump_sequence(image_files: Sequence[str], poses: np.ndarray, K: np.ndarray, out_dir: str,
+                  Rt_cam2_gt: Optional[np.ndarray] = None, delta_ijs: Sequence[int] = (1,),
+                  n_features: int = 2000, use_h5: bool = False, device=None) -> None:
+    """Write one scene in the reference dump layout with the SIFT frontend:
+    the frames as `%06d.jpg`, `sift_%06d` ([N, 130]: x y + descriptor) a
+    frame, and for each pair (i, i + delta) the ratio-0.9 ('all') and
+    ratio-0.8 ('good') matches ([M, 6]: x1 y1 x2 y2, the second distance,
+    the distance ratio) with their index pairs into the sift files.
+    `use_h5`: the per-frame and per-pair files as .h5 (dataset 'arr')."""
+    out = Path(out_dir)
+    _save_scene_files(out, K, poses, Rt_cam2_gt)
+    greys = _read_frames(image_files, out)
+    feats = [sift_features(g, n_features, device) for g in greys]
+    for i, (p, d) in enumerate(feats):
+        save_arr(out / f"sift_{i:06d}", np.concatenate([p, d.cpu().numpy()], 1), use_h5)
+    for i in range(len(greys)):
+        for dij in delta_ijs:
+            j = i + dij
+            if j >= len(greys) or len(feats[i][0]) == 0 or len(feats[j][0]) == 0:
+                continue
+            (p1, d1), (p2, d2) = feats[i], feats[j]
+            for kind, (idx, q) in zip(("all", "good"), _knn_rows(d1, d2, (0.9, 0.8), device)):
+                save_arr(out / f"ij_match_quality_{i}-{j}_{kind}", _match_rows(p1, p2, idx, q),
+                         use_h5)
+                save_arr(out / f"ij_idx_{i}-{j}_{kind}_ij", idx.astype(np.int32), use_h5)
+
+
+def read_p2(calib_path) -> Tuple[np.ndarray, np.ndarray]:
+    """K and the cam0 -> cam2 offset [4, 4] from a KITTI odometry calib.txt's
+    P2 row (K^-1 of P2's last column)."""
+    with open(calib_path) as f:
+        for line in f:
+            if line.startswith("P2:"):
+                P = np.array(line[3:].split(), np.float64).reshape(3, 4)
+                Rt_cam2 = np.eye(4)
+                Rt_cam2[:3, 3] = np.linalg.inv(P[:, :3]) @ P[:, 3]
+                return P[:, :3], Rt_cam2
+    raise ValueError(f"no P2 in {calib_path}")
+
+
+def dump_kitti_odometry(kitti_root: str, out_root: str, sequences: Sequence[str],
+                        delta_ijs: Sequence[int] = (1,), cam: str = "image_2",
+                        device=None) -> None:
+    """Convert a standard KITTI odometry tree into the SIFT dump tree:
+    {kitti_root}/sequences/NN/{cam}/*.png (or .jpg), sequences/NN/calib.txt
+    and poses/NN.txt -> {out_root}/NN/."""
+    for seq in sequences:
+        seq_dir = Path(kitti_root) / "sequences" / seq
+        imgs = sorted((seq_dir / cam).glob("*.png")) + sorted((seq_dir / cam).glob("*.jpg"))
+        poses = np.genfromtxt(Path(kitti_root) / "poses" / f"{seq}.txt").reshape(-1, 3, 4)
+        K, Rt_cam2 = read_p2(seq_dir / "calib.txt")
+        dump_sequence([str(p) for p in imgs], poses, K, str(Path(out_root) / seq),
+                      Rt_cam2_gt=Rt_cam2, delta_ijs=delta_ijs, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -213,16 +341,8 @@ def dump_sequence_sp(image_files: Sequence[str], poses: np.ndarray, K: np.ndarra
     distance (the loader's /300 returns the distance) as both the 'all'
     and the 'good' set."""
     out = Path(out_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    np.save(out / "cam.npy", K.astype(np.float32))
-    np.save(out / "poses.npy", poses.astype(np.float32))
-    np.save(out / "Rt_cam2_gt.npy",
-            (Rt_cam2_gt if Rt_cam2_gt is not None else np.eye(4)).astype(np.float64))
-    greys = []
-    for i, f in enumerate(image_files):
-        img = read_grey(f)
-        greys.append(img)
-        write_jpeg(out / f"{i:06d}.jpg", img)
+    _save_scene_files(out, K, poses, Rt_cam2_gt)
+    greys = _read_frames(image_files, out)
     feats = sp_detect_frames(greys, net, out_num_points=out_num_points, conv_impl=conv_impl)
     for i, (p, d) in enumerate(feats):
         save_arr(out / f"sift_{i:06d}", np.concatenate([p, d], 1), use_h5)

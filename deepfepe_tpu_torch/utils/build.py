@@ -25,6 +25,14 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC)]
+# The SIFT kernels round every product and sum on its own, as their torch
+# twins do (their fused multiply-adds are explicit).
+SOURCE_FLAGS = {"sift.cu": ["-fmad=false"]}
+
+
+def flags(source: str) -> list:
+    """nvcc's flags for `csrc/<source>`."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(source, [])
 
 
 def find_nvcc() -> str:
@@ -43,7 +51,7 @@ def library_path(source: str) -> Path:
     h = hashlib.sha256(Path(CSRC, source).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags(source)).encode())
     return BUILD_DIR / f"{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
@@ -56,7 +64,7 @@ def build(source: str) -> tuple[Path, str]:
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(Path(CSRC, source))]
+    cmd = [find_nvcc(), *flags(source), "-o", str(tmp), str(Path(CSRC, source))]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

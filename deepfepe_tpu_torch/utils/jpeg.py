@@ -16,10 +16,8 @@
   (Average and Paeth run serially along a row).
 
 The source is built with g++ at first use into `build/torch_native/` at the
-repository root, under a name that carries a hash of the source and the
-flags, written under a temporary name and moved into place with
-`os.replace`, as `data/native_loader.py` builds its library. A failed build
-raises with g++'s message; nothing falls back to another reader. The codec
+repository root (`utils/native_build.py`). A failed build raises with
+g++'s message; nothing falls back to another reader. The codec
 keeps no global state, so threads may decode at the same time.
 """
 
@@ -27,45 +25,25 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import subprocess
 from pathlib import Path
 
 import numpy as np
 
-SRC = Path(__file__).resolve().parents[1] / "native" / "jpeg.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_native"
-GXX_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
+from . import native_build
+
+SOURCE = "jpeg.cpp"
 UNSUPPORTED_ITEM = "ROADMAP Queue 1 item 9, the image forms the native readers refuse"
 _ERRLEN = 256
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(SRC.read_bytes())
-    h.update(" ".join(GXX_FLAGS).encode())
-    return BUILD_DIR / f"jpeg_{h.hexdigest()[:16]}.so"
+    return native_build.library_path(SOURCE)
 
 
 def build() -> Path:
     """Compile the codec unless its library exists; raise with g++'s
     message when the build fails."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    try:
-        proc = subprocess.run(["g++", *GXX_FLAGS, str(SRC), "-o", str(tmp)],
-                              capture_output=True, text=True, timeout=300)
-    except (OSError, subprocess.SubprocessError) as e:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ could not build {SRC.name}: {e}") from e
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed for {SRC.name}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    return native_build.build(SOURCE)
 
 
 @functools.lru_cache(maxsize=None)

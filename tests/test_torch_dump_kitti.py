@@ -22,6 +22,17 @@ sequence they take (`SyntheticImageSequence`).
   tree then reads through both packages' loaders with every numpy key
   equal bit for bit and the frames within one grey level, and the JAX
   package's tree reads through the port's loader as through its own.
+- The SIFT dump (`dump_sequence`) of the same four frames in both
+  packages (the JAX side through OpenCV's SIFT and BFMatcher, the port
+  through its own, `frontend/sift.py` and `ops/knn2.py`): the same file
+  names, `cam`, `poses` and `Rt_cam2_gt` bit for bit, the frames' JPEG
+  bytes equal, each frame's keypoints at `frontend.sift.PARITY_BARS`, and
+  97% of each pair's match rows (x1 y1 x2 y2 within 0.01 px) shared, in
+  'good' and 'all'. The port's `eval_good` over the port's tree and over
+  the JAX package's, with the same seeds: median err_q and err_t within
+  0.1 deg + 10%. `dump_kitti_odometry` over a three-frame raw KITTI tree
+  (PNG frames, calib.txt, poses): the same tree in both packages, P2's K
+  and cam0 -> cam2 offset bit for bit.
 - `val_feature --config` over such a tree with its frames: the summary
   equals the JAX `frontend_epidist_eval` over the JAX loader's batches of
   the same tree with the same weights (match counts equal, ratios within
@@ -46,7 +57,7 @@ from deepfepe_tpu_torch.data import dump_kitti as t_dump
 from deepfepe_tpu_torch.data import SyntheticImageSequence
 from deepfepe_tpu_torch.data.kitti import KittiCorrDataset as TKitti
 from deepfepe_tpu_torch.data.dump_kitti import dump_sequence_sp
-from deepfepe_tpu_torch.frontend import SuperPointNet
+from deepfepe_tpu_torch.frontend import SuperPointNet, sift
 from deepfepe_tpu_torch.train import config_from_dict
 from deepfepe_tpu_torch.utils.image_io import read_grey, write_png
 from deepfepe_tpu_torch.utils.weights import superpoint_state_from_flax
@@ -102,9 +113,109 @@ def test_raw_kitti_helpers_equal_jax(tmp_path):
         np.testing.assert_array_equal(np.load(tmp_path / "t" / f.name), np.load(f))
 
 
-def test_the_sift_dump_raises():
-    with pytest.raises(NotImplementedError, match="SIFT"):
-        t_dump.dump_sequence([], np.zeros((0, 3, 4)), np.eye(3), "x")
+def test_the_sift_dump_raises(tmp_path):
+    """On a frame it cannot read, as the JAX package's does."""
+    with pytest.raises(OSError):
+        t_dump.dump_sequence([str(tmp_path / "missing.png")], np.zeros((1, 3, 4)), np.eye(3),
+                             str(tmp_path / "x"), device="cpu")
+    with pytest.raises(OSError):
+        j_dump.dump_sequence([str(tmp_path / "missing.png")], np.zeros((1, 3, 4)), np.eye(3),
+                             str(tmp_path / "y"))
+
+
+def _png_frames(root, seq):
+    frames = []
+    for k, img in enumerate(seq.frames()):
+        frames.append(str(root / f"frame_{k}.png"))
+        write_png(frames[-1], np.rint(img * 255).astype(np.uint8))
+    return frames
+
+
+@pytest.fixture(scope="module")
+def sift_dumps(tmp_path_factory):
+    """Both packages' SIFT dumps of the same four PNG frames."""
+    root = tmp_path_factory.mktemp("sift")
+    seq = SyntheticImageSequence(**SEQ)
+    frames = _png_frames(root, seq)
+    kw = dict(delta_ijs=(1, 2))
+    j_dump.dump_sequence(frames, seq.cam2world_poses(), seq.K, str(root / "jax" / "00"), **kw)
+    t_dump.dump_sequence(frames, seq.cam2world_poses(), seq.K, str(root / "torch" / "00"),
+                         device="cpu", **kw)
+    return root
+
+
+def _shared_rows(a, b):
+    near = np.abs(a[:, None, :4] - b[None, :, :4]).max(-1) <= 0.01
+    return min(near.any(1).sum(), near.any(0).sum()) / max(len(a), len(b), 1)
+
+
+def _same_sift_tree(jdir, tdir):
+    jfiles = sorted(p.name for p in jdir.iterdir())
+    assert jfiles == sorted(p.name for p in tdir.iterdir())
+    for name in jfiles:
+        if name.endswith(".jpg"):
+            assert (tdir / name).read_bytes() == (jdir / name).read_bytes(), name
+            continue
+        a, b = np.load(jdir / name), np.load(tdir / name)
+        assert a.dtype == b.dtype and a.shape[1:] == b.shape[1:], name
+        if name.startswith("sift_"):  # the port keeps OpenCV's count and order here
+            assert len(a) == len(b), name
+            assert (np.abs(b[:, :2] - a[:, :2]).max(1) <= 0.01).mean() \
+                >= sift.PARITY_BARS["paired"], name
+            assert (np.abs(b[:, 2:] - a[:, 2:]).max(1) <= sift.PARITY_BARS["desc_tol"]).mean() \
+                >= sift.PARITY_BARS["desc_rows"], name
+        elif name.startswith("ij_match_quality"):
+            assert len(a) > 20 and _shared_rows(b, a) >= 0.97, name
+        elif name.startswith("ij_idx"):
+            assert abs(len(a) - len(b)) <= 0.03 * len(a), name
+        else:
+            np.testing.assert_array_equal(b, a, err_msg=name)
+    return jfiles
+
+
+def test_sift_dump_files_equal_jax(sift_dumps):
+    files = _same_sift_tree(sift_dumps / "jax" / "00", sift_dumps / "torch" / "00")
+    assert len([f for f in files if f.startswith("ij_match_quality")]) == 2 * (3 + 2)
+    assert len([f for f in files if f.endswith(".jpg")]) == 4
+
+
+def test_sift_dump_eval_good_on_either_tree(sift_dumps, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    raw = {"data": {"dataset": "kitti_odo_corr", "batch_size": 2, "good_num": 64,
+                    "test_scenes": ["00"], "delta_ij": 1, "image": {"size": [120, 160, 3]},
+                    "preprocessing": {"resize": [120, 160]}},
+           "model": {"depth": 2, "clamp_at": 0.02, "mlp_dtype": "float32"},
+           "training": {"seed": 0}}
+    out = {}
+    for tree in ("torch", "jax"):
+        raw["data"]["dump_root"] = str(sift_dumps / tree)
+        out[tree] = cli.eval_good(config_from_dict(raw), 0, device="cpu")
+    assert out["torch"]["pairs"] == out["jax"]["pairs"] == 3
+    for k in ("median_err_q", "median_err_t"):
+        assert abs(out["torch"][k] - out["jax"][k]) <= 0.1 + 0.1 * abs(out["jax"][k]), (k, out)
+
+
+def test_dump_kitti_odometry_equals_jax(tmp_path):
+    seq = SyntheticImageSequence(**{**SEQ, "n_frames": 3})
+    seq_dir = tmp_path / "kitti" / "sequences" / "00"
+    (seq_dir / "image_2").mkdir(parents=True)
+    for k, img in enumerate(seq.frames()):
+        write_png(str(seq_dir / "image_2" / f"{k:06d}.png"), np.rint(img * 255).astype(np.uint8))
+    K = seq.K
+    P2 = np.c_[K, K @ np.array([0.06, -0.001, 0.003])]
+    with open(seq_dir / "calib.txt", "w") as f:
+        for i, P in enumerate((np.c_[K, np.zeros(3)], np.c_[K, [-386.1, 0, 0]], P2, P2)):
+            f.write(f"P{i}: " + " ".join(f"{v:.12e}" for v in P.ravel()) + "\n")
+    (tmp_path / "kitti" / "poses").mkdir()
+    np.savetxt(tmp_path / "kitti" / "poses" / "00.txt",
+               seq.cam2world_poses()[:, :3].reshape(3, 12))
+    j_dump.dump_kitti_odometry(str(tmp_path / "kitti"), str(tmp_path / "jax"), ["00"])
+    t_dump.dump_kitti_odometry(str(tmp_path / "kitti"), str(tmp_path / "torch"), ["00"],
+                               device="cpu")
+    files = _same_sift_tree(tmp_path / "jax" / "00", tmp_path / "torch" / "00")
+    assert "ij_match_quality_1-2_good.npy" in files
+    Rt = np.load(tmp_path / "torch" / "00" / "Rt_cam2_gt.npy")
+    np.testing.assert_allclose(Rt[:3, 3], [0.06, -0.001, 0.003], atol=1e-9)
 
 
 @pytest.fixture(scope="module")

@@ -79,7 +79,8 @@ def test_importing_the_port_loads_no_jax():
               "tools.train_sp_full", "tools.finetune_sp_corners", "tools.train_joint_full",
               "tools.eval_joint_ckpts", "tools.vo_superpoint", "tools.sp_pipeline",
               "models.dsac", "utils.jpeg", "ops.conv_s2d", "eval.val_pipeline", "utils.vis",
-              "utils.video"):
+              "utils.video", "frontend.sift", "ops.sift", "ops.knn2", "utils.native_build",
+              "tools.dump_workflow", "tools.sift_blur_study"):
         assert f"deepfepe_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -107,7 +108,8 @@ CARD_TEST_FILES = sorted(str(p.relative_to(REPO)) for p in (REPO / "tests").glob
 
 def test_the_card_tests_are_found():
     assert {"tests/test_torch_cuda_kernels.py", "tests/test_torch_eigh_card.py",
-            "tests/test_torch_matcher_card.py", "tests/test_torch_mlp_card.py"} <= set(CARD_TEST_FILES)
+            "tests/test_torch_matcher_card.py", "tests/test_torch_mlp_card.py",
+            "tests/test_torch_sift_card.py"} <= set(CARD_TEST_FILES)
 
 
 @pytest.mark.parametrize("path", CARD_TEST_FILES)
@@ -152,6 +154,25 @@ def test_joint_tools_need_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_pat
     if tool == "vo_superpoint":
         with pytest.raises(FileNotFoundError):  # the CPU path reaches the checkpoint
             mod.main([*argv, "--out", str(tmp_path), "--cpu"])
+
+
+def test_sift_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
+    import numpy as np
+
+    from deepfepe_tpu_torch.data import dump_kitti
+    from deepfepe_tpu_torch.tools import dump_workflow
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    img = np.zeros((32, 40), np.uint8)
+    for call in (lambda: dump_kitti.sift_detect(img),
+                 lambda: dump_kitti.knn_match(np.zeros((2, 128), np.float32),
+                                              np.zeros((3, 128), np.float32)),
+                 lambda: dump_kitti.match_pair(img, img),
+                 lambda: dump_workflow.main(["--out", str(tmp_path / "dw")]),
+                 lambda: cli.infer("a.png", "b.png", "x.msgpack")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert dump_kitti.sift_detect(img, device="cpu")[0].shape == (0, 2)
 
 
 def test_train_good_needs_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):

@@ -14,8 +14,13 @@ the ablation driver.
   Frobenius norm, sign-aligned) within 2e-3: the solver's float32 rounding
   (tests/test_torch_eval_good.py's F bar on the card is 1e-3) through a
   float64 decomposition.
-- What `infer` does not port raises: the SIFT frontend (no
-  `--pretrained_SP`, ROADMAP Queue 1 item 8) and JPEG frames (item 1).
+- `infer` without `--pretrained_SP` (the SIFT frontend: ratio-0.8
+  matches at 2 good_num features, sampled by `crop_or_pad_choice` with
+  RandomState(0), quality / 300) against the JAX CLI's SIFT branch
+  (OpenCV's SIFT and BFMatcher) on the same frames: the same match count
+  and the solver's pose at the bars above.
+- What `infer` does not port raises: JPEG forms the native decoder refuses
+  (ROADMAP Queue 1 item 9).
 - `load_superpoint` reads the JAX package's flax `.msgpack` variables
   (gauss2 with batch statistics, or the plain net) into the net the JAX
   importer's state dict gives, and `val_feature --pretrained` takes one.
@@ -102,10 +107,10 @@ def jax_infer(pair):
             mp.setattr(cls, "init", template)
         mp.setattr(JDeepFNet, "apply", jitted_apply)
         mp.setattr(j_frontend, "get_matches_from_sp", jitted_matches)
-        return j_cli.cmd_infer(types.SimpleNamespace(
+        return {sp: j_cli.cmd_infer(types.SimpleNamespace(
             img1=pair["frames"][0], img2=pair["frames"][1], pretrained=CKPT,
-            pretrained_SP=pair["sp"], K=pair["K"], config="", good_num=GOOD_NUM,
-            out=str(pair["root"] / "jax.json")))
+            pretrained_SP=sp, K=pair["K"], config="", good_num=GOOD_NUM,
+            out=str(pair["root"] / "jax.json"))) for sp in (pair["sp"], "")}
 
 
 def _unit(E):
@@ -121,7 +126,7 @@ def test_infer_matches_jax(pair, jax_infer, capsys):
                     str(out), "--device", "cpu"])
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == got
     assert json.loads(out.read_text()) == got
-    want = jax_infer
+    want = jax_infer[pair["sp"]]
     assert set(got) == set(want) and got["frontend"] == want["frontend"] == "superpoint"
     assert got["num_matches"] == want["num_matches"] >= 8
     assert abs(got["epi_inlier_ratio_1px"] - want["epi_inlier_ratio_1px"]) <= 1.0 / GOOD_NUM
@@ -130,6 +135,20 @@ def test_infer_matches_jax(pair, jax_infer, capsys):
     R = np.asarray(got["R"])
     np.testing.assert_allclose(R @ R.T, np.eye(3), atol=1e-9)
     np.testing.assert_allclose(R, want["R"], atol=POSE_BAR)
+    np.testing.assert_allclose(got["t_unit"], want["t_unit"], atol=POSE_BAR)
+    np.testing.assert_allclose(_unit(got["E"]), _unit(want["E"]), atol=POSE_BAR)
+
+
+def test_infer_sift_matches_jax(pair, jax_infer):
+    got = cli.main(["infer", *pair["frames"], "--pretrained", CKPT, "--K", pair["K"],
+                    "--good_num", str(GOOD_NUM), "--device", "cpu"])
+    want = jax_infer[""]
+    assert set(got) == set(want) and got["frontend"] == want["frontend"] == "sift"
+    assert got["num_matches"] == want["num_matches"] >= 8
+    assert abs(got["epi_inlier_ratio_1px"] - want["epi_inlier_ratio_1px"]) <= 1.0 / GOOD_NUM
+    assert abs(got["epi_median_px"] - want["epi_median_px"]) \
+        <= 1e-2 * want["epi_median_px"] + 1e-4
+    np.testing.assert_allclose(got["R"], want["R"], atol=POSE_BAR)
     np.testing.assert_allclose(got["t_unit"], want["t_unit"], atol=POSE_BAR)
     np.testing.assert_allclose(_unit(got["E"]), _unit(want["E"]), atol=POSE_BAR)
 
@@ -151,8 +170,6 @@ def test_infer_with_a_config_and_a_reference_solver_file(pair, tmp_path):
 
 
 def test_infer_refuses_what_is_not_ported(pair, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        cli.main(["infer", *pair["frames"], "--pretrained", CKPT, "--device", "cpu"])
     jpg = tmp_path / "a.jpg"  # an arithmetic-coded (SOF9) frame header
     jpg.write_bytes(b"\xff\xd8\xff\xc9\x00\x0b\x08\x00\x10\x00\x10\x01\x01\x11\x00\xff\xd9")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
